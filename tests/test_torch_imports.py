@@ -1,0 +1,93 @@
+"""The port stands alone: no module of src/repro_torch and not
+chip_smoke.py imports jax, jaxlib or the JAX package, and its entry
+points refuse to run without a GPU unless asked for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_no_jax_or_reference_import_in_source():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
+           for p in files for root, line in _imported_roots(p) if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_every_module_loads_no_jax():
+    # a subprocess: tests/conftest.py has already imported jax here
+    mods = [".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+            for p in sorted(PORT.rglob("*.py"))]
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for m in {mods!r}:
+            importlib.import_module(m)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print(len({mods!r}))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120, cwd=str(REPO))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[-1]) == len(mods)
+
+
+def test_entry_points_need_cuda_unless_cpu_requested(monkeypatch):
+    from repro_torch import quickstart
+    from repro_torch.agents.dqn import DQNConfig, make_dqn
+    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.runtime.executors import FusedExecutor
+    from repro_torch.runtime.loop import LoopConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec, _, _ = make_vec("cartpole", 1)
+    example = quickstart.transition_example(spec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PrioritizedReplay(ReplayConfig(capacity=64, fanout=8), example)
+    replay = PrioritizedReplay(ReplayConfig(capacity=64, fanout=8), example,
+                               device="cpu")
+    env_fn = lambda n: make_vec("cartpole", n)  # noqa: E731
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FusedExecutor(make_dqn(spec, DQNConfig()), replay, env_fn, LoopConfig(), 4)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        quickstart.main(["--iterations", "2"])
+    FusedExecutor(make_dqn(spec, DQNConfig()), replay, env_fn, LoopConfig(), 4,
+                  device="cpu")   # an explicit CPU request runs
+
+
+def test_quickstart_runs_on_cpu_when_asked(capsys):
+    from repro_torch import quickstart
+    state, hist = quickstart.main(["--device", "cpu", "--iterations", "70",
+                                   "--n-envs", "8", "--fused-sample-gather",
+                                   "--backend", "cuda"])
+    # warmup 500: iterations 63..69 learn, 8 learner calls each
+    assert state.env_steps == 560 and state.learn_steps == 7 * 8
+    assert "tree backend cuda" in capsys.readouterr().out
