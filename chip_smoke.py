@@ -12,7 +12,11 @@ failure and prints no result):
                 at the main path's shapes (capacity 50,000, K=128, B=64),
                 at the Nature-DQN replay size (1,000,000, K=128, B=512),
                 at K=8 and K=256 (100,000) and on a tree whose root is
-                bumped above its children (the padded-tail clamp);
+                bumped above its children (the padded-tail clamp), under
+                the rules of src/repro_torch/kernels/parity.py: sampled
+                indices under the fp-tie rule (at B and at 65,536 draws),
+                rows bit-exact, the update's leaves bit for bit and each
+                interior level at rtol 1e-5 plus 1e-6 of its magnitude;
   4. main path — FusedExecutor on CUDA with the settings of
                 tests/test_system.py (CartPole × 8 envs, DQN (4, 256, 256, 2),
                 capacity 20,000, K=128, batch 64, 1,400 iterations): the
@@ -121,24 +125,6 @@ def bound(nbytes: float, ops: float):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def at_fp_ties(torch, leaves, total, u, got, want, rtol=2e-5) -> bool:
-    """Sampled indices agree, or differ only at an fp tie of the CDF: the
-    draw's position ``clip(u)·total`` lies within ``rtol·total`` of the CDF
-    boundary between the two leaves.  The kernel's warp scan and the plain
-    cumsum round partial sums differently; at a total of 10^6 in f32 that
-    moves about one draw in a hundred onto the neighbouring leaf."""
-    bad = got != want
-    if not bool(bad.any()):
-        return True
-    cdf = torch.cumsum(leaves.double(), 0)
-    tot = float(total)
-    pos = torch.clamp(u[bad], 1e-12, 1.0 - 1e-7).double() * tot
-    lo = torch.minimum(got[bad], want[bad])
-    hi = torch.maximum(got[bad], want[bad])
-    tol = rtol * tot
-    return bool(((pos >= cdf[lo] - tol) & (pos <= cdf[hi - 1] + tol)).all())
-
-
 def rows_touched(torch, spec, leaf):
     """Distinct sibling rows the descent reads for these sampled leaves."""
     rows = 0
@@ -172,7 +158,7 @@ def main() -> None:
     from repro_torch.core import sumtree
     from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
     from repro_torch.envs.classic import make_vec
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, parity
     from repro_torch.kernels import sumtree_update as kupdate
     from repro_torch.quickstart import transition_example
     from repro_torch.runtime.executors import FusedExecutor
@@ -230,26 +216,31 @@ def main() -> None:
     shapes = [("main path", 50_000, 128, 64), ("Nature DQN", 1_000_000, 128, 512),
               ("K=8", 100_000, 8, 512), ("K=256", 100_000, 256, 512),
               ("tiny tail", 10, 4, 64)]
+    ties = {}
     for label, capacity, fanout, batch in shapes:
         spec, tree0 = tree_for(capacity, fanout)
         storage = storage_for(capacity)
-        flips = 0
+        reports = {65_536: [], batch: []}
         for tree in (tree0, bumped(spec, tree0)):
-            u = torch.cat([torch.full((4,), 1.0 - 1e-7, device=dev),
-                           torch.rand((batch - 4,), generator=gen, device=dev)])
-            # 1: sample — indices equal except at an fp tie of the CDF
-            ki, kp = ops.sumtree_sample(spec, tree, u)
-            pi, pp = sumtree.sample(spec, tree, u)
-            torch.cuda.synchronize()
-            agree = ki == pi
-            flips += int((~agree).sum())
-            check(at_fp_ties(torch, sumtree.leaves(spec, tree), tree[0], u, ki, pi),
-                  f"sumtree_sample idx disagrees beyond fp ties at {label}")
-            torch.testing.assert_close(kp[agree], pp[agree], rtol=1e-5, atol=0)
-            err["sumtree_sample"] = max(err["sumtree_sample"],
-                                        float((kp[agree] - pp[agree]).abs().max()))
-            check(bool((ki[:4] <= capacity - 1).all()) and bool((kp[:4] > 0).all()),
-                  f"tail draws did not clamp onto a live leaf at {label}")
+            # 1: sample — indices equal except under the fp-tie rule of
+            # kernels/parity.py, at 65,536 draws and at the path's batch;
+            # the first four draws are u → 1, the tail
+            for draws in reports:
+                u = torch.cat([torch.full((4,), 1.0 - 1e-7, device=dev),
+                               torch.rand((draws - 4,), generator=gen, device=dev)])
+                ki, kp = ops.sumtree_sample(spec, tree, u)
+                pi, pp = sumtree.sample(spec, tree, u)
+                torch.cuda.synchronize()
+                rep = parity.sample_ties(spec, tree, u, ki, pi)
+                check(rep.ok, f"sumtree_sample idx at {label}, {draws} draws: {rep}")
+                reports[draws].append(rep)
+                agree = ki == pi
+                torch.testing.assert_close(kp[agree], pp[agree], rtol=1e-5, atol=0)
+                err["sumtree_sample"] = max(err["sumtree_sample"],
+                                            float((kp[agree] - pp[agree]).abs().max()))
+                check(bool((ki[:4] <= capacity - 1).all()) and bool((kp[:4] > 0).all()),
+                      f"tail draws did not clamp onto a live leaf at {label}")
+            # the batch-sized draws of the last pass feed the gathers
             # 2: gather — bit-exact in every dtype, rank 1 to 3
             for name, buf in storage.items():
                 got = ops.prioritized_gather(buf, ki)
@@ -261,7 +252,8 @@ def main() -> None:
             for name, buf in storage.items():
                 torch.testing.assert_close(items[name], buf[ki], rtol=0, atol=0)
             torch.cuda.synchronize()
-        # 4: update — duplicates and unique, allclose (atomics reorder sums)
+        # 4: update — duplicates and unique; leaves bit for bit, each
+        # interior level to its own scale (atomics reorder the sums)
         for unique in (False, True):
             if unique:
                 idx = torch.randperm(capacity, generator=gen, device=dev)[:batch]
@@ -272,13 +264,24 @@ def main() -> None:
             got = ops.sumtree_update(spec, tree0.clone(), idx, val, unique=unique)
             want = sumtree.update(spec, tree0.clone(), idx, val, unique=unique)
             torch.cuda.synchronize()
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want[0]))
+            problems = parity.tree_mismatch(spec, got, want)
+            check(not problems, f"sumtree_update at {label} (unique={unique}): {problems}")
             check(sumtree.check_invariant(spec, got), f"update broke the tree at {label}")
             err["sumtree_update"] = max(err["sumtree_update"],
                                         float((got - want).abs().max()))
+        ties[label] = {str(d): {"flips": [r.flips for r in reps],
+                                "allowed": [r.allowed for r in reps],
+                                "max_dist_ulp": max(r.max_dist_ulp for r in reps)}
+                       for d, reps in reports.items()}
+        ties[label]["window_ulp"] = reports[batch][0].window_ulp
+        flips = "; ".join(
+            f"{d} draws: {'+'.join(str(r.flips) for r in reps)} flipped (at most "
+            f"{reps[0].allowed} each), farthest {max(r.max_dist_ulp for r in reps):.3f} ulp"
+            for d, reps in reports.items())
         print(f"[parity] {label}: capacity {capacity}, K={fanout}, B={batch}: "
-              "sample/gather/sample_gather/update agree; sample indices flipped at "
-              f"fp ties: {flips} of {2 * batch}", flush=True)
+              "sample/gather/sample_gather/update agree; sample indices on the plain "
+              f"tree + the bumped tree, {flips} (window "
+              f"{reports[batch][0].window_ulp:g} ulp(total))", flush=True)
 
     # 4. main path: the paper's system through the user entry points
     env_fn = lambda n: make_vec("cartpole", n)  # noqa: E731
@@ -453,6 +456,8 @@ def main() -> None:
             "shape": "capacity 50000, K=128, B=64",
             "at_1M_B512": b,
         })
+        if name == "sumtree_sample":
+            kernels[-1]["fp_ties"] = ties
         check(all(math.isfinite(x) for x in (m["ms"], m["plain_ms"], b["ms"], b["plain_ms"])),
               f"timing of {name} is not finite")
         lib = f", library {m['library_ms'] * 1e3:.1f} us" if m["library_ms"] else ""

@@ -1,8 +1,9 @@
 """Sum-tree op backends — port of ``repro.core.tree_ops``: one protocol,
 two implementations.
 
-  * ``torch`` — the plain tensor ops of ``core/sumtree.py`` (the
-    counterpart of the reference's ``xla`` backend), on any device;
+  * ``torch`` — the plain tensor ops of ``core/sumtree.py`` and the
+    kernels' plain versions (the counterpart of the reference's ``xla``
+    backend), on any device;
   * ``cuda``  — the hand-written kernels (``kernels/ops.py``, the
     counterpart of ``pallas``) for the irregular accesses: descent,
     gather, fused sample+gather and the eager update.  Like the
@@ -26,6 +27,9 @@ import torch
 
 from repro_torch.core import sumtree
 from repro_torch.core.sumtree import SumTreeSpec
+# the kernels' plain versions; importing them builds nothing
+from repro_torch.kernels.gather import gather_plain
+from repro_torch.kernels.sample_gather import sample_gather_plain
 
 Storage = Dict[str, torch.Tensor]
 
@@ -95,12 +99,11 @@ class TorchTreeOps:
 
     def gather(self, storage, idx):
         self.counts["gather"] += 1
-        return storage[idx]
+        return gather_plain(storage, idx)
 
     def sample_gather(self, spec, tree, u, storage):
         self.counts["sample_gather"] += 1
-        idx, pri = sumtree.sample(spec, tree, u)
-        return idx, pri, {k: buf[idx] for k, buf in storage.items()}
+        return sample_gather_plain(spec, tree, u, storage)
 
 
 class CudaTreeOps(TorchTreeOps):

@@ -1,22 +1,13 @@
 // Shared inverse-CDF descent over the flat K-ary sum tree, one warp per
 // draw.  Included by sumtree_sample.cu and sample_gather.cu so the split
-// and fused kernels run the identical arithmetic.
-//
-// Layout (repro_torch/core/sumtree.py): one flat f32 array, levels
-// top-down at offsets off[0..n_levels-1]; level 0 is the padded root
-// group (root value at tree[0]), level n_levels-1 is the leaf level, and
-// off[n_levels] is the end of the leaf level (the scratch slot).
+// and fused kernels run the identical arithmetic.  The flat layout is
+// described in tree_levels.cuh.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define REPRO_MAX_LEVELS 40   // K >= 2 and < 2^31 leaves need at most 34 offsets
-
-struct TreeLevels {
-    long long off[REPRO_MAX_LEVELS];   // n_levels + 1 entries
-    int n_levels;             // levels including the padded root level
-};
+#include "tree_levels.cuh"
 
 // Returns the clamped leaf index in *leaf and its priority (re-read after
 // the clamp) in *pri, in every lane of the calling warp.  All 32 lanes of

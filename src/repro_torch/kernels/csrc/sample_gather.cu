@@ -82,11 +82,9 @@ extern "C" int sample_gather_launch(const float* tree, const float* u,
                                     void* const* dsts,
                                     const long long* row_bytes,
                                     const long long* n_rows, void* stream) {
-    if (n_levels < 2 || n_levels >= REPRO_MAX_LEVELS) return (int)cudaErrorInvalidValue;
     if (n_leaves < 0 || n_leaves > kMaxLeaves) return (int)cudaErrorInvalidValue;
     TreeLevels lv;
-    for (int l = 0; l <= n_levels; ++l) lv.off[l] = offsets[l];
-    lv.n_levels = n_levels;
+    if (!load_levels(offsets, n_levels, &lv)) return (int)cudaErrorInvalidValue;
     LeafTable tab;
     for (int j = 0; j < n_leaves; ++j) {
         tab.src[j] = (const char*)srcs[j];

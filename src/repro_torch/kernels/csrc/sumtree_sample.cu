@@ -43,10 +43,8 @@ extern "C" int sumtree_sample_launch(const float* tree, const float* u,
                                      int B, int K, int capacity,
                                      const long long* offsets, int n_levels,
                                      void* stream) {
-    if (n_levels < 2 || n_levels >= REPRO_MAX_LEVELS) return (int)cudaErrorInvalidValue;
     TreeLevels lv;
-    for (int l = 0; l <= n_levels; ++l) lv.off[l] = offsets[l];
-    lv.n_levels = n_levels;
+    if (!load_levels(offsets, n_levels, &lv)) return (int)cudaErrorInvalidValue;
     if (B > 0) {
         const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
         sumtree_sample_kernel<<<blocks, kWarpsPerBlock * 32, 0,

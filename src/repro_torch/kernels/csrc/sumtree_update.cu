@@ -18,14 +18,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define REPRO_MAX_LEVELS 40
+#include "tree_levels.cuh"
 
 namespace {
-
-struct TreeLevels {
-    long long off[REPRO_MAX_LEVELS];
-    int n_levels;
-};
 
 __global__ void sumtree_update_kernel(float* __restrict__ tree,
                                       const long long* __restrict__ idx,
@@ -56,10 +51,8 @@ extern "C" int sumtree_update_launch(float* tree, const long long* idx,
                                      const unsigned char* mask, int B, int K,
                                      const long long* offsets, int n_levels,
                                      void* stream) {
-    if (n_levels < 2 || n_levels > REPRO_MAX_LEVELS) return (int)cudaErrorInvalidValue;
     TreeLevels lv;
-    for (int l = 0; l < n_levels; ++l) lv.off[l] = offsets[l];
-    lv.n_levels = n_levels;
+    if (!load_levels(offsets, n_levels, &lv)) return (int)cudaErrorInvalidValue;
     if (B > 0) {
         const int threads = 128;
         sumtree_update_kernel<<<(B + threads - 1) / threads, threads, 0,

@@ -1,14 +1,17 @@
 """The port's kernel wrappers (repro_torch.kernels.ops) against the JAX
-Pallas kernels (repro.kernels.ops, interpret mode on the CPU), and — on
-a machine with an NVIDIA GPU — each CUDA kernel against its plain
-PyTorch version.
+Pallas kernels (repro.kernels.ops, interpret mode on the CPU), and the
+rules of repro_torch.kernels.parity that hold each CUDA kernel to its
+plain version.  The CUDA kernels themselves are tested on the card by
+tests/test_torch_kernels_cuda.py.
 
 On the CPU the wrappers run their plain versions (the tensors lie on the
-CPU), so the first half holds the plain versions to the reference.
-Tolerances: sampled indices exact, or differing only at an fp tie of the
-CDF (the rule of tests/test_kernels.py); priorities rtol 1e-5; gathered
-rows bit-exact; tree updates rtol 1e-5 with atol 1e-6·root (the CUDA
-update sums with atomics in a varying order)."""
+CPU), so this file holds the plain versions to the reference.
+Tolerances: sampled indices exact, or differing only under the fp-tie
+rule of parity.sample_ties; priorities rtol 1e-5; gathered rows
+bit-exact; tree updates level by level under parity.tree_mismatch (rtol
+1e-5 plus 1e-6 of the level's magnitude; the Pallas kernel sets a leaf
+to old + (new − old), so leaves are held like a level, and the port's
+written leaves are checked against the values exactly)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,37 +22,27 @@ from repro.core import sumtree as jst
 from repro.kernels import ops as jops
 from repro_torch.core import sumtree as tst
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import parity
 
 torch.set_num_threads(2)
 
 
-def mk(capacity, fanout=128, seed=0, low=0.01, high=2.0, device="cpu"):
+def mk(capacity, fanout=128, seed=0, low=0.01, high=2.0):
     rng = np.random.default_rng(seed)
     pri = rng.uniform(low, high, capacity).astype(np.float32)
     js, ts = jst.make_spec(capacity, fanout), tst.make_spec(capacity, fanout)
     return (js, ts, jst.build(js, jnp.asarray(pri)),
-            tst.build(ts, torch.from_numpy(pri).to(device)), rng)
+            tst.build(ts, torch.from_numpy(pri)), rng)
 
 
-def assert_idx_tie_rule(leaves, want, got, u=None, total=None):
-    """Indices equal, except where an fp tie of the CDF flips them: the
-    two leaves' CDF gap is within rounding of the total (the rule of
-    tests/test_kernels.py) and, given the draws, each flipped draw lies
-    within 2e-5·total of the CDF boundary between the two leaves."""
-    want, got = np.asarray(want), np.asarray(got)
-    agree = want == got
-    if agree.all():
-        return agree
-    bad = ~agree
-    cdf = np.cumsum(leaves.astype(np.float64))
-    gap = np.abs(cdf[want[bad]] - cdf[got[bad]])
-    assert (gap <= 2e-5 * cdf[-1] + np.maximum(leaves[want[bad]],
-                                               leaves[got[bad]])).all()
-    if u is not None:
-        pos = np.clip(np.asarray(u, np.float64)[bad], 1e-12, 1 - 1e-7) * total
-        lo, hi = np.minimum(want[bad], got[bad]), np.maximum(want[bad], got[bad])
-        assert ((pos >= cdf[lo] - 2e-5 * total) & (pos <= cdf[hi - 1] + 2e-5 * total)).all()
-    return agree
+def assert_update_matches(ts, got, want, idx, val):
+    """The port's tree against the Pallas one level by level, and every
+    surviving write of the port stored exactly."""
+    assert parity.tree_mismatch(ts, got, torch.tensor(want), exact_leaves=False) == []
+    last = {int(i): v for i, v in zip(idx, val)}          # last writer wins
+    keys = torch.tensor(sorted(last))
+    np.testing.assert_array_equal(tst.get(ts, got, keys).numpy(),
+                                  np.array([last[int(k)] for k in keys], np.float32))
 
 
 # -- plain versions (CPU) against the Pallas kernels --------------------------
@@ -129,10 +122,14 @@ def test_fused_sample_gather_matches_split_kernels(capacity, batch):
                "reward": torch.from_numpy(reward)}
     fi, fp, items = tops.sumtree_sample_gather(ts, tt, torch.from_numpy(u), storage)
     si, sp = tops.sumtree_sample(ts, tt, torch.from_numpy(u))
-    # the Pallas descent sums level 1 for its total and gathers rows by
-    # matmul: against it an index may flip at an fp tie
-    agree = assert_idx_tie_rule(tst.leaves(ts, tt).numpy(), np.asarray(ji), fi.numpy(),
-                                u, float(tt[0]))
+    # the Pallas descent scales u by the sum of level 1, not the root: the
+    # tie window widens by the difference of the two totals
+    level1 = tt[ts.offsets[1]:ts.offsets[1] + ts.level_sizes[1]]
+    slack = abs(float(level1.double().sum()) - float(tt[0]))
+    ji_t = torch.tensor(np.asarray(ji), dtype=torch.int64)
+    report = parity.sample_ties(ts, tt, torch.from_numpy(u), fi, ji_t, slack=slack)
+    assert report.ok, str(report)
+    agree = (fi == ji_t).numpy()
     np.testing.assert_allclose(fp.numpy()[agree], np.asarray(jp)[agree],
                                rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(fi, si, rtol=0, atol=0)
@@ -166,7 +163,7 @@ def test_update_kernel_matches_ref(capacity, batch):
     val = rng.uniform(0, 5, batch).astype(np.float32)
     want = np.asarray(jops.sumtree_update(js, jt, jnp.asarray(idx), jnp.asarray(val)))
     got = tops.sumtree_update(ts, tt, torch.from_numpy(idx), torch.from_numpy(val))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * float(want[0]))
+    assert_update_matches(ts, got, want, idx, val)
     assert tst.check_invariant(ts, got)
 
 
@@ -178,7 +175,7 @@ def test_update_kernel_cross_block_duplicates():
     val = rng.uniform(0, 5, b).astype(np.float32)
     want = np.asarray(jops.sumtree_update(js, jt, jnp.asarray(idx), jnp.asarray(val)))
     got = tops.sumtree_update(ts, tt, torch.from_numpy(idx), torch.from_numpy(val))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * float(want[0]))
+    assert_update_matches(ts, got, want, idx, val)
     assert float(tst.get(ts, got, torch.tensor([42]))[0]) == val[np.flatnonzero(idx == 42)[-1]]
 
 
@@ -188,7 +185,7 @@ def test_update_kernel_unique_skips_dedup_correctly():
     val = torch.from_numpy(rng.uniform(0, 3, 256).astype(np.float32))
     t_dedup = tops.sumtree_update(ts, tt.clone(), idx, val)
     t_unique = tops.sumtree_update(ts, tt.clone(), idx, val, unique=True)
-    torch.testing.assert_close(t_dedup, t_unique, rtol=1e-5, atol=1e-4)
+    assert parity.tree_mismatch(ts, t_unique, t_dedup) == []
 
 
 def test_wrappers_refuse_other_devices():
@@ -197,94 +194,63 @@ def test_wrappers_refuse_other_devices():
         tops.sumtree_sample(ts, tt.to("meta"), torch.zeros(4, device="meta"))
 
 
-# -- CUDA kernels against their plain versions (on the card only) -------------
+# -- the rules that hold a CUDA kernel to its plain version -------------------
 
 
-@pytest.fixture
-def cuda_dev():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel against its plain version)")
-    tops.build_all()
-    return torch.device("cuda")
+def test_tie_rule_accepts_flips_at_a_leaf_boundary():
+    """Equal leaves put a boundary at every integer: a draw placed on one
+    may land on the leaf after it, not two leaves away."""
+    capacity = 1000
+    ts = tst.make_spec(capacity, 8)
+    tt = tst.build(ts, torch.ones(capacity))
+    u = torch.tensor([j / capacity for j in (17, 250, 999)], dtype=torch.float32)
+    want, _ = tst.sample(ts, tt, u)
+    assert parity.sample_ties(ts, tt, u, want, want).ok
+    report = parity.sample_ties(ts, tt, u, want + torch.tensor([0, 1, 0]), want)
+    assert report.ok and report.flips == 1, str(report)
+    assert report.max_dist_ulp <= 1.0
+    assert not parity.sample_ties(ts, tt, u, want + torch.tensor([0, 2, 0]), want).ok
 
 
-SHAPES = [(50_000, 128, 64), (1_000_000, 128, 512), (100_000, 8, 512),
-          (100_000, 256, 512), (10, 4, 64)]
+@pytest.mark.parametrize("fanout", [8, 128])
+def test_tie_rule_rejects_a_descent_one_leaf_off(fanout):
+    """A descent that lands one leaf off away from the boundaries (a
+    dropped carry, an off-by-one lane) fails, on a few draws as on many."""
+    _, ts, _, tt, rng = mk(50_000, fanout=fanout, seed=3)
+    u = torch.from_numpy(rng.uniform(0.01, 0.99, 512).astype(np.float32))
+    want, _ = tst.sample(ts, tt, u)
+    for every in (1, 50):
+        off = want.clone()
+        off[::every] += 1
+        report = parity.sample_ties(ts, tt, u, off, want)
+        assert not report.ok and report.max_dist_ulp > report.window_ulp, str(report)
 
 
-def _bumped(ts, tt):
-    """Root and one level-1 parent bumped: u → 1 draws clamp into the tail."""
-    tt[0] += 0.05 * float(tt[0])
-    tt[ts.offsets[1] + (ts.capacity - 1) // ts.fanout ** (ts.height - 1)] += 0.05 * float(tt[0])
-    return tt
+def test_tie_rule_bounds_the_flip_count():
+    """Flips within the window still fail when there are more than the
+    window predicts."""
+    capacity = 1000
+    ts = tst.make_spec(capacity, 8)
+    tt = tst.build(ts, torch.ones(capacity))
+    u = (torch.arange(1, 101, dtype=torch.float32) / capacity)  # 100 boundaries
+    want, _ = tst.sample(ts, tt, u)
+    report = parity.sample_ties(ts, tt, u, want + 1, want)
+    assert report.max_dist_ulp <= report.window_ulp
+    assert report.flips > report.allowed and not report.ok
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("capacity,fanout,batch", SHAPES)
-def test_cuda_sample_matches_plain(cuda_dev, capacity, fanout, batch):
-    _, ts, _, tt, rng = mk(capacity, fanout, seed=capacity + fanout, device=cuda_dev)
-    for tree in (tt, _bumped(ts, tt.clone())):
-        u = torch.from_numpy(np.concatenate([
-            np.full(4, 1.0 - 1e-7, np.float32),
-            rng.uniform(0, 1, batch - 4).astype(np.float32)])).to(cuda_dev)
-        ki, kp = tops.sumtree_sample(ts, tree, u)
-        pi, pp = tst.sample(ts, tree, u)
-        torch.cuda.synchronize()
-        agree = assert_idx_tie_rule(tst.leaves(ts, tree).cpu().numpy(),
-                                    pi.cpu().numpy(), ki.cpu().numpy(),
-                                    u.cpu().numpy(), float(tree[0]))
-        np.testing.assert_allclose(kp.cpu().numpy()[agree], pp.cpu().numpy()[agree],
-                                   rtol=1e-5)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
-@pytest.mark.parametrize("shape", [(5000,), (5000, 4), (5000, 3, 5), (5000, 33)])
-def test_cuda_gather_bit_exact(cuda_dev, dtype, shape):
-    g = torch.Generator(device=cuda_dev).manual_seed(0)
-    if dtype == torch.int32:
-        x = torch.randint(0, 2**31 - 1, shape, generator=g, device=cuda_dev,
-                          dtype=torch.int32)
-    else:
-        x = torch.randn(shape, generator=g, device=cuda_dev).to(dtype)
-    idx = torch.randint(0, shape[0], (517,), generator=g, device=cuda_dev)
-    torch.testing.assert_close(tops.prioritized_gather(x, idx), x[idx], rtol=0, atol=0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("capacity,fanout,batch", SHAPES)
-def test_cuda_sample_gather_matches_split(cuda_dev, capacity, fanout, batch):
-    _, ts, _, tt, rng = mk(capacity, fanout, seed=capacity, device=cuda_dev)
-    g = torch.Generator(device=cuda_dev).manual_seed(1)
-    storage = {"obs": torch.randn((capacity, 4), generator=g, device=cuda_dev),
-               "action": torch.randint(0, 2**31 - 1, (capacity,), generator=g,
-                                       device=cuda_dev, dtype=torch.int32),
-               "frames": torch.randn((capacity, 3, 5), generator=g,
-                                     device=cuda_dev).to(torch.bfloat16)}
-    u = torch.rand((batch,), generator=g, device=cuda_dev)
-    fi, fp, items = tops.sumtree_sample_gather(ts, tt, u, storage)
-    si, sp = tops.sumtree_sample(ts, tt, u)
-    torch.testing.assert_close(fi, si, rtol=0, atol=0)
-    torch.testing.assert_close(fp, sp, rtol=0, atol=0)
-    for k, buf in storage.items():
-        torch.testing.assert_close(items[k], tops.prioritized_gather(buf, si),
-                                   rtol=0, atol=0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("unique", [False, True])
-@pytest.mark.parametrize("capacity,fanout,batch", SHAPES)
-def test_cuda_update_matches_plain(cuda_dev, capacity, fanout, batch, unique):
-    _, ts, _, tt, rng = mk(capacity, fanout, seed=capacity + 1, device=cuda_dev)
-    if unique:
-        idx = rng.permutation(capacity)[:batch]
-    else:
-        idx = rng.integers(0, capacity, batch)
-        idx[: batch // 4] = idx[0]           # duplicates
-    idx = torch.from_numpy(idx).to(cuda_dev)
-    val = torch.from_numpy(rng.uniform(0, 3, batch).astype(np.float32)).to(cuda_dev)
-    got = tops.sumtree_update(ts, tt.clone(), idx, val, unique=unique)
-    want = tst.update(ts, tt.clone(), idx, val, unique=unique)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want[0]))
-    assert tst.check_invariant(ts, got)
+def test_tree_rule_holds_leaves_exactly_and_levels_to_their_scale():
+    _, ts, _, tt, _ = mk(4096, fanout=8, seed=5)
+    assert parity.tree_mismatch(ts, tt.clone(), tt) == []
+    leaf = tt.clone()
+    slot = ts.leaf_offset + 7
+    leaf[slot] = torch.nextafter(leaf[slot], torch.tensor(10.0))   # one ulp
+    assert parity.tree_mismatch(ts, leaf, tt)
+    assert parity.tree_mismatch(ts, leaf, tt, exact_leaves=False) == []
+    # a level-3 node off by 1e-4 of itself fails, though an atol scaled
+    # to the root would let it pass
+    node, slot = tt.clone(), ts.offsets[3] + 3
+    node[slot] *= 1 + 1e-4
+    v = float(tt[slot])
+    assert 1e-4 * v < 1e-6 * float(tt[0]) + 1e-5 * v
+    assert any(p.startswith("level 3") for p in parity.tree_mismatch(ts, node, tt))
