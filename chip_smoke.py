@@ -30,7 +30,30 @@ failure and prints no result):
                 back to back behind a GPU sleep, one CUDA-event pair each
                 (the update kernel given its mask; the public wrapper, which
                 computes the mask, is timed beside it); and the call latency
-                from an idle card, Python wrapper included.
+                from an idle card, Python wrapper included;
+  7. flash    — the flash-attention forward kernel against its plain
+                version: the five mask cases of tests/test_flash_attention.py
+                at (4, 256, 64) f32, (8, 128, 16) f32, a ragged S = 200 at
+                hd 128/96/64, and the Granite-8B prefill shapes (32, 512, 128)
+                and (32, 128, 128) in bf16, under parity.flash_check;
+  8. serve    — the token-model serve path: Granite-8B at its published
+                width and depth (36 layers, bf16, random weights from the
+                seed) with attn_impl="flash" through ActorServer (8 slots,
+                buckets 128/256/512, max_len 544), 16 requests of 1-512
+                prompt tokens and 32 new tokens each: exact token accounting,
+                prefill shapes <= 3, and the flash launches equal to the
+                count the code predicts (attention layers x prefills x one
+                pass).  The same prompts with attn_impl="naive", and the
+                prefill logits of both against the same weights in f32
+                (naive attention): flash no farther from the f32 model than
+                1.1x naive's distance, flash vs naive within 3e-2 relative
+                l2, first-token agreement.  Then a torch.profiler window
+                over one prefill and 8 decode steps;
+  9. solo     — continuous batching against solo greedy decodes at
+                granite_8b SMOKE in f32 (TF32 off): a token may differ only
+                where the solo logits' top-2 margin is below 1e-5;
+ 10. flash times — the kernel, its plain version and SDPA (the library
+                yardstick) at (32, 512, 128) and (32, 4096, 128) bf16 causal.
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration.
@@ -53,6 +76,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
+SEED = 0
 N_TIMED = 60
 
 
@@ -118,10 +143,11 @@ def device_ms(torch, fn, per_round: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float):
-    """Least time the card needs: bytes over memory rate or f32 operations
-    over the f32 rate, whichever is larger → (ms, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
+    """Least time the card needs: bytes over memory rate or operations
+    over the peak rate of their type, whichever is larger → (ms, what
+    bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -140,6 +166,270 @@ def nodes_touched(torch, spec, idx):
         nodes += int(torch.unique(cur).numel())
         cur = cur // spec.fanout
     return nodes
+
+
+# -- phases 7-10: flash attention and the token-model serve path ---------------
+
+
+def profile_summary(torch, prof, wall_us: float, steps: int) -> dict:
+    """Device-busy share, device ops per step and the top device ops of
+    one torch.profiler window."""
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev)
+    n = sum(e.count for e in ev)
+    return {"steps": steps, "wall_us": wall_us, "device_busy_us": busy,
+            "device_busy_share": busy / wall_us if busy else None,
+            "device_ops_per_step": n / steps,
+            "top": [[e.key[:70], e.count / steps, e.self_device_time_total / steps]
+                    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]]}
+
+
+def flash_phases(torch, dev, card: str) -> dict:
+    """Phases 7-10 → the flash kernel's entry of the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, parity
+    from repro_torch.models import backbone
+    from repro_torch.serve import ActorServeConfig, ActorServer, BucketSpec
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def qkv(n, s, hd, dtype):
+        return [(torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(dtype)
+                for _ in range(3)]
+
+    # 7. the kernel against its plain version, run in f32 on the same inputs
+    cases = [(4, 256, 64, "full", 0, True, True, f32), (4, 256, 64, "full", 0, False, True, f32),
+             (4, 256, 64, "sliding", 64, True, False, f32),
+             (4, 256, 64, "sliding", 64, True, True, f32),
+             (4, 256, 64, "chunked", 64, True, False, f32), (8, 128, 16, "full", 0, True, True, f32),
+             (3, 200, 128, "full", 0, True, True, f32), (3, 200, 96, "sliding", 50, True, False, f32),
+             (2, 200, 64, "chunked", 48, False, False, f32),
+             (4, 200, 64, "sliding", 64, True, False, bf16),
+             (32, 128, 128, "full", 0, True, True, bf16), (32, 512, 128, "full", 0, True, True, bf16)]
+    err = {"f32": 0.0, "bf16": 0.0, "bf16_ulps": 0.0, "lse_rel": 0.0}
+    for n, s, hd, attn, win, causal, glob, dt in cases:
+        q, k, v = qkv(n, s, hd, dt)
+        o, lse = fa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
+        o_ref, lse_ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), attn, win,
+                                                  causal, glob)
+        torch.cuda.synchronize()
+        rep = parity.flash_check(o, lse, o_ref, lse_ref)
+        check(o.dtype == dt and rep.ok, f"flash kernel at ({n}, {s}, {hd}) {attn} window "
+              f"{win} causal={causal} global={glob} {dt}: {rep}")
+        key = "bf16" if dt == bf16 else "f32"
+        err[key] = max(err[key], rep.max_abs_err)
+        err["bf16_ulps"] = max(err["bf16_ulps"], rep.max_ulps)
+        err["lse_rel"] = max(err["lse_rel"], rep.lse_max_rel)
+    print(f"[flash parity] {len(cases)} cases agree with the plain version: f32 max |err| "
+          f"{err['f32']:.3g} (atol 2e-6 + rtol 1e-4), bf16 max |err| {err['bf16']:.3g} "
+          f"(at most {err['bf16_ulps']:.3f} bf16 ulp beyond atol 2e-6; 1 allowed), LSE max "
+          f"rel {err['lse_rel']:.3g}", flush=True)
+
+    # 8. the serve path: Granite-8B at full width and depth through ActorServer
+    cfg = dataclasses.replace(get_config("granite_8b"), attn_impl="flash")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff,
+           cfg.vocab_size, cfg.rope_theta) == (36, 4096, 32, 8, 128, 14336, 49152, 1e7),
+          f"not Granite-8B's published shape: {cfg}")
+    naive_cfg = dataclasses.replace(cfg, attn_impl="naive")
+    t0 = time.perf_counter()
+    params = backbone.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    scfg = ActorServeConfig(slots=8, max_len=544, buckets=(128, 256, 512), max_new_tokens=32)
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(1, 513, size=16)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
+
+    def serve(c, batch, budget):
+        server = ActorServer(c, params, scfg, device=dev)
+        handles = [server.submit(p, budget) for p in batch]
+        t0 = time.perf_counter()
+        server.drain(timeout=600)
+        torch.cuda.synchronize()
+        return server, [h.result(0) for h in handles], time.perf_counter() - t0
+
+    for c in (cfg, naive_cfg):    # warm cuBLAS, the allocator and the kernel: one per bucket
+        serve(c, [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+                  for n in (100, 200, 400)], 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    server, done, wall = serve(cfg, prompts, 32)
+    counts = dict(ops.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    st = server.stats()
+    generated = sum(len(c.tokens) for c in done)
+    check(generated == 16 * 32 == st["admissions"] + st["decoded_tokens"]
+          == st["generated_tokens"] and all(len(c.tokens) == 32 for c in done),
+          f"token accounting: {generated} generated, stats {st}")
+    check(st["prime_compiles"] <= 3, f"{st['prime_compiles']} prefill shapes for 3 buckets")
+    per_prefill = backbone.flash_launches_per_prefill(cfg)
+    predicted = per_prefill * st["admissions"]       # one pass per prefill
+    flash_launches = counts.get("flash_attention_fwd", 0)
+    check(flash_launches == predicted > 0, f"flash launches {flash_launches} on the serve "
+          f"path, predicted {per_prefill} x {st['admissions']} prefills = {predicted}")
+    check(all(0 <= t < cfg.vocab_size for c in done for t in c.tokens), "token out of range")
+
+    nserver, ndone, nwall = serve(naive_cfg, prompts, 32)
+    nst = nserver.stats()
+    first_agree = sum(a.tokens[0] == b.tokens[0] for a, b in zip(done, ndone))
+    token_agree = sum(x == y for a, b in zip(done, ndone) for x, y in zip(a.tokens, b.tokens))
+    # prefill logits at every real position: flash vs naive, and each against
+    # the exact model (the same weights in f32, naive attention, TF32 off).
+    # bf16 rounding alone puts naive ~2e-2 from the exact model, so flash is
+    # held to naive's own distance from it (a wrong kernel lands far beyond).
+    exact_cfg = dataclasses.replace(naive_cfg, dtype="float32")
+    exact = backbone.Backbone(exact_cfg, dev)
+    with torch.no_grad():       # one tensor at a time: 33 GB in f32 beside 16.5 in bf16
+        for a, b in zip(exact.parameters(), params.parameters(), strict=True):
+            a.copy_(b)
+    spec, sums = BucketSpec(scfg.buckets), {"fn": [0.0, 0.0], "fx": [0.0, 0.0], "nx": [0.0, 0.0]}
+    for p in prompts:
+        padded = torch.from_numpy(spec.pad(p)).to(dev).long()
+        lf = backbone.prefill(cfg, params, padded, scfg.max_len)[0][0, :len(p)].float()
+        ln = backbone.prefill(naive_cfg, params, padded, scfg.max_len)[0][0, :len(p)].float()
+        lx = backbone.prefill(exact_cfg, exact, padded, scfg.max_len)[0][0, :len(p)]
+        check(lf.shape == (len(p), cfg.vocab_size) and all(
+            bool(torch.isfinite(x).all()) for x in (lf, ln, lx)), "prefill logits not finite")
+        for key, a, b in (("fn", lf, ln), ("fx", lf, lx), ("nx", ln, lx)):
+            sums[key][0] += float((a - b).square().sum())
+            sums[key][1] += float(b.square().sum())
+    del exact, lf, ln, lx
+    torch.cuda.empty_cache()
+    rel = {key: math.sqrt(num / den) for key, (num, den) in sums.items()}
+    rel_l2 = rel["fn"]
+    check(rel["fx"] <= 1.1 * rel["nx"], f"flash prefill logits are {rel['fx']:.4g} relative l2 "
+          f"from the f32 model, naive's {rel['nx']:.4g}: flash adds error")
+    check(rel_l2 < 3e-2, f"flash vs naive prefill logits differ by {rel_l2:.4g} relative l2")
+
+    # where a request's time goes: one prefill, then 8 decode steps
+    eng = server.engine
+    state = eng.init_state()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof_p:
+        t0 = time.perf_counter()
+        tok, slot_cache = eng.prime(params, prompts[int(np.argmax(lens))])
+        state = eng.insert(state, 0, slot_cache, tok)
+        torch.cuda.synchronize()
+        wall_p = (time.perf_counter() - t0) * 1e6
+    with profile(activities=acts) as prof_d:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            _, state = eng.step(params, state)
+        torch.cuda.synchronize()
+        wall_d = (time.perf_counter() - t0) * 1e6
+    prof = {"prefill": profile_summary(torch, prof_p, wall_p, 1),
+            "decode": profile_summary(torch, prof_d, wall_d, 8)}
+
+    def phases(stats, secs):
+        return {"first_tokens_per_s": stats["admissions"] / stats["prefill_s"],
+                "decode_tokens_per_s": stats["decoded_tokens"] / stats["decode_s"],
+                "latency_p50_ms": stats["latency_p50_ms"],
+                "latency_p99_ms": stats["latency_p99_ms"], "prefill_s": stats["prefill_s"],
+                "decode_s": stats["decode_s"], "decode_steps": stats["steps"], "wall_s": secs}
+
+    rate = {"model": cfg.name, "params": n_params, "init_s": init_s, "requests": 16,
+            "new_tokens": 32, "slots": 8, "buckets": list(scfg.buckets),
+            "max_len": scfg.max_len, "prompt_tokens": int(lens.sum()),
+            "flash": phases(st, wall), "naive": phases(nst, nwall),
+            "peak_memory_bytes": peak, "flash_launches": flash_launches,
+            "flash_launches_predicted": predicted, "prime_compiles": st["prime_compiles"],
+            "prefill_logits_rel_l2": rel_l2, "flash_vs_f32_rel_l2": rel["fx"],
+            "naive_vs_f32_rel_l2": rel["nx"], "first_token_agreement": first_agree,
+            "token_agreement": token_agree, "profile": prof}
+    f, nf = rate["flash"], rate["naive"]
+    print(f"[serve] {cfg.name} ({n_params / 1e9:.2f} B params, {cfg.dtype}, made in "
+          f"{init_s:.1f} s): "
+          f"16 requests x 32 tokens on 8 slots, {int(lens.sum())} prompt tokens; flash: "
+          f"{f['first_tokens_per_s']:.2f} first-tokens/s, {f['decode_tokens_per_s']:.1f} decode "
+          f"tokens/s, p50 {f['latency_p50_ms']:.0f} ms, p99 {f['latency_p99_ms']:.0f} ms; naive: "
+          f"{nf['first_tokens_per_s']:.2f} first-tokens/s, {nf['decode_tokens_per_s']:.1f} decode "
+          f"tokens/s; peak memory {peak / 2**30:.2f} GiB; flash launches {flash_launches} = "
+          f"{per_prefill} x {st['admissions']} prefills x 1 pass; prefill logits flash vs "
+          f"naive rel l2 {rel_l2:.4g} (each from the f32 model: flash {rel['fx']:.4g}, naive "
+          f"{rel['nx']:.4g}); first tokens agree {first_agree}/16, all tokens "
+          f"{token_agree}/{16 * 32} | {card}", flush=True)
+    for name, pr in prof.items():
+        print(f"[serve profile] {name}: {pr['wall_us'] / pr['steps']:,.0f} us wall, "
+              f"{pr['device_busy_us'] / pr['steps']:,.0f} us device-busy and "
+              f"{pr['device_ops_per_step']:,.0f} device ops per step (busy share "
+              f"{pr['device_busy_share']}) | {card}", flush=True)
+    print(f"[serve rate] {json.dumps(rate)}", flush=True)
+    del server, nserver, eng, state, slot_cache, params
+    torch.cuda.empty_cache()
+
+    # 9. continuous batching against solo greedy decodes, f32, TF32 off
+    c_cfg = dataclasses.replace(get_config("granite_8b", smoke=True), attn_impl="flash")
+    check(c_cfg.dtype == "float32" and not torch.backends.cuda.matmul.allow_tf32,
+          "the solo check runs in f32 with TF32 off")
+    c_params = backbone.init_params(c_cfg, torch.Generator(device=dev).manual_seed(SEED + 1))
+    c_serve = ActorServeConfig(slots=3, max_len=264, buckets=(128, 256), max_new_tokens=8)
+    c_prompts = [rng.randint(0, c_cfg.vocab_size, size=int(n)).astype(np.int32)
+                 for n in rng.randint(1, 257, size=8)]
+    c_server = ActorServer(c_cfg, c_params, c_serve, device=dev)
+    handles = [c_server.submit(p) for p in c_prompts]
+    c_server.drain(timeout=600)
+    cont = [h.result(0).tokens for h in handles]
+    departures = []
+    for i, p in enumerate(c_prompts):
+        logits, cache = backbone.prefill(c_cfg, c_params, torch.from_numpy(p).to(dev).long()[None],
+                                         c_serve.max_len)
+        last = logits[0, -1]
+        for t in range(c_serve.max_new_tokens):
+            top2 = torch.topk(last.float(), 2).values
+            margin, tok = float(top2[0] - top2[1]), int(torch.argmax(last))
+            if tok != cont[i][t]:
+                check(margin < 1e-5, f"request {i}, token {t}: continuous {cont[i][t]} vs solo "
+                      f"{tok}, solo top-2 margin {margin:.3g} >= 1e-5")
+                departures.append((i, t, margin))
+                print(f"[solo] request {i} token {t}: continuous {cont[i][t]} vs solo {tok} at "
+                      f"a top-2 margin of {margin:.3g} (a near tie; the rest not compared)",
+                      flush=True)
+                break
+            lg, cache = backbone.decode_step(c_cfg, c_params, cache,
+                                             torch.tensor([[tok]], device=dev))
+            last = lg[0, -1]
+    print(f"[solo] {c_cfg.name} f32, 8 requests x 8 tokens on 3 slots (buckets 128/256, flash "
+          f"prefill): continuous = solo greedy, {len(departures)} near-tie departures",
+          flush=True)
+
+    # 10. the kernel's time beside its bound, its plain version and SDPA
+    times = {}
+    for n, s in ((32, 512), (32, 4096)):
+        q, k, v = qkv(n, s, 128, bf16)
+        q4, k4, v4 = q[None], k[None], v[None]
+        pairs = s * (s + 1) / 2                      # causal (query, key) pairs per head
+        b_ms, b_by = bound(4 * n * s * 128 * 2 + n * s * 4, 4 * 128 * n * pairs, BF16_OPS_PER_S)
+        times[s] = {
+            "ms": device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v)),
+            "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v)),
+            "library_ms": device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True)),
+            "bound_ms": b_ms, "bound_by": b_by, "call_ms": call_ms(
+                torch, lambda: fa.flash_attention_cuda(q, k, v))}
+        t = times[s]
+        check(all(math.isfinite(t[x]) for x in ("ms", "plain_ms", "library_ms")),
+              f"timing of flash at S={s} is not finite")
+        print(f"[times] flash_attention_fwd ({n}, {s}, 128) bf16 causal: device "
+              f"{t['ms'] * 1e3:.1f} us (plain {t['plain_ms'] * 1e3:.1f} us, SDPA "
+              f"{t['library_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} us by "
+              f"{t['bound_by']}, call {t['call_ms'] * 1e3:.1f} us) | {card}", flush=True)
+        del q, k, v, q4, k4, v4
+    return {"name": "flash_attention_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:123", "launches": flash_launches,
+            "path": "serve", "launches_per_prefill": per_prefill, "max_abs_err": err["f32"],
+            "bf16_max_abs_err": err["bf16"], "bf16_max_ulps_beyond_atol": err["bf16_ulps"],
+            "lse_max_rel": err["lse_rel"], **times[512],
+            "shape": "(32, 512, 128) bf16 causal", "at_32x4096": times[4096]}
 
 
 # -- the phases ----------------------------------------------------------------
@@ -180,7 +470,8 @@ def main() -> None:
 
     # 2. build
     secs = ops.build_all()
-    print(f"[build] 4 kernels built in {secs:.1f} s (0 = already built)", flush=True)
+    print(f"[build] {len(ops.KERNELS)} kernels built in {secs:.1f} s (0 = already built)",
+          flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {"sumtree_sample": 0.0, "gather": 0.0, "sample_gather": 0.0,
@@ -467,6 +758,8 @@ def main() -> None:
               f"(plain {b['plain_ms'] * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.4f} us)",
               flush=True)
     print(f"[main path rate] {json.dumps(main_rate)}", flush=True)
+
+    kernels.append(flash_phases(torch, dev, card))
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,0 +1,24 @@
+"""granite-8b [dense] — 36L d_model=4096 32H (GQA kv=8) d_ff=14336
+vocab=49152, llama-arch, code.  [arXiv:2405.04324; hf]  A copy of
+``repro.configs.granite_8b``."""
+
+import dataclasses
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-8b",
+    family="dense",
+    num_layers=36,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=14336,
+    vocab_size=49152,
+    rope_theta=10_000_000.0,
+)
+
+SMOKE = dataclasses.replace(
+    CONFIG, name="granite-smoke", num_layers=2, d_model=64, num_heads=4,
+    num_kv_heads=2, d_ff=128, vocab_size=256, dtype="float32",
+)

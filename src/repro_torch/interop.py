@@ -20,6 +20,8 @@ import torch
 from repro_torch.agents.base import AgentState, MLP
 from repro_torch.core.replay import ReplayState
 from repro_torch.envs.classic import EnvState
+from repro_torch.models import backbone
+from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adam import AdamState
 
 
@@ -73,3 +75,30 @@ def env_state_from_numpy(state, device="cpu") -> EnvState:
     """Reference batched ``EnvState(x, t)`` → the port's."""
     return EnvState(x=_t(state.x, device).to(torch.float32),
                     t=_t(state.t, device).to(torch.int32))
+
+
+def backbone_params_from_numpy(cfg: ModelConfig, params, device="cpu") -> backbone.Backbone:
+    """Reference backbone params (nested dicts of numpy arrays, ``units``
+    stacked on a leading axis, dense weights (in, out)) → the port's
+    ``Backbone`` (dense weights (out, in)), in the config's dtype."""
+    model = backbone.Backbone(cfg, device)
+
+    def f32(x):   # via f32, which holds bf16 exactly; copy_ casts back
+        return torch.as_tensor(np.array(x, np.float32), device=device)
+
+    with torch.no_grad():
+        model.embed.tok.copy_(f32(params["embed"]["tok"]))
+        if model.embed.out is not None:
+            model.embed.out.copy_(f32(np.asarray(params["embed"]["out"]).T))
+        model.final_norm.scale.copy_(f32(params["final_norm"]["scale"]))
+        if model.final_norm.bias is not None:
+            model.final_norm.bias.copy_(f32(params["final_norm"]["bias"]))
+        for i, unit in enumerate(model.units):
+            for kind, sub in unit.items():
+                ref = params["units"][kind]
+                for name, p in sub.norm.named_parameters():
+                    p.copy_(f32(np.asarray(ref["norm"][name])[i]))
+                for name, p in sub.w.named_parameters():
+                    x = np.asarray(ref["w"][name])[i]
+                    p.copy_(f32(x.T if x.ndim == 2 else x))
+    return model

@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-KERNELS = ("sumtree_sample", "gather", "sample_gather", "sumtree_update")
+KERNELS = ("sumtree_sample", "gather", "sample_gather", "sumtree_update",
+           "flash_attention_fwd")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"

@@ -17,12 +17,13 @@ import torch
 
 from repro_torch.core import sumtree
 from repro_torch.core.sumtree import SumTreeSpec
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gather as _gather
 from repro_torch.kernels import sample_gather as _sg
 from repro_torch.kernels import sumtree_sample as _sample
 from repro_torch.kernels import sumtree_update as _update
-from repro_torch.kernels._build import (build_all, launch_counts,  # noqa: F401
-                                        reset_launch_counts)
+from repro_torch.kernels._build import (KERNELS, build_all,  # noqa: F401
+                                        launch_counts, reset_launch_counts)
 
 Storage = Dict[str, torch.Tensor]
 
@@ -69,3 +70,11 @@ def prioritized_gather(storage: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
     if _on_cpu(storage):
         return _gather.gather_plain(storage, idx)
     return _gather.gather_cuda(storage, idx)
+
+
+def flash_attention_nhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         attention: str = "full", window: int = 0,
+                         causal: bool = True, is_global: bool = True) -> torch.Tensor:
+    """Fused attention forward on (N, S, hd) tensors (N = batch·heads) → O."""
+    return _flash.flash_attention_fwd(q, k, v, attention, window, causal,
+                                      is_global)[0]

@@ -20,6 +20,14 @@ and the CPU hold a kernel to one rule.
   for bit.  Each interior level sums its deltas with atomics in a
   varying order and is held at rtol 1e-5 plus an atol of 1e-6 of that
   level's own largest magnitude.
+* **Flash attention** (the forward kernel), against the plain version in
+  f32 on the same inputs.  O in f32 within the reference's own bar, atol
+  2e-6 plus rtol 1e-4 (tests/test_flash_attention.py); O in bf16 within
+  one bf16 ulp of the f32 result (rounding to nearest takes half of it)
+  plus that same atol 2e-6, which covers outputs near 0, where a bf16
+  ulp is finer than the f32 rounding of the P·V sum; the row LSE at rtol
+  1e-5 plus atol 1e-6, for rows whose LSE lies near 0 (a causal first
+  row's LSE is its one score).
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from repro_torch.core.sumtree import SumTreeSpec
 TIE_ULPS = 4
 LEVEL_RTOL = 1e-5
 LEVEL_ATOL_FRAC = 1e-6    # of the level's largest magnitude
+FLASH_ATOL, FLASH_RTOL = 2e-6, 1e-4
+LSE_ATOL, LSE_RTOL = 1e-6, 1e-5
 
 
 def ulp(x: float) -> float:
@@ -142,3 +152,40 @@ def tree_mismatch(spec: SumTreeSpec, got: torch.Tensor, want: torch.Tensor, *,
             problems.append(f"level {level}: {int(over.sum())} nodes beyond rtol {LEVEL_RTOL} "
                             f"+ atol {atol:.3g} (max |err| {float(err.max()):.3g})")
     return problems
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 numbers at each |x| (8 significant bits)."""
+    a = x.abs().float().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+@dataclasses.dataclass
+class FlashReport:
+    max_abs_err: float        # O, in f32 terms
+    max_ulps: float           # bf16 O: excess over the atol, in bf16 ulps (0 for f32)
+    lse_max_rel: float
+    o_bad: int                # elements of O outside the rule
+    lse_bad: int              # rows of LSE outside the rule
+
+    @property
+    def ok(self) -> bool:
+        return self.o_bad == 0 and self.lse_bad == 0
+
+
+def flash_check(o: torch.Tensor, lse: torch.Tensor, o_ref: torch.Tensor,
+                lse_ref: torch.Tensor) -> FlashReport:
+    """Kernel (O in the inputs' dtype, LSE) against the plain version run
+    in f32 on the same inputs (``o_ref``, ``lse_ref``)."""
+    err = (o.float() - o_ref.float()).abs()
+    ref = o_ref.float().abs()
+    if o.dtype == torch.bfloat16:
+        excess = (err - FLASH_ATOL).clamp_min(0) / bf16_ulp(o_ref)
+        bad, ulps = int((excess > 1.0).sum()), float(excess.max())
+    else:
+        bad, ulps = int((err > FLASH_ATOL + FLASH_RTOL * ref).sum()), 0.0
+    lerr = (lse - lse_ref).abs()
+    return FlashReport(
+        max_abs_err=float(err.max()), max_ulps=ulps,
+        lse_max_rel=float((lerr / lse_ref.abs().clamp_min(1e-30)).max()),
+        o_bad=bad, lse_bad=int((lerr > LSE_ATOL + LSE_RTOL * lse_ref.abs()).sum()))

@@ -1,0 +1,283 @@
+"""Agent-network backbone — port of ``repro.models.backbone``, dense
+family.
+
+Paths:
+  * ``forward``     — full-sequence (training / prefill) logits
+  * ``init_cache`` / ``prefill`` / ``decode_step`` — KV-cached serving
+    (the paper's actor ``act()`` at LM scale)
+
+Structure: embed → units[attn → mlp] → norm → unembed, the units an
+``nn.ModuleList``.  The families moe, hybrid, ssm, audio and vlm raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+
+Differences from the reference, each for one card and eager PyTorch:
+  * the cache's ``pos`` is a vector, one position per batch row, so each
+    row of a batched decode has its own RoPE phase, cache write and
+    causal mask (the reference keeps one scalar and the serve engine
+    vmaps a batch of 1 over the slots);
+  * ``decode_step`` writes the cache in place and returns it; with
+    ``write_mask`` a masked-out row is left exactly as it was, ``pos``
+    included;
+  * ``prefill`` runs the stack once and keeps each attention layer's
+    post-RoPE K/V from that pass, where the reference runs ``forward``
+    and then ``_capture_kv_states`` (two passes).  The numbers are the
+    same: the captured K/V are the ones the attention used.  So a
+    prefill launches the flash kernel once per attention layer.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Cache = Dict[str, torch.Tensor]
+
+# the ROADMAP Queue 1 item that ports each family not ported yet
+FAMILY_ITEM = {"moe": "item 11", "hybrid": "item 12", "ssm": "item 13",
+               "audio": "item 14", "vlm": "item 15"}
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported to repro_torch "
+            f"yet (ROADMAP Queue 1 {FAMILY_ITEM.get(cfg.family, '?')}); dense only")
+
+
+# ===========================================================================
+# Modules and init
+# ===========================================================================
+
+
+class SubLayer(nn.Module):
+    """One pre-norm residual sub-layer: ``{"norm", "w"}`` of the reference."""
+
+    def __init__(self, cfg: ModelConfig, w: nn.Module, device=None):
+        super().__init__()
+        self.norm = L.Norm(cfg, cfg.d_model, device)
+        self.w = w
+
+
+def unit_structure(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
+    """(sub-layer kinds per unit, number of units)."""
+    _check_family(cfg)
+    return ("attn", "mlp"), cfg.num_layers
+
+
+def _make_sub(cfg: ModelConfig, kind: str, device) -> SubLayer:
+    if kind == "attn":
+        return SubLayer(cfg, L.Attention(cfg, device), device)
+    if kind == "mlp":
+        return SubLayer(cfg, L.GLU(cfg, device=device), device)
+    raise ValueError(kind)
+
+
+class Backbone(nn.Module):
+    """``embed``, ``units`` (a ModuleList of ModuleDicts keyed by
+    sub-layer kind) and ``final_norm`` — the reference's params tree."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        sub, n_units = unit_structure(cfg)
+        self.embed = L.Embed(cfg, device)
+        self.units = nn.ModuleList(
+            nn.ModuleDict({kind: _make_sub(cfg, kind, device) for kind in sub})
+            for _ in range(n_units))
+        self.final_norm = L.Norm(cfg, cfg.d_model, device)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Backbone:
+    """Random weights, made on ``device`` (the generator's device) from
+    ``gen`` with the reference's distributions: dense weights
+    N(0, 1/d_in), the token embedding N(0, 0.02²), norms at scale 1 and
+    bias 0, qkv biases 0."""
+    device = gen.device if device is None else torch.device(device)
+    model = Backbone(cfg, device)
+    model.embed.reset_parameters(gen)
+    for unit in model.units:
+        for s in unit.values():
+            s.w.reset_parameters(gen)
+    return model
+
+
+def _global_flags(cfg: ModelConfig, n_units: int, sub: Tuple[str, ...]) -> List[List[bool]]:
+    """(n_units, n_attn_sublayers) — which attention sub-layers are global."""
+    flags, idx = [], 0
+    for _ in range(n_units):
+        row = []
+        for kind in sub:
+            if kind in ("attn", "hybrid"):
+                row.append(cfg.layer_is_global_attn(idx))
+                idx += 1
+        flags.append(row)
+    return flags
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device).expand(b, s)
+
+
+# ===========================================================================
+# Forward (training / prefill)
+# ===========================================================================
+
+
+def _run_units(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
+               positions: torch.Tensor, freqs: torch.Tensor, capture: bool):
+    """The unit stack; with ``capture`` also each attention layer's K/V."""
+    sub, n_units = unit_structure(cfg)
+    flags = _global_flags(cfg, n_units, sub)
+    ks, vs = [], []
+    for unit, flag_row in zip(params.units, flags):
+        fi = 0
+        for kind in sub:
+            p = unit[kind]
+            h = L.apply_norm(cfg, p.norm, x)
+            if kind == "attn":
+                y, k, v = L.mha_kv(cfg, p.w, h, positions, freqs, flag_row[fi])
+                fi += 1
+                if capture:
+                    ks.append(k)
+                    vs.append(v)
+                x = x + y
+            else:
+                x = x + L.mlp(cfg, p.w, h)
+    return x, ks, vs
+
+
+def forward(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence logits (B, S, V)."""
+    _check_family(cfg)
+    freqs = L.rope_freqs(cfg, tokens.device)
+    x = L.embed(cfg, params.embed, tokens)
+    b, s, _ = x.shape
+    x, _, _ = _run_units(cfg, params, x, _positions(b, s, x.device), freqs, False)
+    x = L.apply_norm(cfg, params.final_norm, x)
+    return L.unembed(cfg, params.embed, x)
+
+
+def _capture_kv_states(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
+                       freqs: torch.Tensor):
+    """One pass of the stack over embeddings ``x`` → (final hidden state,
+    K and V of every attention layer, each stacked (n_attn, B, S, KV, hd))."""
+    b, s, _ = x.shape
+    x, ks, vs = _run_units(cfg, params, x, _positions(b, s, x.device), freqs, True)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+# ===========================================================================
+# Serving: KV caches, prefill, decode_step (the paper's actor act())
+# ===========================================================================
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> Cache:
+    """{"pos": (batch,) int64, "k"/"v": (n_attn, batch, max_len, KV, hd)}."""
+    sub, n_units = unit_structure(cfg)
+    n_attn = n_units * sum(1 for k in sub if k in ("attn", "hybrid"))
+    dt = dtype or L.param_dtype(cfg)
+    shape = (n_attn, batch, max_len, cfg.num_kv_heads, cfg.hd)
+    return {"pos": torch.zeros((batch,), dtype=torch.int64, device=device),
+            "k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _decode_mask(cfg: ModelConfig, k_pos: torch.Tensor, pos: torch.Tensor,
+                 is_global: bool) -> torch.Tensor:
+    """(B, S_cache) validity of cached entries for each row's query at
+    ``pos`` (B,)."""
+    return L._attn_mask(cfg, pos, k_pos, is_global)
+
+
+def _attn_decode(cfg: ModelConfig, p: L.Attention, x: torch.Tensor,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
+                 freqs: torch.Tensor, is_global: bool,
+                 write_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B, 1, d); k_cache/v_cache: (B, S, KV, hd), written in place at
+    each row's ``pos`` (rows where ``write_mask`` is False keep their
+    entry).  Returns the attention output (B, 1, d)."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    b, s_cache = x.shape[0], k_cache.shape[1]
+    q, k, v = L.qkv(cfg, p, x, pos[:, None], freqs)   # cache stores post-RoPE keys
+
+    rows = torch.arange(b, device=x.device)
+    at = pos.clamp(0, s_cache - 1)          # as dynamic_update_slice clamps
+    k_new, v_new = k[:, 0].to(k_cache.dtype), v[:, 0].to(v_cache.dtype)
+    if write_mask is not None:
+        keep = ~write_mask[:, None, None]
+        k_new = torch.where(keep, k_cache[rows, at], k_new)
+        v_new = torch.where(keep, v_cache[rows, at], v_new)
+    k_cache[rows, at] = k_new
+    v_cache[rows, at] = v_new
+
+    qg = q.reshape(b, 1, kv, cfg.q_per_kv, hd)
+    scores = torch.einsum("bsgqh,btgh->bgqst", qg, k_cache).float()
+    scores = scores / math.sqrt(hd)         # f32(sqrt(hd)), as jnp.sqrt(f32(hd))
+    mask = _decode_mask(cfg, torch.arange(s_cache, device=x.device), pos, is_global)
+    scores = scores.masked_fill(~mask[:, None, None, None, :], L.NEG)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bgqst,btgh->bsgqh", w, v_cache).reshape(b, 1, h * hd)
+    return torch.nn.functional.linear(out, p.wo)
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: Backbone, cache: Cache,
+                tokens: torch.Tensor, write_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One autoregressive step: logits (B, 1, V) for the next token, and
+    the cache, updated in place (``pos`` advanced by one on every row, or
+    on the rows of ``write_mask`` only)."""
+    sub, n_units = unit_structure(cfg)
+    flags = _global_flags(cfg, n_units, sub)
+    freqs = L.rope_freqs(cfg, tokens.device)
+    pos = cache["pos"]
+    x = L.embed(cfg, params.embed, tokens)
+    layer = 0
+    for unit, flag_row in zip(params.units, flags):
+        fi = 0
+        for kind in sub:
+            p = unit[kind]
+            hdn = L.apply_norm(cfg, p.norm, x)
+            if kind == "attn":
+                x = x + _attn_decode(cfg, p.w, hdn, cache["k"][layer], cache["v"][layer],
+                                     pos, freqs, flag_row[fi], write_mask)
+                fi += 1
+                layer += 1
+            else:
+                x = x + L.mlp(cfg, p.w, hdn)
+    step = torch.ones_like(pos) if write_mask is None else write_mask.to(pos.dtype)
+    cache["pos"] = pos + step
+    x = L.apply_norm(cfg, params.final_norm, x)
+    return L.unembed(cfg, params.embed, x), cache
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
+            max_len: int) -> Tuple[torch.Tensor, Cache]:
+    """Process full prompts (B, S): logits (B, S, V) and a primed cache
+    with ``pos`` = S on every row."""
+    _check_family(cfg)
+    b, s = tokens.shape
+    freqs = L.rope_freqs(cfg, tokens.device)
+    cache = init_cache(cfg, b, max_len, device=tokens.device)
+    x = L.embed(cfg, params.embed, tokens)
+    x, ks, vs = _capture_kv_states(cfg, params, x, freqs)
+    cache["k"][:, :, :s] = ks.to(cache["k"].dtype)
+    cache["v"][:, :, :s] = vs.to(cache["v"].dtype)
+    cache["pos"].fill_(s)
+    x = L.apply_norm(cfg, params.final_norm, x)
+    return L.unembed(cfg, params.embed, x), cache
+
+
+def flash_launches_per_prefill(cfg: ModelConfig) -> int:
+    """Flash-kernel launches of one ``prefill`` with ``attn_impl="flash"``
+    at a length that is a multiple of 128: one per attention layer, one
+    pass."""
+    sub, n_units = unit_structure(cfg)
+    return n_units * sum(1 for k in sub if k == "attn")

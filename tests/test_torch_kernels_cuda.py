@@ -12,7 +12,12 @@ whose tail draws clamp.  Tolerances are the rules of
 repro_torch.kernels.parity: sampled indices under the fp-tie rule and
 priorities exact where the indices agree; rows bit-exact; the update's
 leaves bit for bit and each interior level at rtol 1e-5 plus 1e-6 of its
-own magnitude.
+own magnitude.  Flash attention (forward): the five mask cases of
+tests/test_flash_attention.py at (4, 256, 64) f32, hd 16, 96 and 128, a
+ragged S = 200, and the Granite-8B prefill shapes (32, 128/512, 128) in
+bf16, held by parity.flash_check (f32 O at atol 2e-6 + rtol 1e-4, bf16 O
+within one bf16 ulp of the f32 plain result + 2e-6, LSE rtol 1e-5 +
+atol 1e-6).
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ import pytest
 import torch
 
 from repro_torch.core import sumtree as tst
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import parity
 
@@ -120,3 +126,46 @@ def test_cuda_update_matches_plain(cuda_dev, capacity, fanout, batch, unique):
     torch.cuda.synchronize()
     assert parity.tree_mismatch(ts, got, want) == []
     assert tst.check_invariant(ts, got)
+
+
+FLASH_CASES = [
+    (4, 256, 64, "full", 0, True, True, torch.float32),
+    (4, 256, 64, "full", 0, False, True, torch.float32),
+    (4, 256, 64, "sliding", 64, True, False, torch.float32),
+    (4, 256, 64, "sliding", 64, True, True, torch.float32),
+    (4, 256, 64, "chunked", 64, True, False, torch.float32),
+    (8, 128, 16, "full", 0, True, True, torch.float32),
+    (3, 200, 128, "full", 0, True, True, torch.float32),
+    (3, 200, 96, "sliding", 50, True, False, torch.float32),
+    (2, 200, 64, "chunked", 48, False, False, torch.float32),
+    (32, 128, 128, "full", 0, True, True, torch.bfloat16),
+    (32, 512, 128, "full", 0, True, True, torch.bfloat16),
+    (4, 200, 64, "sliding", 64, True, False, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,hd,attn,win,causal,glob,dtype", FLASH_CASES)
+def test_cuda_flash_matches_plain(cuda_dev, n, s, hd, attn, win, causal, glob, dtype):
+    g = torch.Generator(device=cuda_dev).manual_seed(n * s + hd)
+    q, k, v = ((torch.randn((n, s, hd), generator=g, device=cuda_dev) * 0.3).to(dtype)
+               for _ in range(3))
+    o, lse = tfa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
+    o_ref, lse_ref = tfa.flash_attention_plain(q.float(), k.float(), v.float(), attn, win,
+                                               causal, glob)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    report = parity.flash_check(o, lse, o_ref, lse_ref)
+    assert report.ok, report
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_what_it_cannot_run(cuda_dev):
+    q = torch.zeros((2, 128, 32), device=cuda_dev)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_cuda(q, q, q)
+    q = torch.zeros((2, 128, 64), device=cuda_dev)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        tfa.flash_attention_cuda(q.clone().requires_grad_(), q, q)
+    with pytest.raises(TypeError, match="dtype"):
+        tfa.flash_attention_cuda(q.half(), q.half(), q.half())
