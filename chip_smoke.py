@@ -11,7 +11,9 @@ failure and prints no result):
   3. parity   — each kernel against its plain PyTorch version on the card,
                 at the main path's shapes (capacity 50,000, K=128, B=64),
                 at the Nature-DQN replay size (1,000,000, K=128, B=512),
-                at K=8 and K=256 (100,000) and on a tree whose root is
+                at the token-DQN training path's replay (8,192, K=128, B=8,
+                rows of 256 int32 tokens and actions and f32 rewards and
+                dones), at K=8 and K=256 (100,000) and on a tree whose root is
                 bumped above its children (the padded-tail clamp), under
                 the rules of src/repro_torch/kernels/parity.py: sampled
                 indices under the fp-tie rule (at B and at 65,536 draws),
@@ -55,8 +57,37 @@ failure and prints no result):
  10. flash times — the kernel, its plain version and SDPA (the library
                 yardstick) at (32, 512, 128) and (32, 4096, 128) bf16 causal.
 
+ 11. flash bwd — the dQ and dK/dV kernels against the plain backward (in f32
+                on the same q, k, v, dO and the forward kernel's O and LSE),
+                on phase 7's cases and the training shape (128, 256, 128)
+                bf16, under parity.flash_bwd_check; and the FlashAttention
+                Function's gradients against autograd through the plain
+                forward, three masks at (3, 200, 64) f32;
+ 12. grad gate — InternLM2-1.8B at its published width and depth in bf16,
+                one TD loss and its gradients on each of four seeded (8, 256)
+                batches with flash and with naive attention, against the same
+                weights in f32 (naive, TF32 off): flash's gradients, per-position
+                Q(s, a) and TD no farther from the f32 model than 1.1x naive's
+                (the loss and the per-sequence |TD| reported beside them);
+ 13. train    — `python -m repro_torch.launch.train`'s main at InternLM2-1.8B's
+                full width and depth, flash, --seq 256 --batch 8 --n-envs 16
+                --steps 6 --ckpt-every 3: 48 forward, 24 dQ and 24 dK/dV launches
+                per train step and the sample and gather kernels on every step,
+                finite losses, moved parameters, the tree's root changed at the
+                flush after update_priorities, the step-6 checkpoint restored
+                into a fresh state bit for bit, the sample and gather kernels
+                against their plain versions on the run's own tree and token
+                rows, a profiled train step, and a second call with --steps 8
+                that resumes from step 6;
+ 14. bwd times — dQ and dK/dV at (128, 256, 128) and (32, 4096, 128) bf16
+                causal beside their bounds, their plain versions and one SDPA
+                backward call that computes all three gradients.
+
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration.
+Granite-8B's weights and its f32 copy are freed before phase 11; phase 12
+runs before the training state and the 34.3 GB token-MDP table exist, and
+each training run's state is freed before the next.
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.  The line before that one is
@@ -65,8 +96,11 @@ the ``{"kernels": [...]}`` record.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -79,6 +113,20 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 SEED = 0
 N_TIMED = 60
+GATE_BATCHES = 4
+# (n, s, hd, attention, window, causal, is_global, dtype) of the flash
+# kernels' parity phases (7 and 11): the five mask cases of
+# tests/test_flash_attention.py, hd 16/96/128, a ragged S = 200, bf16
+FLASH_CASES = [
+    (4, 256, 64, "full", 0, True, True, "float32"), (4, 256, 64, "full", 0, False, True, "float32"),
+    (4, 256, 64, "sliding", 64, True, False, "float32"),
+    (4, 256, 64, "sliding", 64, True, True, "float32"),
+    (4, 256, 64, "chunked", 64, True, False, "float32"), (8, 128, 16, "full", 0, True, True, "float32"),
+    (3, 200, 128, "full", 0, True, True, "float32"), (3, 200, 96, "sliding", 50, True, False, "float32"),
+    (2, 200, 64, "chunked", 48, False, False, "float32"),
+    (4, 200, 64, "sliding", 64, True, False, "bfloat16"),
+    (32, 128, 128, "full", 0, True, True, "bfloat16"),
+    (32, 512, 128, "full", 0, True, True, "bfloat16")]
 
 
 def fail(msg: str) -> None:
@@ -117,7 +165,9 @@ def device_ms(torch, fn, per_round: int = 10) -> float:
     ``per_round`` calls are queued behind a GPU sleep long enough for the
     host to enqueue them all, so they run back to back; one CUDA-event
     pair brackets each call.  Rounds stay short so that the plain
-    versions' many small launches fit in the launch queue."""
+    versions' many small launches fit in the launch queue.  A round whose
+    sleep ended before its calls were queued is not counted and the sleep
+    is doubled; six such doublings fail."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -125,11 +175,11 @@ def device_ms(torch, fn, per_round: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    times = []
+    times, factor = [], 4
     while len(times) < N_TIMED:
         evs = [torch.cuda.Event(enable_timing=True) for _ in range(per_round + 2)]
         evs[0].record()
-        torch.cuda._sleep(int((4 * per_round * host_s + 0.005) * 2e9))  # ≥ that long below 2 GHz
+        torch.cuda._sleep(int((factor * per_round * host_s + 0.005) * 2e9))  # ≥ that long below 2 GHz
         evs[1].record()
         t0 = time.perf_counter()
         for i in range(per_round):
@@ -138,7 +188,10 @@ def device_ms(torch, fn, per_round: int = 10) -> float:
         enqueue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         if evs[0].elapsed_time(evs[1]) < enqueue_ms:
-            fail("the GPU sleep ended before the timed calls were queued")
+            factor *= 2
+            check(factor <= 4 * 2**6, "the GPU sleep ended before the timed calls were queued, "
+                  "six times over")
+            continue
         times += [evs[i + 1].elapsed_time(evs[i + 2]) for i in range(per_round)]
     return statistics.median(times)
 
@@ -171,6 +224,22 @@ def nodes_touched(torch, spec, idx):
 # -- phases 7-10: flash attention and the token-model serve path ---------------
 
 
+def l2_sums(got, want) -> tuple:
+    """(sum |got - want|^2, sum |want|^2) in f64."""
+    w = want.double()
+    return float((got.double() - w).square().sum()), float(w.square().sum())
+
+
+def rel_l2(pairs) -> float:
+    """Relative l2 distance of all the ``got`` tensors, concatenated, from
+    all the ``want`` ones: sqrt(sum |got - want|^2 / sum |want|^2), in f64."""
+    num = den = 0.0
+    for got, want in pairs:
+        a, b = l2_sums(got, want)
+        num, den = num + a, den + b
+    return math.sqrt(num / den)
+
+
 def profile_summary(torch, prof, wall_us: float, steps: int) -> dict:
     """Device-busy share, device ops per step and the top device ops of
     one torch.profiler window."""
@@ -198,23 +267,17 @@ def flash_phases(torch, dev, card: str) -> dict:
     from repro_torch.serve import ActorServeConfig, ActorServer, BucketSpec
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    f32, bf16 = torch.float32, torch.bfloat16
+    bf16 = torch.bfloat16
 
     def qkv(n, s, hd, dtype):
         return [(torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(dtype)
                 for _ in range(3)]
 
     # 7. the kernel against its plain version, run in f32 on the same inputs
-    cases = [(4, 256, 64, "full", 0, True, True, f32), (4, 256, 64, "full", 0, False, True, f32),
-             (4, 256, 64, "sliding", 64, True, False, f32),
-             (4, 256, 64, "sliding", 64, True, True, f32),
-             (4, 256, 64, "chunked", 64, True, False, f32), (8, 128, 16, "full", 0, True, True, f32),
-             (3, 200, 128, "full", 0, True, True, f32), (3, 200, 96, "sliding", 50, True, False, f32),
-             (2, 200, 64, "chunked", 48, False, False, f32),
-             (4, 200, 64, "sliding", 64, True, False, bf16),
-             (32, 128, 128, "full", 0, True, True, bf16), (32, 512, 128, "full", 0, True, True, bf16)]
+    cases = FLASH_CASES
     err = {"f32": 0.0, "bf16": 0.0, "bf16_ulps": 0.0, "lse_rel": 0.0}
     for n, s, hd, attn, win, causal, glob, dt in cases:
+        dt = getattr(torch, dt)
         q, k, v = qkv(n, s, hd, dt)
         o, lse = fa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
         o_ref, lse_ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), attn, win,
@@ -300,15 +363,14 @@ def flash_phases(torch, dev, card: str) -> dict:
         check(lf.shape == (len(p), cfg.vocab_size) and all(
             bool(torch.isfinite(x).all()) for x in (lf, ln, lx)), "prefill logits not finite")
         for key, a, b in (("fn", lf, ln), ("fx", lf, lx), ("nx", ln, lx)):
-            sums[key][0] += float((a - b).square().sum())
-            sums[key][1] += float(b.square().sum())
+            sums[key] = [x + y for x, y in zip(sums[key], l2_sums(a, b))]
     del exact, lf, ln, lx
     torch.cuda.empty_cache()
     rel = {key: math.sqrt(num / den) for key, (num, den) in sums.items()}
-    rel_l2 = rel["fn"]
+    fn_rel = rel["fn"]
     check(rel["fx"] <= 1.1 * rel["nx"], f"flash prefill logits are {rel['fx']:.4g} relative l2 "
           f"from the f32 model, naive's {rel['nx']:.4g}: flash adds error")
-    check(rel_l2 < 3e-2, f"flash vs naive prefill logits differ by {rel_l2:.4g} relative l2")
+    check(fn_rel < 3e-2, f"flash vs naive prefill logits differ by {fn_rel:.4g} relative l2")
 
     # where a request's time goes: one prefill, then 8 decode steps
     eng = server.engine
@@ -342,7 +404,7 @@ def flash_phases(torch, dev, card: str) -> dict:
             "flash": phases(st, wall), "naive": phases(nst, nwall),
             "peak_memory_bytes": peak, "flash_launches": flash_launches,
             "flash_launches_predicted": predicted, "prime_compiles": st["prime_compiles"],
-            "prefill_logits_rel_l2": rel_l2, "flash_vs_f32_rel_l2": rel["fx"],
+            "prefill_logits_rel_l2": fn_rel, "flash_vs_f32_rel_l2": rel["fx"],
             "naive_vs_f32_rel_l2": rel["nx"], "first_token_agreement": first_agree,
             "token_agreement": token_agree, "profile": prof}
     f, nf = rate["flash"], rate["naive"]
@@ -354,7 +416,7 @@ def flash_phases(torch, dev, card: str) -> dict:
           f"{nf['first_tokens_per_s']:.2f} first-tokens/s, {nf['decode_tokens_per_s']:.1f} decode "
           f"tokens/s; peak memory {peak / 2**30:.2f} GiB; flash launches {flash_launches} = "
           f"{per_prefill} x {st['admissions']} prefills x 1 pass; prefill logits flash vs "
-          f"naive rel l2 {rel_l2:.4g} (each from the f32 model: flash {rel['fx']:.4g}, naive "
+          f"naive rel l2 {fn_rel:.4g} (each from the f32 model: flash {rel['fx']:.4g}, naive "
           f"{rel['nx']:.4g}); first tokens agree {first_agree}/16, all tokens "
           f"{token_agree}/{16 * 32} | {card}", flush=True)
     for name, pr in prof.items():
@@ -432,6 +494,343 @@ def flash_phases(torch, dev, card: str) -> dict:
             "shape": "(32, 512, 128) bf16 causal", "at_32x4096": times[4096]}
 
 
+# -- phases 11-14: the flash backward and the token-DQN training path ----------
+
+
+def sdpa_backward(torch, q4, k4, v4, do4):
+    """One PyTorch call that computes dQ, dK and dV of causal attention (the
+    library yardstick of the dQ + dK/dV pair, never called by the port):
+    the flash backend's backward, or the efficient one if flash refuses."""
+    aten = torch.ops.aten
+    try:
+        out = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, True)
+        o, lse, cq, ck, mq, mk, seed, offset = out[:8]
+        call = lambda: aten._scaled_dot_product_flash_attention_backward(  # noqa: E731
+            do4, q4, k4, v4, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+        call()
+        return "flash", call
+    except RuntimeError:
+        o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+            q4, k4, v4, None, True, 0.0, True)
+        return "efficient", lambda: aten._scaled_dot_product_efficient_attention_backward(
+            do4, q4, k4, v4, None, o, lse, seed, offset, 0.0, [True, True, True, False], True)
+
+
+def train_phases(torch, dev, card: str) -> list:
+    """Phases 11-14 → the dQ and dK/dV kernels' entries of the kernels line
+    and the training path's launch counts."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.agents import token_dqn
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import sumtree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, parity
+    from repro_torch.launch import train
+    from repro_torch.models import backbone
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev)
+    check(left < 2**30, f"{left / 2**30:.2f} GiB still allocated after the serve phases")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def randn(n, s, hd, dtype):
+        return (torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(dtype)
+
+    # 11. the backward kernels against their plain version, on the forward
+    # kernel's O and LSE; the plain backward in f32 on the same inputs
+    bwd_cases = FLASH_CASES + [(128, 256, 128, "full", 0, True, True, "bfloat16")]
+    err = {"f32": 0.0, "bf16": 0.0, "bf16_ulps": 0.0}
+    # each kernel's worst case: dQ's own, dK/dV's over dK and dV
+    per_kernel = {kern: {"f32": 0.0, "bf16": 0.0, "bf16_ulps": 0.0} for kern in ("dq", "dkv")}
+    for n, s, hd, attn, win, causal, glob, dt in bwd_cases:
+        dt = getattr(torch, dt)
+        q, k, v, do = (randn(n, s, hd, dt) for _ in range(4))
+        o, lse = fa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
+        dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
+        ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                           do.float(), attn, win, causal, glob)
+        torch.cuda.synchronize()
+        rep = parity.flash_bwd_check(dq, dk, dv, *ref)
+        check(all(t.dtype == dt for t in (dq, dk, dv)) and rep.ok,
+              f"flash backward at ({n}, {s}, {hd}) {attn} window {win} causal={causal} "
+              f"global={glob} {dt}: {rep}")
+        key = "bf16" if dt == torch.bfloat16 else "f32"
+        err[key] = max(err[key], rep.max_abs_err)
+        err["bf16_ulps"] = max(err["bf16_ulps"], rep.max_ulps)
+        for kern, grads in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+            for g in grads:
+                e, u = rep.per[g]
+                per_kernel[kern][key] = max(per_kernel[kern][key], e)
+                per_kernel[kern]["bf16_ulps"] = max(per_kernel[kern]["bf16_ulps"], u)
+    fn_err = 0.0
+    for attn, win, causal, glob in (("full", 0, True, True), ("sliding", 64, True, False),
+                                    ("chunked", 48, False, False)):
+        q, k, v = (randn(3, 200, 64, torch.float32).requires_grad_() for _ in range(3))
+        got = torch.autograd.grad(torch.sin(ops.flash_attention_nhsd(
+            q, k, v, attn, win, causal, glob)).sum(), (q, k, v))
+        want = torch.autograd.grad(torch.sin(fa.flash_attention_plain(
+            q, k, v, attn, win, causal, glob)[0]).sum(), (q, k, v))
+        for a, b in zip(got, want):
+            check(bool(((a - b).abs() <= 2e-5 + 1e-3 * b.abs()).all()),
+                  f"FlashAttention gradients vs autograd through the plain forward ({attn})")
+            fn_err = max(fn_err, float((a - b).abs().max()))
+    print(f"[flash bwd parity] {len(bwd_cases)} cases: dQ, dK, dV agree with the plain backward "
+          f"(f32 max |err| {err['f32']:.3g}, atol 2e-5 + rtol 1e-3; bf16 max |err| "
+          f"{err['bf16']:.3g}, at most {err['bf16_ulps']:.3f} bf16 ulp beyond atol 2e-5; 1 "
+          f"allowed); FlashAttention's gradients vs autograd through the plain forward, 3 masks "
+          f"at (3, 200, 64) f32: max |err| {fn_err:.3g}", flush=True)
+
+    # 12. the gradient gate at full width: flash bf16 and naive bf16 against
+    # the same weights in f32 (naive, TF32 off), one TD loss and its
+    # gradients on each of GATE_BATCHES seeded batches.  Held to <= 1.1x
+    # naive's distance: the gradients (all tensors concatenated) and the
+    # per-position Q(s, a) and TD (2,048 values each).  The loss (one
+    # number) and the per-sequence |TD| (8) are reported, not held: so few
+    # numbers put the ratio of two bf16 noise draws anywhere, on either side
+    # of 1, with a correct kernel.
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"), attn_impl="flash")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff,
+           cfg.vocab_size, cfg.rope_theta, cfg.dtype)
+          == (24, 2048, 16, 8, 128, 8192, 92544, 1e6, "bfloat16"),
+          f"not InternLM2-1.8B's published shape: {cfg}")
+    naive_cfg = dataclasses.replace(cfg, attn_impl="naive")
+    exact_cfg = dataclasses.replace(naive_cfg, dtype="float32")
+    tcfg = train.token_config()
+    params = backbone.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    names = [n for n, _ in params.named_parameters()]
+    n_params = sum(p.numel() for p in params.parameters())
+    exact = backbone.Backbone(exact_cfg, dev)
+    with torch.no_grad():
+        for a, p in zip(exact.parameters(), params.parameters(), strict=True):
+            a.copy_(p)
+    layers = cfg.num_layers
+
+    def td_grads(c, net, batch):
+        loss, aux = token_dqn._td_loss(c, tcfg, net, net, batch)    # target = online
+        grads = torch.autograd.grad(loss, list(net.parameters()))
+        return {"loss": loss.detach().double().reshape(1), "seq_td": aux["seq_td"].double(),
+                "td": aux["td"].double(), "q_sa": aux["q_sa"].double(), "grads": grads}
+
+    held, shown = ("grads", "q_sa", "td"), ("loss", "seq_td")
+    gate = []
+    for bi in range(GATE_BATCHES):
+        b, s = 8, 256
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev),
+                 "actions": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev),
+                 "rewards": torch.rand((b, s), generator=gen, device=dev),
+                 "dones": torch.zeros((b, s), device=dev),
+                 "is_weights": torch.ones((b,), device=dev)}
+        ops.reset_launch_counts()
+        arms = {"flash": td_grads(cfg, params, batch)}
+        gate_counts = dict(ops.launch_counts)
+        check(gate_counts.get("flash_attention_fwd") == 2 * layers
+              and gate_counts.get("flash_attention_dq") == layers
+              and gate_counts.get("flash_attention_dkv") == layers,
+              f"one TD loss and its gradients launched {gate_counts}, expected {2 * layers} "
+              f"forward and {layers} dQ and dK/dV")
+        arms["naive"] = td_grads(naive_cfg, params, batch)
+        x = td_grads(exact_cfg, exact, batch)
+        row = {}
+        for arm, out in arms.items():
+            check(all(bool(torch.isfinite(t).all()) for t in (*out["grads"], out["td"])),
+                  f"{arm} TD or gradients not finite")
+            row[arm] = {k: rel_l2(zip(out[k], x[k]) if k == "grads" else [(out[k], x[k])])
+                        for k in held + shown}
+            row[arm]["worst_tensor"] = max((rel_l2([(g, w)]), n)
+                                           for g, w, n in zip(out["grads"], x["grads"], names))
+        gate.append(row)
+        del arms, x
+        for key in held:
+            check(row["flash"][key] <= 1.1 * row["naive"][key],
+                  f"batch {bi}: flash bf16 {key} are {row['flash'][key]:.4g} relative l2 from "
+                  f"the f32 model, naive's {row['naive'][key]:.4g}: flash adds error")
+        print(f"[grad gate] batch {bi}: relative l2 from the same weights in f32, flash vs "
+              + ", ".join(f"{k} {row['flash'][k]:.4g} vs {row['naive'][k]:.4g} "
+                          f"({row['flash'][k] / row['naive'][k]:.3f}x)" for k in held + shown)
+              + f"; worst tensor flash {row['flash']['worst_tensor'][1]} "
+              f"{row['flash']['worst_tensor'][0]:.4g}, naive {row['naive']['worst_tensor'][1]} "
+              f"{row['naive']['worst_tensor'][0]:.4g}", flush=True)
+    print(f"[grad gate] {cfg.name} bf16, (8, 256) batches, {GATE_BATCHES} batches: flash no "
+          f"farther than 1.1x naive from the f32 model in {', '.join(held)} on every batch; "
+          f"launches per TD loss + gradients {gate_counts} | {card}", flush=True)
+    del params, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13. the training path through its entry point, at full width and depth
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    argv = ["--arch", "internlm2_1_8b", "--attn-impl", "flash", "--seq", "256", "--batch", "8",
+            "--n-envs", "16", "--ckpt-every", "3", "--ckpt-dir", ckpt, "--seed", str(SEED)]
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = train.main(argv + ["--steps", "6"])
+        train_counts = dict(ops.launch_counts)
+        hist, state = res["history"], res["state"]
+        steps = len(hist)
+        check(steps == 6 and res["start"] is None, f"{steps} steps, start {res['start']}")
+        want = {"flash_attention_fwd": 2 * layers * steps, "flash_attention_dq": layers * steps,
+                "flash_attention_dkv": layers * steps}
+        check(all(train_counts.get(k) == v for k, v in want.items())
+              and train_counts.get("sumtree_sample", 0) >= steps
+              and train_counts.get("gather", 0) >= steps
+              and not train_counts.get("sumtree_update") and not train_counts.get("sample_gather"),
+              f"training launches {train_counts}, expected {want} and the sample and gather "
+              f"kernels on every step")
+        check(all(math.isfinite(h[k]) for h in hist for k in ("loss", "grad_norm", "q_mean")),
+              "non-finite loss, grad norm or Q mean on the training path")
+        moved = max(float((p.detach() - t).abs().max()) for p, t in
+                    zip(state.params.parameters(), state.target.parameters()))
+        check(moved > 0, "the online network never moved from its target copy")
+        check(res["root_after_flush"] != res["root_before_flush"],
+              f"the tree's root total did not change at the flush after update_priorities "
+              f"({res['root_before_flush']})")
+        # the checkpoint of the last step restores into a fresh state bit for bit
+        mgr = CheckpointManager(ckpt, keep=2)
+        check(mgr.all_steps() == [3, 6], f"checkpoints {mgr.all_steps()}, expected [3, 6]")
+        t0 = time.perf_counter()
+        fresh = token_dqn.init_train_state(res["cfg"], res["tcfg"],
+                                           torch.Generator(device=dev).manual_seed(SEED + 99))
+        got = mgr.restore(6, token_dqn.state_tensors(fresh))
+        restore_s = time.perf_counter() - t0
+        saved = token_dqn.state_tensors(state)
+        same = sum(bool(torch.equal(t, saved[k])) for k, t in got.items())
+        check(same == len(saved) == len(got), f"{len(got) - same} of {len(got)} tensors did not "
+              f"restore bit for bit")
+        del fresh, got, saved
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the replay kernels against their plain versions on the run's own
+        # tree and token rows, at the path's B = 8 and at 65,536 draws: the
+        # indices under the fp-tie rule, the rows bit for bit
+        replay, rst = res["replay"], res["replay_state"]
+        for draws in (8, 65_536):
+            u = torch.rand((draws,), generator=gen, device=dev)
+            ki, kp = ops.sumtree_sample(replay.spec, rst.tree, u)
+            pi, pp = sumtree.sample(replay.spec, rst.tree, u)
+            torch.cuda.synchronize()
+            rep = parity.sample_ties(replay.spec, rst.tree, u, ki, pi)
+            check(rep.ok, f"sumtree_sample on the training run's tree, {draws} draws: {rep}")
+            agree = ki == pi
+            torch.testing.assert_close(kp[agree], pp[agree], rtol=1e-5, atol=0)
+            for key, buf in rst.storage.items():
+                check(torch.equal(ops.prioritized_gather(buf, ki), buf[ki]),
+                      f"gather of the training run's {key} rows {tuple(buf.shape)} {buf.dtype}")
+        print(f"[train replay parity] capacity {replay.spec.capacity}, K={replay.spec.fanout}, "
+              f"{rst.count} rows filled: sample indices agree with the plain descent under the "
+              f"fp-tie rule at 8 and 65,536 draws ({rep.flips} flipped at 65,536, at most "
+              f"{rep.allowed}), gathered rows bit for bit", flush=True)
+        # where one train step's time goes
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            idx, items, w = replay.sample(rst, gen, 8)
+            state, _, _ = token_dqn.train_step(res["cfg"], res["tcfg"], state,
+                                               dict(items, is_weights=w))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        step_prof = profile_summary(torch, prof, wall, 1)
+        optimal = res["optimal_reward"]
+        del res, state, replay, rst, items, w, idx, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(ckpt, "step_3"))   # the card's machine has ~75 GB of disk
+        # a second call resumes from step 6
+        printed = io.StringIO()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(printed):
+            res2 = train.main(argv + ["--steps", "8"])
+        resume_counts = dict(ops.launch_counts)
+        print(printed.getvalue(), end="", flush=True)
+        check("resumed from step 6" in printed.getvalue() and res2["start"] == 6
+              and len(res2["history"]) == 2, f"the second call did not resume from step 6: "
+              f"start {res2['start']}, {len(res2['history'])} steps")
+        check(resume_counts.get("flash_attention_dq") == 2 * layers,
+              f"resumed run launches {resume_counts}")
+        peak = res2["peak_memory_bytes"] or 0
+        hist2 = res2["history"]
+        del res2
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rate = {"model": cfg.name, "params": n_params, "steps": steps, "seq": 256, "batch": 8, "n_envs": 16,
+            "collect_s": [h["collect_s"] for h in hist], "train_s": [h["train_s"] for h in hist],
+            "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
+            "reward": [h["reward"] for h in hist], "optimal_reward": optimal,
+            "train_steps_per_s": steps / sum(h["train_s"] for h in hist),
+            "restore_s": restore_s, "resumed_steps": [h["step"] for h in hist2],
+            "peak_memory_bytes": peak, "launches": train_counts, "profile": step_prof,
+            "grad_gate": gate}
+    print(f"[train] {cfg.name} ({n_params / 1e9:.3f} B params) bf16, flash, (8 x 256) batch, 16 "
+          f"actors: {steps} steps, collect {statistics.median(rate['collect_s']):.2f} s and train "
+          f"step {statistics.median(rate['train_s']) * 1e3:.1f} ms (medians), "
+          f"{rate['train_steps_per_s']:.3f} train steps/s of train-step time; launches "
+          f"{train_counts}; restore {restore_s:.1f} s; resumed steps {rate['resumed_steps']}; "
+          f"peak memory {peak / 2**30:.2f} GiB | {card}", flush=True)
+    print(f"[train profile] one train step: {step_prof['wall_us']:,.0f} us wall, "
+          f"{step_prof['device_busy_us']:,.0f} us device-busy ({step_prof['device_busy_share']} "
+          f"busy share), {step_prof['device_ops_per_step']:,.0f} device ops | {card}", flush=True)
+    print(f"[train rate] {json.dumps(rate)}", flush=True)
+
+    # 14. the backward kernels' times beside their bounds, their plain
+    # versions and one SDPA backward call
+    times = {}
+    for n, s in ((128, 256), (32, 4096)):
+        q, k, v, do = (randn(n, s, 128, torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_attention_cuda(q, k, v)
+        delta = fa.flash_delta(o, do)
+        pairs = n * s * (s + 1) / 2                  # causal (query, key) pairs
+        reads = 4 * n * s * 128 * 2 + 2 * n * s * 4  # q, k, v, dO; lse, delta
+        backend, lib = sdpa_backward(torch, q[None], k[None], v[None], do[None])
+        lib_ms = device_ms(torch, lib)
+        calls = {
+            "flash_attention_dq": (
+                lambda: fa.flash_attention_dq_cuda(q, k, v, do, lse, delta),
+                lambda: fa.flash_attention_dq_plain(q, k, v, do, lse, delta),
+                bound(reads + n * s * 128 * 2, 3 * 2 * 128 * pairs, BF16_OPS_PER_S)),
+            "flash_attention_dkv": (
+                lambda: fa.flash_attention_dkv_cuda(q, k, v, do, lse, delta),
+                lambda: fa.flash_attention_dkv_plain(q, k, v, do, lse, delta),
+                bound(reads + 2 * n * s * 128 * 2, 4 * 2 * 128 * pairs, BF16_OPS_PER_S)),
+        }
+        for name, (kern, plain, (b_ms, b_by)) in calls.items():
+            t = {"ms": device_ms(torch, kern), "plain_ms": device_ms(torch, plain),
+                 "library_ms": lib_ms, "library": f"one SDPA {backend} backward call (dQ, dK "
+                 f"and dV together)", "bound_ms": b_ms, "bound_by": b_by,
+                 "call_ms": call_ms(torch, kern)}
+            check(all(math.isfinite(t[x]) for x in ("ms", "plain_ms", "library_ms")),
+                  f"timing of {name} at S={s} is not finite")
+            times.setdefault(name, {})[s] = t
+            print(f"[times] {name} ({n}, {s}, 128) bf16 causal: device {t['ms'] * 1e3:.1f} us "
+                  f"(plain {t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} us by "
+                  f"{t['bound_by']}, call {t['call_ms'] * 1e3:.1f} us); SDPA {backend} backward "
+                  f"(all three gradients) {lib_ms * 1e3:.1f} us | {card}", flush=True)
+        del q, k, v, do, o, lse, delta, lib
+        torch.cuda.empty_cache()
+    entries = []
+    for name, line, kerr in (("flash_attention_dq", 237, per_kernel["dq"]),
+                             ("flash_attention_dkv", 255, per_kernel["dkv"])):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "launches": train_counts.get(name, 0), "path": "train",
+            "launches_per_train_step": train_counts.get(name, 0) / steps,
+            "max_abs_err": kerr["f32"], "bf16_max_abs_err": kerr["bf16"],
+            "bf16_max_ulps_beyond_atol": kerr["bf16_ulps"], **times[name][256],
+            "shape": "(128, 256, 128) bf16 causal", "at_32x4096": times[name][4096]})
+    return entries, train_counts
+
+
 # -- the phases ----------------------------------------------------------------
 
 
@@ -491,7 +890,16 @@ def main() -> None:
         t[spec.offsets[1] + (spec.capacity - 1) // spec.fanout ** (spec.height - 1)] += extra
         return t
 
-    def storage_for(capacity):
+    def storage_for(capacity, token=False):
+        if token:      # the token-DQN training path's rows: (256,) per field
+            return {
+                "tokens": torch.randint(0, 92_544, (capacity, 256), generator=gen,
+                                        device=dev, dtype=torch.int32),
+                "actions": torch.randint(0, 92_544, (capacity, 256), generator=gen,
+                                         device=dev, dtype=torch.int32),
+                "rewards": torch.rand((capacity, 256), generator=gen, device=dev),
+                "dones": (torch.rand((capacity, 256), generator=gen, device=dev) < 0.01).float(),
+            }
         return {
             "obs": torch.randn((capacity, 4), generator=gen, device=dev),
             "action": torch.randint(0, 2**31 - 1, (capacity,), generator=gen,
@@ -505,12 +913,12 @@ def main() -> None:
 
     # 3. parity: each kernel against its plain version on the card
     shapes = [("main path", 50_000, 128, 64), ("Nature DQN", 1_000_000, 128, 512),
-              ("K=8", 100_000, 8, 512), ("K=256", 100_000, 256, 512),
-              ("tiny tail", 10, 4, 64)]
+              ("token replay", 8192, 128, 8), ("K=8", 100_000, 8, 512),
+              ("K=256", 100_000, 256, 512), ("tiny tail", 10, 4, 64)]
     ties = {}
     for label, capacity, fanout, batch in shapes:
         spec, tree0 = tree_for(capacity, fanout)
-        storage = storage_for(capacity)
+        storage = storage_for(capacity, token=label == "token replay")
         reports = {65_536: [], batch: []}
         for tree in (tree0, bumped(spec, tree0)):
             # 1: sample — indices equal except under the fp-tie rule of
@@ -676,12 +1084,12 @@ def main() -> None:
               f"launches {counts}", flush=True)
 
     # 6. times at the main path's shapes and at the Nature-DQN size
-    def measure(capacity, batch):
+    def measure(capacity, batch, token=False):
         spec, tree = tree_for(capacity, 128)
-        storage = {k: v for k, v in storage_for(capacity).items() if k != "frames"}
+        storage = {k: v for k, v in storage_for(capacity, token).items() if k != "frames"}
         u = torch.rand((batch,), generator=gen, device=dev)
         idx, _ = ops.sumtree_sample(spec, tree, u)
-        obs = storage["obs"]
+        obs = next(iter(storage.values()))     # the gather's timed rows: obs or tokens
         upd_idx = torch.randint(0, capacity, (batch,), generator=gen, device=dev)
         upd_val = torch.rand((batch,), generator=gen, device=dev)
         upd_mask = sumtree.last_writer_mask(upd_idx, spec.num_leaves)
@@ -726,6 +1134,7 @@ def main() -> None:
 
     main_t = measure(50_000, 64)
     big_t = measure(1_000_000, 512)
+    tok_t = measure(8192, 8, token=True)
 
     info = {
         "sumtree_sample": ("src/repro/kernels/sumtree_sample.py:111", "main"),
@@ -745,21 +1154,28 @@ def main() -> None:
             "path": path, "launches_per_iteration": counts.get(name, 0) / iters,
             "max_abs_err": err[name], **m,
             "shape": "capacity 50000, K=128, B=64",
-            "at_1M_B512": b,
+            "at_1M_B512": b, "at_token_replay_8192_B8": tok_t[name],
         })
         if name == "sumtree_sample":
             kernels[-1]["fp_ties"] = ties
-        check(all(math.isfinite(x) for x in (m["ms"], m["plain_ms"], b["ms"], b["plain_ms"])),
+        t = tok_t[name]
+        check(all(math.isfinite(x) for x in (m["ms"], m["plain_ms"], b["ms"], b["plain_ms"],
+                                             t["ms"], t["plain_ms"])),
               f"timing of {name} is not finite")
         lib = f", library {m['library_ms'] * 1e3:.1f} us" if m["library_ms"] else ""
         print(f"[times] {name}: device {m['ms'] * 1e3:.2f} us (plain {m['plain_ms'] * 1e3:.1f}"
               f" us{lib}, bound {m['bound_ms'] * 1e3:.4f} us by {m['bound_by']}, call "
               f"{m['call_ms'] * 1e3:.1f} us); at 1M/B=512 device {b['ms'] * 1e3:.2f} us "
-              f"(plain {b['plain_ms'] * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.4f} us)",
-              flush=True)
+              f"(plain {b['plain_ms'] * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.4f} us); at the "
+              f"token replay 8192/B=8 device {t['ms'] * 1e3:.2f} us (plain "
+              f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.4f} us)", flush=True)
     print(f"[main path rate] {json.dumps(main_rate)}", flush=True)
 
     kernels.append(flash_phases(torch, dev, card))
+    bwd_entries, train_counts = train_phases(torch, dev, card)
+    for entry in kernels:       # the replay kernels and the forward on the training path
+        entry["train_launches"] = train_counts.get(entry["name"], 0)
+    kernels += bwd_entries
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

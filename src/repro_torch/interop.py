@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.agents.base import AgentState, MLP
+from repro_torch.agents.token_dqn import TrainState
 from repro_torch.core.replay import ReplayState
 from repro_torch.envs.classic import EnvState
 from repro_torch.models import backbone
@@ -77,28 +78,46 @@ def env_state_from_numpy(state, device="cpu") -> EnvState:
                     t=_t(state.t, device).to(torch.int32))
 
 
+def backbone_leaf(tree, name: str) -> np.ndarray:
+    """The reference's array for the port's ``Backbone`` parameter
+    ``name`` (``embed.tok``, ``units.3.attn.w.wq``, ``final_norm.scale``
+    …) in the port's layout: ``units`` un-stacked, dense weights and the
+    output projection transposed to (out, in).  ``tree`` is a params tree
+    or an Adam moment tree of the same structure."""
+    parts = name.split(".")
+    if parts[0] == "units":
+        i, kind, sub, leaf = int(parts[1]), parts[2], parts[3], parts[4]
+        x = np.asarray(tree["units"][kind][sub][leaf])[i]
+        return x.T if sub == "w" and x.ndim == 2 else x
+    x = np.asarray(tree[parts[0]][parts[1]])
+    return x.T if name == "embed.out" else x
+
+
+def _f32(x, device) -> torch.Tensor:
+    """Via f32, which holds bf16 exactly; ``copy_`` casts back."""
+    return torch.as_tensor(np.array(x, np.float32), device=device)
+
+
 def backbone_params_from_numpy(cfg: ModelConfig, params, device="cpu") -> backbone.Backbone:
     """Reference backbone params (nested dicts of numpy arrays, ``units``
     stacked on a leading axis, dense weights (in, out)) → the port's
     ``Backbone`` (dense weights (out, in)), in the config's dtype."""
     model = backbone.Backbone(cfg, device)
-
-    def f32(x):   # via f32, which holds bf16 exactly; copy_ casts back
-        return torch.as_tensor(np.array(x, np.float32), device=device)
-
     with torch.no_grad():
-        model.embed.tok.copy_(f32(params["embed"]["tok"]))
-        if model.embed.out is not None:
-            model.embed.out.copy_(f32(np.asarray(params["embed"]["out"]).T))
-        model.final_norm.scale.copy_(f32(params["final_norm"]["scale"]))
-        if model.final_norm.bias is not None:
-            model.final_norm.bias.copy_(f32(params["final_norm"]["bias"]))
-        for i, unit in enumerate(model.units):
-            for kind, sub in unit.items():
-                ref = params["units"][kind]
-                for name, p in sub.norm.named_parameters():
-                    p.copy_(f32(np.asarray(ref["norm"][name])[i]))
-                for name, p in sub.w.named_parameters():
-                    x = np.asarray(ref["w"][name])[i]
-                    p.copy_(f32(x.T if x.ndim == 2 else x))
+        for name, p in model.named_parameters():
+            p.copy_(_f32(backbone_leaf(params, name), device))
     return model
+
+
+def train_state_from_numpy(cfg: ModelConfig, state, device="cpu") -> TrainState:
+    """Reference token-DQN ``TrainState`` (params, target, Adam count/m/v,
+    step) → the port's ``agents.token_dqn.TrainState``, the moments in
+    ``Backbone.parameters()`` order with the same transposes."""
+    params = backbone_params_from_numpy(cfg, state.params, device)
+    target = backbone_params_from_numpy(cfg, state.target, device).requires_grad_(False)
+    names = [n for n, _ in params.named_parameters()]
+    opt = AdamState(count=_t(state.opt.count, device).to(torch.int32),
+                    m=[_f32(backbone_leaf(state.opt.m, n), device) for n in names],
+                    v=[_f32(backbone_leaf(state.opt.v, n), device) for n in names])
+    return TrainState(params=params, target=target, opt=opt,
+                      step=_t(state.step, device).to(torch.int32))

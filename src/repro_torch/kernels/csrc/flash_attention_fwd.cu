@@ -15,7 +15,8 @@
 // input dtype; LSE = m + log(max(l, 1e-30)).  Columns past Sk (the ragged
 // last tile, which the TPU kernel never has) score -inf and add exactly 0.
 // Tiles that no query of the tile can reach are skipped by the test of
-// _block_reachable; entries by the test of _block_mask.
+// _block_reachable; entries by the test of _block_mask (both in
+// flash_mask.cuh, which the backward kernels share).
 //
 // What bounds it on an H100: at the serve path's prefill shapes (N = 32
 // heads, S <= 512, hd 128) operations, not bytes: ~2 N S^2 hd FLOPs
@@ -31,66 +32,19 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "flash_mask.cuh"
+#include "flash_tile.cuh"
+
 namespace {
+
+using flash::CHUNKED;
+using flash::FULL;
+using flash::NEG;
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int THREADS = 256;
 constexpr int PS = BK + 1;          // row stride of the P tile
-constexpr float NEG = -1e30f;
-
-enum Attention { FULL = 0, SLIDING = 1, CHUNKED = 2 };
-
-// 16-byte vector loads, converted to f32 (rows are hd * sizeof(T) bytes,
-// a multiple of 16 for every hd taken, and the wrapper checks alignment)
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-    static constexpr int N = 4;
-    __device__ __forceinline__ static void load(const float* p, float* out) {
-        const float4 x = *reinterpret_cast<const float4*>(p);
-        out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-    }
-};
-template <> struct Vec<__nv_bfloat16> {
-    static constexpr int N = 8;
-    __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-        const uint4 x = *reinterpret_cast<const uint4*>(p);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-            const float2 f = __bfloat1622float2(h[t]);
-            out[2 * t] = f.x;
-            out[2 * t + 1] = f.y;
-        }
-    }
-};
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// _block_reachable: can any query of [q_start, q_start+bq) see any key of
-// [k_start, k_start+bk)?
-__device__ __forceinline__ bool reachable(int attention, int window, bool causal,
-                                          bool glob, int q_start, int k_start) {
-    const int q_last = q_start + BQ - 1, k_last = k_start + BK - 1;
-    bool r = true;
-    if (causal) r = r && (k_start <= q_last);
-    if (attention == SLIDING) r = r && (glob || k_last > q_start - window);
-    if (attention == CHUNKED)
-        r = r && (glob || ((k_start / window) <= (q_last / window)
-                           && (k_last / window) >= (q_start / window)));
-    return r;
-}
-
-// _block_mask for one (query, key) pair; positions are >= 0.
-__device__ __forceinline__ bool allowed(int attention, int window, bool causal,
-                                        bool glob, int qp, int kp) {
-    bool m = true;
-    if (causal) m = kp <= qp;
-    if (attention == SLIDING) m = m && (glob || kp > qp - window);
-    if (attention == CHUNKED) m = m && (glob || (kp / window) == (qp / window));
-    return m;
-}
 
 // reduce over the 16 lanes of a half-warp (the threads that share a row)
 __device__ __forceinline__ float half_warp_max(float x) {
@@ -131,25 +85,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t q_base = (size_t)n * S * HD;
     const size_t k_base = (size_t)n * Sk * HD;
 
-    constexpr int VN = Vec<T>::N;
-    constexpr int VPR = HD / VN;    // vectors per row
-    constexpr int ROUNDS = (BK * VPR + THREADS - 1) / THREADS;
-#pragma unroll
-    for (int it = 0; it < ROUNDS; ++it) {
-        const int e = tid + it * THREADS;
-        if (e >= BQ * VPR) break;
-        const int r = e / VPR, c = (e - r * VPR) * VN;
-        const int qr = q_start + r;
-        float x[VN];
-        if (qr < S) {
-            Vec<T>::load(q + q_base + (size_t)qr * HD + c, x);
-        } else {
-#pragma unroll
-            for (int t = 0; t < VN; ++t) x[t] = 0.f;
-        }
-#pragma unroll
-        for (int t = 0; t < VN; ++t) sQ[r * QS + c + t] = x[t];
-    }
+    flash::load_tile<T, HD, BQ, QS, THREADS>(sQ, q + q_base + (size_t)q_start * HD,
+                                             min(S - q_start, BQ), tid);
 
     float m[4], l[4], acc[4][DJ];
 #pragma unroll
@@ -163,28 +100,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int nk = (Sk + BK - 1) / BK;
     for (int kt = 0; kt < nk; ++kt) {
         const int k_start = kt * BK;
-        if (!reachable(attention, window, causal, glob, q_start, k_start)) continue;
+        if (!flash::reachable(attention, window, causal, glob, q_start, BQ, k_start, BK))
+            continue;
         __syncthreads();            // the previous tile's K, V and P are consumed
-#pragma unroll
-        for (int it = 0; it < ROUNDS; ++it) {
-            const int e = tid + it * THREADS;
-            if (e >= BK * VPR) break;
-            const int r = e / VPR, c = (e - r * VPR) * VN;
-            const int kr = k_start + r;
-            float kv[VN], vv[VN];
-            if (kr < Sk) {
-                Vec<T>::load(k + k_base + (size_t)kr * HD + c, kv);
-                Vec<T>::load(v + k_base + (size_t)kr * HD + c, vv);
-            } else {
-#pragma unroll
-                for (int t = 0; t < VN; ++t) kv[t] = vv[t] = 0.f;
-            }
-#pragma unroll
-            for (int t = 0; t < VN; ++t) {
-                sK[r * QS + c + t] = kv[t];
-                sV[r * HD + c + t] = vv[t];
-            }
-        }
+        const int live = min(Sk - k_start, BK);
+        flash::load_tile<T, HD, BK, QS, THREADS>(sK, k + k_base + (size_t)k_start * HD, live, tid);
+        flash::load_tile<T, HD, BK, HD, THREADS>(sV, v + k_base + (size_t)k_start * HD, live, tid);
         __syncthreads();
 
         float s[4][4];
@@ -214,7 +135,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int kp = k_start + tx + 16 * j;
                 float x = s[i][j] * scale;
                 if (kp >= Sk) x = -INFINITY;
-                else if (!allowed(attention, window, causal, glob, qp, kp)) x = NEG;
+                else if (!flash::allowed(attention, window, causal, glob, qp, kp)) x = NEG;
                 s[i][j] = x;
                 mx = fmaxf(mx, x);
             }
@@ -255,7 +176,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float lsum = fmaxf(l[i], 1e-30f);
 #pragma unroll
         for (int jj = 0; jj < DJ; ++jj)
-            store(&o[q_base + (size_t)qr * HD + tx + 16 * jj], acc[i][jj] / lsum);
+            flash::store(&o[q_base + (size_t)qr * HD + tx + 16 * jj], acc[i][jj] / lsum);
         if (tx == 0) lse[(size_t)n * S + qr] = m[i] + logf(lsum);
     }
 }

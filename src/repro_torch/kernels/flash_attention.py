@@ -1,18 +1,23 @@
-"""Flash-attention forward kernel (``csrc/flash_attention_fwd.cu``) and its
-plain version.
+"""Flash-attention kernels — forward (``csrc/flash_attention_fwd.cu``),
+dQ (``csrc/flash_attention_dq.cu``) and dK/dV
+(``csrc/flash_attention_dkv.cu``) — with their plain versions and the
+``torch.autograd.Function`` that ties them together.
 
-Port of the TPU kernel ``repro/kernels/flash_attention.py`` ``_fwd``:
-fused attention on (N, S, hd) tensors (N = batch·heads) with an online
+Port of the TPU kernels of ``repro/kernels/flash_attention.py``: ``_fwd``
+(fused attention on (N, S, hd) tensors, N = batch·heads, with an online
 softmax, returning O in the inputs' dtype and the row log-sum-exp (N, S)
-in f32.  Masks: causal, sliding-window and chunked-local, each lifted by
-the per-call ``is_global`` flag, exactly as ``_block_mask``; key tiles
-that no query of a tile can reach are skipped, as ``_block_reachable``.
-The kernel takes any S (the TPU kernel needs S divisible by its block)
-and hd in {16, 64, 96, 128}.
+in f32) and ``_bwd``'s ``_dq_kernel`` and ``_dkv_kernel``.  Masks:
+causal, sliding-window and chunked-local, each lifted by the per-call
+``is_global`` flag, exactly as ``_block_mask``; key tiles that no query
+of a tile can reach are skipped, as ``_block_reachable``.  The kernels
+take any S (the TPU kernels need S divisible by their block) and hd in
+{16, 64, 96, 128}.
 
-Forward only: the backward kernels (dQ, dK/dV) are not ported yet, so
-the wrapper raises on inputs that require grad rather than drop a
-gradient.  The dry-run stand-in ``REPRO_FLASH_STUB`` is not ported.
+``FlashAttention`` is the reference's ``_flash`` custom_vjp: the forward
+saves q, k, v, O and the LSE; the backward computes
+``delta = rowsum(O·dO)`` in f32 as a plain op, as the reference does
+outside its kernels, and launches dQ and dK/dV (on CPU tensors: their
+plain version).  The dry-run stand-in ``REPRO_FLASH_STUB`` is not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "flash_attention_fwd"
+DQ_NAME = "flash_attention_dq"
+DKV_NAME = "flash_attention_dkv"
 NEG = -1e30
 ATTENTION = {"full": 0, "sliding": 1, "chunked": 2}
 HEAD_DIMS = (16, 64, 96, 128)
@@ -69,19 +76,93 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-@functools.cache
-def _fn():
-    fn = _build.load(NAME).flash_attention_fwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+def _bwd_terms(q, k, v, do, lse, delta, attention, window, causal, is_global
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two kernels' shared terms in f32 (N, S, Sk):
+    ``p = where(mask, exp(q·kᵀ·scale − lse), 0)`` and
+    ``ds = p·(dO·vᵀ − delta)``."""
+    s, hd = q.shape[1], q.shape[2]
+    mask = attention_mask(torch.arange(s, device=q.device),
+                          torch.arange(k.shape[1], device=q.device),
+                          attention, window, causal, is_global)
+    scores = torch.einsum("nqd,nkd->nqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
+    p = torch.where(mask[None], torch.exp(scores - lse[..., None]), torch.zeros_like(scores))
+    ds = p * (torch.einsum("nqd,nkd->nqk", do.float(), v.float()) - delta[..., None])
+    return p, ds
+
+
+def _dq(ds, q, k) -> torch.Tensor:
+    return (torch.einsum("nqk,nkd->nqd", ds, k.float()) * (1.0 / math.sqrt(q.shape[2]))
+            ).to(q.dtype)
+
+
+def _dkv(p, ds, q, k, v, do) -> Tuple[torch.Tensor, torch.Tensor]:
+    dv = torch.einsum("nqk,nqd->nkd", p, do.float())
+    dk = torch.einsum("nqk,nqd->nkd", ds, q.float()) * (1.0 / math.sqrt(q.shape[2]))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_dq_plain(q, k, v, do, lse, delta, attention="full", window=0,
+                             causal=True, is_global=True) -> torch.Tensor:
+    """``_dq_kernel``'s formulas in f32 → dQ in q's dtype:
+    ``dq = ds·k·scale``."""
+    _, ds = _bwd_terms(q, k, v, do, lse, delta, attention, window, causal, is_global)
+    return _dq(ds, q, k)
+
+
+def flash_attention_dkv_plain(q, k, v, do, lse, delta, attention="full", window=0,
+                              causal=True, is_global=True
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_dkv_kernel``'s formulas in f32 → (dK, dV) in k's dtype:
+    ``dv = pᵀ·dO``, ``dk = dsᵀ·q·scale``."""
+    p, ds = _bwd_terms(q, k, v, do, lse, delta, attention, window, causal, is_global)
+    return _dkv(p, ds, q, k, v, do)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                              attention: str = "full", window: int = 0,
+                              causal: bool = True, is_global: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's plain version → (dQ, dK, dV): delta, then the
+    formulas of the two kernels, ``p = where(mask, exp(s·scale − lse), 0)``,
+    ``dv = pᵀ·dO``, ``ds = p·(dO·vᵀ − delta)``, ``dq = ds·k·scale``,
+    ``dk = dsᵀ·q·scale``, with p and ds computed once."""
+    p, ds = _bwd_terms(q, k, v, do, lse, flash_delta(o, do), attention, window, causal,
+                       is_global)
+    return (_dq(ds, q, k), *_dkv(p, ds, q, k, v, do))
+
+
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(O·dO)`` in f32 (N, S): the plain op the reference's
+    ``_bwd`` runs outside its kernels."""
+    return (o.float() * do.float()).sum(-1)
+
+
+def _lib_fn(name: str, n_ptrs: int, n_ints: int):
+    fn = getattr(_build.load(name), f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def _fn():
+    return _lib_fn(NAME, 5, 9)
+
+
+@functools.cache
+def _dq_fn():
+    return _lib_fn(DQ_NAME, 7, 9)
+
+
+@functools.cache
+def _dkv_fn():
+    return _lib_fn(DKV_NAME, 8, 9)
+
+
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  attention: str, window: int) -> None:
-    if any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash attention has no backward kernel yet: call it "
-                           "on tensors that do not require grad (torch.no_grad())")
     if attention not in ATTENTION:
         raise ValueError(f"attention must be one of {tuple(ATTENTION)}, got {attention!r}")
     if attention == "chunked" and window < 1:
@@ -102,23 +183,39 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v must be contiguous and 16-byte aligned")
 
 
+def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                     lse: torch.Tensor, do: torch.Tensor, attention: str, window: int) -> None:
+    check_inputs(q, k, v, attention, window)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
+                         f"must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != q.shape[:2] or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be (N, S) f32, got {tuple(lse.shape)} {lse.dtype}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (o, lse, do)):
+        raise ValueError("o, lse and do must be contiguous and 16-byte aligned")
+
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError(f"inputs must be on one CUDA device, got "
+                         f"{', '.join(str(t.device) for t in ts)}")
+    if ts[0].shape[0] >= 65536:
+        raise ValueError(f"N = {ts[0].shape[0]} exceeds the grid's y extent")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          attention: str = "full", window: int = 0,
                          causal: bool = True, is_global: bool = True
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     check_inputs(q, k, v, attention, window)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"q, k, v must be on one CUDA device, got {q.device}, "
-                         f"{k.device}, {v.device}")
+    _check_cuda(q, k, v)
     n, s, hd = q.shape
-    if n >= 65536:
-        raise ValueError(f"N = {n} exceeds the grid's y extent")
     o = torch.empty_like(q)
     lse = torch.empty((n, s), dtype=torch.float32, device=q.device)
     rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-               lse.data_ptr(), n, s, k.shape[1], hd, DTYPES[q.dtype],
-               ATTENTION[attention], int(window), int(bool(causal)),
-               int(bool(is_global)), _build.stream_handle(q.device))
+               lse.data_ptr(), n, s, k.shape[1], hd,
+               *_mask_args(q, attention, window, causal, is_global))
     _build.check(rc, NAME)
     return o, lse
 
@@ -135,3 +232,85 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     return flash_attention_cuda(q, k, v, attention, window, causal, is_global)
+
+
+def _mask_args(q: torch.Tensor, attention: str, window: int, causal: bool,
+               is_global: bool) -> tuple:
+    return (DTYPES[q.dtype], ATTENTION[attention], int(window), int(bool(causal)),
+            int(bool(is_global)), _build.stream_handle(q.device))
+
+
+def flash_attention_dq_cuda(q, k, v, do, lse, delta, attention="full", window=0,
+                            causal=True, is_global=True) -> torch.Tensor:
+    """The dQ kernel → dQ.  The caller has checked the inputs
+    (``flash_attention_bwd_cuda``)."""
+    n, s, hd = q.shape
+    dq = torch.empty_like(q)
+    rc = _dq_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dq.data_ptr(), n, s, k.shape[1], hd,
+                  *_mask_args(q, attention, window, causal, is_global))
+    _build.check(rc, DQ_NAME)
+    return dq
+
+
+def flash_attention_dkv_cuda(q, k, v, do, lse, delta, attention="full", window=0,
+                             causal=True, is_global=True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel → (dK, dV).  The caller has checked the inputs."""
+    n, s, hd = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = _dkv_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                   delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), n, s, k.shape[1], hd,
+                   *_mask_args(q, attention, window, causal, is_global))
+    _build.check(rc, DKV_NAME)
+    return dk, dv
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                             attention: str = "full", window: int = 0,
+                             causal: bool = True, is_global: bool = True
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """delta (a plain op), then the dQ and the dK/dV kernels → (dQ, dK, dV)."""
+    check_bwd_inputs(q, k, v, o, lse, do, attention, window)
+    _check_cuda(q, k, v, o, lse, do)
+    delta = flash_delta(o, do)
+    mask = (attention, window, causal, is_global)
+    return (flash_attention_dq_cuda(q, k, v, do, lse, delta, *mask),
+            *flash_attention_dkv_cuda(q, k, v, do, lse, delta, *mask))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        attention: str = "full", window: int = 0,
+                        causal: bool = True, is_global: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """→ (dQ, dK, dV).  The plain version for CPU tensors, and only then;
+    on CUDA the two kernels or an error."""
+    if q.device.type == "cpu":
+        check_bwd_inputs(q, k, v, o, lse, do, attention, window)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, attention, window, causal,
+                                         is_global)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    return flash_attention_bwd_cuda(q, k, v, o, lse, do, attention, window, causal, is_global)
+
+
+class FlashAttention(torch.autograd.Function):
+    """O = flash attention of (q, k, v), differentiable in all three: the
+    reference's ``_flash`` custom_vjp.  The gradient that reaches the
+    backward may be a strided view (the model's head transpose, or
+    ``sum()``'s expanded ones); it is made contiguous here, since the
+    kernels take nothing else."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attention, window, causal, is_global):
+        o, lse = flash_attention_fwd(q, k, v, attention, window, causal, is_global)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (attention, window, causal, is_global)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), *ctx.mask)
+        return dq, dk, dv, None, None, None, None

@@ -75,6 +75,7 @@ def prioritized_gather(storage: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
 def flash_attention_nhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          attention: str = "full", window: int = 0,
                          causal: bool = True, is_global: bool = True) -> torch.Tensor:
-    """Fused attention forward on (N, S, hd) tensors (N = batch·heads) → O."""
-    return _flash.flash_attention_fwd(q, k, v, attention, window, causal,
-                                      is_global)[0]
+    """Fused attention on (N, S, hd) tensors (N = batch·heads) → O,
+    differentiable in q, k and v through the dQ and dK/dV kernels."""
+    return _flash.FlashAttention.apply(q, k, v, attention, window, causal,
+                                       is_global)

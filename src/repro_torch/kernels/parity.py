@@ -46,6 +46,7 @@ LEVEL_RTOL = 1e-5
 LEVEL_ATOL_FRAC = 1e-6    # of the level's largest magnitude
 FLASH_ATOL, FLASH_RTOL = 2e-6, 1e-4
 LSE_ATOL, LSE_RTOL = 1e-6, 1e-5
+GRAD_ATOL, GRAD_RTOL = 2e-5, 1e-3
 
 
 def ulp(x: float) -> float:
@@ -189,3 +190,40 @@ def flash_check(o: torch.Tensor, lse: torch.Tensor, o_ref: torch.Tensor,
         max_abs_err=float(err.max()), max_ulps=ulps,
         lse_max_rel=float((lerr / lse_ref.abs().clamp_min(1e-30)).max()),
         o_bad=bad, lse_bad=int((lerr > LSE_ATOL + LSE_RTOL * lse_ref.abs()).sum()))
+
+
+@dataclasses.dataclass
+class FlashBwdReport:
+    max_abs_err: float        # over dQ, dK, dV, in f32 terms
+    max_ulps: float           # bf16: the largest excess over the atol, in bf16 ulps
+    bad: dict                 # {"dq"|"dk"|"dv": elements outside the rule}
+    per: dict                 # {"dq"|"dk"|"dv": (max |err|, bf16 ulps beyond atol)}
+
+    @property
+    def ok(self) -> bool:
+        return not any(self.bad.values())
+
+    def __str__(self) -> str:
+        return (f"outside the rule {self.bad}, max |err| {self.max_abs_err:.3g}, "
+                f"{self.max_ulps:.3f} bf16 ulp beyond atol")
+
+
+def flash_bwd_check(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
+                    dq_ref: torch.Tensor, dk_ref: torch.Tensor, dv_ref: torch.Tensor
+                    ) -> FlashBwdReport:
+    """Kernels' (dQ, dK, dV), in the inputs' dtype, against the plain
+    backward run in f32 on the same inputs."""
+    bad, per = {}, {}
+    for name, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        ref = ref.float()
+        err = (got.float() - ref).abs()
+        worst, ulps = float(err.max()) if err.numel() else 0.0, 0.0
+        if got.dtype == torch.bfloat16:
+            excess = (err - GRAD_ATOL).clamp_min(0) / bf16_ulp(ref)
+            bad[name] = int((excess > 1.0).sum())
+            ulps = float(excess.max()) if excess.numel() else 0.0
+        else:
+            bad[name] = int((err > GRAD_ATOL + GRAD_RTOL * ref.abs()).sum())
+        per[name] = (worst, ulps)
+    return FlashBwdReport(max_abs_err=max(e for e, _ in per.values()),
+                          max_ulps=max(u for _, u in per.values()), bad=bad, per=per)

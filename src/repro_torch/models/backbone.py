@@ -22,7 +22,14 @@ Differences from the reference, each for one card and eager PyTorch:
     post-RoPE K/V from that pass, where the reference runs ``forward``
     and then ``_capture_kv_states`` (two passes).  The numbers are the
     same: the captured K/V are the ones the attention used.  So a
-    prefill launches the flash kernel once per attention layer.
+    prefill launches the flash kernel once per attention layer;
+  * ``forward`` is differentiable as it stands and keeps every layer's
+    activations for the backward: there is no remat.  The reference
+    rematerializes each unit (``jax.checkpoint`` when ``cfg.remat``), so
+    its backward runs each layer's forward again, flash kernel included;
+    the port's backward launches only the dQ and dK/dV kernels, one pair
+    per attention layer.  One card holds InternLM2-1.8B's activations at
+    a (8, 256) batch.
 """
 
 from __future__ import annotations

@@ -181,8 +181,10 @@ def _expand_kv(k: torch.Tensor, v: torch.Tensor, h: int):
 
 
 def _attn_flash(cfg, q, k, v, is_global, causal):
-    """The flash-attention kernel on (B·H, S, hd): KV heads expanded to
-    full heads and folded with the batch (no head padding: one card)."""
+    """The flash-attention kernels on (B·H, S, hd): KV heads expanded to
+    full heads and folded with the batch (no head padding: one card).
+    Differentiable: the backward of the ``repeat_interleave`` sums dK and
+    dV over each query group, as ``jnp.repeat``'s does."""
     b, s, h, hd = q.shape
     k, v = _expand_kv(k, v, h)
     window = cfg.window if cfg.attention in ("sliding", "chunked") else 0

@@ -3,10 +3,20 @@
 Not ``torch.optim.Adam`` with ``clip_grad_norm_``: the reference clips
 by ``min(1, grad_clip / max(gnorm, 1e-12))`` where torch divides by
 ``norm + 1e-6``, and it takes the bias correction from an int32 step
-``count`` in f32.  Parameters are a list of f32 tensors (an
-``nn.Module``'s ``parameters()`` in order) and are updated **in place**
+``count`` in f32.  Parameters are a list of tensors (an ``nn.Module``'s
+``parameters()`` in order), f32 or bf16, and are updated **in place**
 with multi-tensor (``_foreach``) ops, a handful of launches per step
-instead of a dozen per parameter.
+instead of a dozen per parameter.  The ops run on groups of at most
+``GROUP_ELEMS`` elements, so that their f32 temporaries stay small
+beside a model of billions of parameters (CartPole's MLP is one group).
+
+With bf16 parameters the arithmetic stays in f32, as the reference's
+``astype`` chain: the clipped gradient is f32 (the reference's bf16 × f32
+scale promotes), the moments are f32, and ``_foreach_sub_`` of the f32
+step from a bf16 parameter computes in f32 and rounds once.  The EMA
+target ``t·(1-τ) + o·τ`` is bit-exact with the reference's: two f32
+products and their sum, rounded once into the target's dtype, never a
+fused ``add(alpha=)``, which rounds the product and the sum as one.
 """
 
 from __future__ import annotations
@@ -15,6 +25,8 @@ import dataclasses
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
+
+GROUP_ELEMS = 1 << 26     # elements per group of _foreach ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +53,20 @@ def init(params: Sequence[torch.Tensor], cfg: AdamConfig) -> AdamState:
         v=[torch.zeros_like(p, dtype=torch.float32) for p in params])
 
 
+def _groups(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
+    """Consecutive indices of ``tensors`` in groups of at most
+    ``GROUP_ELEMS`` elements (a larger tensor is a group of its own)."""
+    groups: List[List[int]] = [[]]
+    size = 0
+    for i, t in enumerate(tensors):
+        if groups[-1] and size + t.numel() > GROUP_ELEMS:
+            groups.append([])
+            size = 0
+        groups[-1].append(i)
+        size += t.numel()
+    return [g for g in groups if g]
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.stack([torch.sum(torch.square(x.float()))
                                    for x in tensors]).sum())
@@ -54,35 +80,45 @@ def update(grads: Sequence[torch.Tensor], state: AdamState,
     (new state, pre-clip grad norm)."""
     grads, params = list(grads), list(params)
     gnorm = global_norm(grads)
-    if cfg.grad_clip > 0:
-        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-        grads = torch._foreach_mul(grads, scale)
+    scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+             if cfg.grad_clip > 0 else None)
     count = state.count + 1
     countf = count.float()
     b1c = 1.0 - cfg.b1 ** countf
     b2c = 1.0 - cfg.b2 ** countf
-    m, v = state.m, state.v
-    torch._foreach_mul_(m, cfg.b1)
-    torch._foreach_add_(m, grads, alpha=1 - cfg.b1)
-    torch._foreach_mul_(v, cfg.b2)
-    torch._foreach_addcmul_(v, grads, grads, value=1 - cfg.b2)
-    # step = lr · (m / b1c) / (sqrt(v / b2c) + eps)
-    denom = torch._foreach_div(v, b2c)
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, cfg.eps)
-    step = torch._foreach_div(m, b1c)
-    torch._foreach_mul_(step, cfg.lr)
-    torch._foreach_div_(step, denom)
-    if cfg.weight_decay:
-        torch._foreach_add_(step, params, alpha=cfg.lr * cfg.weight_decay)
-    torch._foreach_sub_(params, step)
-    return AdamState(count, m, v), gnorm
+    for group in _groups(params):
+        g = [grads[i].float() for i in group]
+        if scale is not None:
+            g = torch._foreach_mul(g, scale)
+        m, v, p = ([x[i] for i in group] for x in (state.m, state.v, params))
+        torch._foreach_mul_(m, cfg.b1)
+        torch._foreach_add_(m, g, alpha=1 - cfg.b1)
+        torch._foreach_mul_(v, cfg.b2)
+        torch._foreach_addcmul_(v, g, g, value=1 - cfg.b2)
+        del g
+        # step = lr · (m / b1c) / (sqrt(v / b2c) + eps)
+        denom = torch._foreach_div(v, b2c)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, cfg.eps)
+        step = torch._foreach_div(m, b1c)
+        torch._foreach_mul_(step, cfg.lr)
+        torch._foreach_div_(step, denom)
+        del denom
+        if cfg.weight_decay:
+            torch._foreach_add_(step, p, alpha=cfg.lr * cfg.weight_decay)
+        torch._foreach_sub_(p, step)
+    return AdamState(count, state.m, state.v), gnorm
 
 
 @torch.no_grad()
 def ema_update(target: Sequence[torch.Tensor], online: Sequence[torch.Tensor],
                tau: float) -> None:
-    """Polyak target update ``t ← t·(1-τ) + o·τ``, in place on ``target``."""
-    target = list(target)
-    torch._foreach_mul_(target, 1 - tau)
-    torch._foreach_add_(target, list(online), alpha=tau)
+    """Polyak target update ``t ← t·(1-τ) + o·τ``, in place on ``target``:
+    both products and their sum in f32, rounded once into the target's
+    dtype, as ``repro.optim.adam.ema_update``."""
+    target, online = list(target), list(online)
+    for group in _groups(target):
+        t = [target[i] for i in group]
+        new = torch._foreach_mul([x.float() for x in t], 1 - tau)
+        torch._foreach_add_(new, torch._foreach_mul([online[i].float() for i in group], tau))
+        torch._foreach_copy_(t, new)

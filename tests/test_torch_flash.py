@@ -69,11 +69,8 @@ def test_plain_bf16_keeps_dtype_and_f32_lse():
     torch.testing.assert_close(o, o32.to(torch.bfloat16), rtol=0, atol=0)
 
 
-def test_wrapper_refuses_grad_and_bad_inputs():
+def test_wrapper_refuses_bad_inputs():
     q, k, v = (torch.from_numpy(x) for x in mk(n=1, s=128, hd=16))
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        tops.flash_attention_nhsd(q.requires_grad_(), k, v)
-    q = q.detach()
     with pytest.raises(ValueError, match="window >= 1"):
         tops.flash_attention_nhsd(q, k, v, "chunked", 0)
     with pytest.raises(ValueError, match="attention must be"):

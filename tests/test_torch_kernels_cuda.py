@@ -17,7 +17,13 @@ tests/test_flash_attention.py at (4, 256, 64) f32, hd 16, 96 and 128, a
 ragged S = 200, and the Granite-8B prefill shapes (32, 128/512, 128) in
 bf16, held by parity.flash_check (f32 O at atol 2e-6 + rtol 1e-4, bf16 O
 within one bf16 ulp of the f32 plain result + 2e-6, LSE rtol 1e-5 +
-atol 1e-6).
+atol 1e-6).  Flash attention (backward): the same cases and the
+InternLM2-1.8B training shape (128, 256, 128) bf16, the dQ and dK/dV
+kernels against the plain backward in f32 on the same q, k, v, O, LSE and
+dO (O and LSE from the forward kernel), held by parity.flash_bwd_check
+(f32 at atol 2e-5 + rtol 1e-3, bf16 within one bf16 ulp beyond 2e-5);
+and the autograd Function's f32 gradients against autograd through the
+plain forward, at that same f32 bar.
 """
 
 import numpy as np
@@ -29,7 +35,9 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import parity
 
-SHAPES = [(50_000, 128, 64), (1_000_000, 128, 512), (100_000, 8, 512),
+# CartPole's replay, the Nature-DQN size, the token-DQN training path's
+# replay (8,192, K = 128, B = 8), K = 8 and K = 256, and a tiny tail
+SHAPES = [(50_000, 128, 64), (1_000_000, 128, 512), (8192, 128, 8), (100_000, 8, 512),
           (100_000, 256, 512), (10, 4, 64)]
 
 
@@ -78,7 +86,8 @@ def test_cuda_sample_matches_plain(cuda_dev, capacity, fanout, batch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
-@pytest.mark.parametrize("shape", [(5000,), (5000, 4), (5000, 3, 5), (5000, 33)])
+@pytest.mark.parametrize("shape", [(5000,), (5000, 4), (5000, 3, 5), (5000, 33),
+                                   (8192, 256)])
 def test_cuda_gather_bit_exact(cuda_dev, dtype, shape):
     g = torch.Generator(device=cuda_dev).manual_seed(0)
     if dtype == torch.int32:
@@ -159,13 +168,49 @@ def test_cuda_flash_matches_plain(cuda_dev, n, s, hd, attn, win, causal, glob, d
     assert report.ok, report
 
 
+FLASH_BWD_CASES = FLASH_CASES + [(128, 256, 128, "full", 0, True, True, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,hd,attn,win,causal,glob,dtype", FLASH_BWD_CASES)
+def test_cuda_flash_bwd_matches_plain(cuda_dev, n, s, hd, attn, win, causal, glob, dtype):
+    g = torch.Generator(device=cuda_dev).manual_seed(n * s + hd + 1)
+    q, k, v, do = ((torch.randn((n, s, hd), generator=g, device=cuda_dev) * 0.3).to(dtype)
+                   for _ in range(4))
+    o, lse = tfa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
+    before = dict(tops.launch_counts)
+    dq, dk, dv = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
+    ref = tfa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                        do.float(), attn, win, causal, glob)
+    torch.cuda.synchronize()
+    assert all(t.dtype == dtype for t in (dq, dk, dv))
+    for name in ("flash_attention_dq", "flash_attention_dkv"):
+        assert tops.launch_counts[name] == before.get(name, 0) + 1
+    report = parity.flash_bwd_check(dq, dk, dv, *ref)
+    assert report.ok, report
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn,win,causal,glob", [("full", 0, True, True),
+                                                  ("sliding", 64, True, False),
+                                                  ("chunked", 48, False, False)])
+def test_cuda_flash_function_grads_match_autograd(cuda_dev, attn, win, causal, glob):
+    g = torch.Generator(device=cuda_dev).manual_seed(7)
+    q, k, v = ((torch.randn((3, 200, 64), generator=g, device=cuda_dev) * 0.3)
+               .requires_grad_() for _ in range(3))
+    got = torch.autograd.grad(torch.sin(tops.flash_attention_nhsd(
+        q, k, v, attn, win, causal, glob)).sum(), (q, k, v))
+    want = torch.autograd.grad(torch.sin(tfa.flash_attention_plain(
+        q, k, v, attn, win, causal, glob)[0]).sum(), (q, k, v))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-3)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_refuses_what_it_cannot_run(cuda_dev):
     q = torch.zeros((2, 128, 32), device=cuda_dev)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention_cuda(q, q, q)
     q = torch.zeros((2, 128, 64), device=cuda_dev)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        tfa.flash_attention_cuda(q.clone().requires_grad_(), q, q)
     with pytest.raises(TypeError, match="dtype"):
         tfa.flash_attention_cuda(q.half(), q.half(), q.half())

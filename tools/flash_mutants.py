@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Mutation check of the flash-attention kernel's parity test, on a GPU.
+"""Mutation check of the flash-attention kernels' parity tests, on a GPU.
 
     python3 tools/flash_mutants.py
 
 For each mutant below, copies ``src/repro_torch`` and
 ``tests/test_torch_kernels_cuda.py`` into ``build/mutants/<name>/``,
-applies one edit to ``csrc/flash_attention_fwd.cu`` there, builds the
-kernel from the copy and runs the flash cases of the CUDA test file
-(``parity.flash_check``, the rule ``chip_smoke.py`` applies).  A mutant
-must fail at least one case; the script exits non-zero if one survives,
-if an edit no longer applies, or if the unmutated kernel fails.
+applies one edit to one kernel source there (the forward, the shared
+masks of ``flash_mask.cuh``, or the dQ or dK/dV kernel), builds the
+kernels from the copy and runs the flash cases of the CUDA test file,
+forward and backward (``parity.flash_check`` and
+``parity.flash_bwd_check``, the rules ``chip_smoke.py`` applies).  A
+mutant must fail at least one case; the script exits non-zero if one
+survives, if an edit no longer applies, or if the unmutated kernels fail.
 """
 
 from __future__ import annotations
@@ -21,20 +23,37 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-CU = Path("src/repro_torch/kernels/csrc/flash_attention_fwd.cu")
+CSRC = Path("src/repro_torch/kernels/csrc")
 TEST = Path("tests/test_torch_kernels_cuda.py")
 
-# name → (text in the kernel, its replacement)
+# name → (source file in csrc, text in it, its replacement)
 MUTANTS = {
-    "none": ("", ""),
-    "causal-strict": ("if (causal) m = kp <= qp;", "if (causal) m = kp < qp;"),
-    "no-rescale": ("acc[i][jj] *= corr;", "acc[i][jj] *= 1.0f;"),
-    "no-skip-guard": ("if (kp >= Sk) x = -INFINITY;", "if (kp >= Sk + 1) x = -INFINITY;"),
-    "sliding-off-by-one": ("kp > qp - window", "kp >= qp - window"),
+    "none": ("", "", ""),
+    # the masks shared by all three kernels
+    "causal-strict": ("flash_mask.cuh", "if (causal) m = kp <= qp;", "if (causal) m = kp < qp;"),
+    "sliding-off-by-one": ("flash_mask.cuh", "kp > qp - window", "kp >= qp - window"),
+    # the forward
+    "no-rescale": ("flash_attention_fwd.cu", "acc[i][jj] *= corr;", "acc[i][jj] *= 1.0f;"),
+    "no-skip-guard": ("flash_attention_fwd.cu", "if (kp >= Sk) x = -INFINITY;",
+                      "if (kp >= Sk + 1) x = -INFINITY;"),
+    # dQ: ds without its - delta
+    "dq-no-delta": ("flash_attention_dq.cu", "p * (dp[i][j] - row_delta[i])", "p * dp[i][j]"),
+    # dK/dV: the causal diagonal dropped (k <= q turned into k < q) there only
+    "dkv-causal-strict": (
+        "flash_attention_dkv.cu",
+        "const bool ok = kp < Sk && flash::allowed(attention, window, causal, glob, qp, kp);",
+        "const bool ok = kp < Sk && flash::allowed(attention, window, causal, glob, qp, kp)"
+        " && !(causal && kp == qp);"),
+    # dK/dV: dK without its scale
+    "dkv-no-dk-scale": ("flash_attention_dkv.cu", "flash::store(&dk[at], acc_k[i][jj] * scale);",
+                        "flash::store(&dk[at], acc_k[i][jj]);"),
+    # dK/dV: the ragged last query tile's rows past S read and let through
+    "dkv-ragged-query": ("flash_attention_dkv.cu", "const int q_live = min(S - q_start, BQ);",
+                         "const int q_live = BQ;"),
 }
 
 
-def run(name: str, old: str, new: str) -> tuple[bool, str]:
+def run(name: str, src: str, old: str, new: str) -> tuple[bool, str]:
     """→ (the flash cases all passed, pytest's summary lines)."""
     work = ROOT / "build" / "mutants" / name
     shutil.rmtree(work, ignore_errors=True)
@@ -44,14 +63,15 @@ def run(name: str, old: str, new: str) -> tuple[bool, str]:
     shutil.copy(ROOT / TEST, work / TEST)
     shutil.copy(ROOT / "pyproject.toml", work / "pyproject.toml")
     if old:
-        src = (work / CU).read_text()
-        if src.count(old) != 1:
-            raise SystemExit(f"mutant {name}: {old!r} occurs {src.count(old)} times in the kernel")
-        (work / CU).write_text(src.replace(old, new))
+        path = work / CSRC / src
+        text = path.read_text()
+        if text.count(old) != 1:
+            raise SystemExit(f"mutant {name}: {old!r} occurs {text.count(old)} times in {src}")
+        path.write_text(text.replace(old, new))
     env = dict(os.environ, PYTHONPATH=str(work / "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "--noconftest", "-p", "no:cacheprovider",
-         "-m", "cuda", "-k", "flash_matches", str(TEST)],
+         "-m", "cuda", "-k", "flash_matches or flash_bwd_matches", str(TEST)],
         cwd=work, env=env, capture_output=True, text=True, timeout=900)
     summary = (proc.stdout.strip().splitlines() or ["(no output)"])[-1]
     return proc.returncode == 0 and " passed" in summary, summary
@@ -59,9 +79,9 @@ def run(name: str, old: str, new: str) -> tuple[bool, str]:
 
 def main() -> None:
     bad = []
-    for name, (old, new) in MUTANTS.items():
-        passed, summary = run(name, old, new)
-        edit = f"{old!r} -> {new!r}" if old else "unmutated kernel"
+    for name, (src, old, new) in MUTANTS.items():
+        passed, summary = run(name, src, old, new)
+        edit = f"{src}: {old!r} -> {new!r}" if old else "unmutated kernels"
         print(f"[mutant] {name}: {edit}: {summary}", flush=True)
         if passed != (name == "none"):
             bad.append(name)
