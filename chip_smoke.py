@@ -7,7 +7,9 @@ Phases, each of which must pass (the script exits non-zero at the first
 failure and prints no result):
 
   1. device   — the card's name and power limit (nvidia-smi);
-  2. build    — every CUDA kernel from src/repro_torch/kernels/csrc;
+  2. build    — every CUDA kernel from src/repro_torch/kernels/csrc, and the
+                count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in
+                the Hopper flash forward's SASS (cuobjdump), which must not be 0;
   3. parity   — each kernel against its plain PyTorch version on the card,
                 at the main path's shapes (capacity 50,000, K=128, B=64),
                 at the Nature-DQN replay size (1,000,000, K=128, B=512),
@@ -33,20 +35,24 @@ failure and prints no result):
                 (the update kernel given its mask; the public wrapper, which
                 computes the mask, is timed beside it); and the call latency
                 from an idle card, Python wrapper included;
-  7. flash    — the flash-attention forward kernel against its plain
+  7. flash    — the flash-attention forward kernels against their plain
                 version: the five mask cases of tests/test_flash_attention.py
                 at (4, 256, 64) f32, (8, 128, 16) f32, a ragged S = 200 at
-                hd 128/96/64, and the Granite-8B prefill shapes (32, 512, 128)
-                and (32, 128, 128) in bf16, under parity.flash_check;
+                hd 128/96/64 (the f32 kernel); the Granite-8B prefill shapes
+                (32, 512, 128) and (32, 128, 128), (32, 4096, 128), the
+                training shape (128, 256, 128), hd 96 at a ragged S and the
+                sliding and chunked masks at hd 128 in bf16 (the Hopper
+                kernel), under parity.flash_check;
   8. serve    — the token-model serve path: Granite-8B at its published
                 width and depth (36 layers, bf16, random weights from the
                 seed) with attn_impl="flash" through ActorServer (8 slots,
                 buckets 128/256/512, max_len 544), 16 requests of 1-512
                 prompt tokens and 32 new tokens each: exact token accounting,
-                prefill shapes <= 3, and the flash launches equal to the
-                count the code predicts (attention layers x prefills x one
-                pass).  The same prompts with attn_impl="naive", and the
-                prefill logits of both against the same weights in f32
+                prefill shapes <= 3, and the Hopper forward's launches equal
+                to the count the code predicts (attention layers x prefills x
+                one pass), none of the f32 kernel.  The same prompts with
+                attn_impl="naive", and the prefill logits of both against the
+                same weights in f32
                 (naive attention): flash no farther from the f32 model than
                 1.1x naive's distance, flash vs naive within 3e-2 relative
                 l2, first-token agreement.  Then a torch.profiler window
@@ -54,8 +60,10 @@ failure and prints no result):
   9. solo     — continuous batching against solo greedy decodes at
                 granite_8b SMOKE in f32 (TF32 off): a token may differ only
                 where the solo logits' top-2 margin is below 1e-5;
- 10. flash times — the kernel, its plain version and SDPA (the library
-                yardstick) at (32, 512, 128) and (32, 4096, 128) bf16 causal.
+ 10. flash times — the Hopper forward, its plain version and SDPA (the
+                library yardstick) at (32, 512, 128), (32, 4096, 128) and
+                (128, 256, 128) bf16 causal; the f32 kernel at (4, 256, 64) f32
+                causal.
 
  11. flash bwd — the dQ and dK/dV kernels against the plain backward (in f32
                 on the same q, k, v, dO and the forward kernel's O and LSE),
@@ -71,8 +79,9 @@ failure and prints no result):
                 (the loss and the per-sequence |TD| reported beside them);
  13. train    — `python -m repro_torch.launch.train`'s main at InternLM2-1.8B's
                 full width and depth, flash, --seq 256 --batch 8 --n-envs 16
-                --steps 6 --ckpt-every 3: 48 forward, 24 dQ and 24 dK/dV launches
-                per train step and the sample and gather kernels on every step,
+                --steps 6 --ckpt-every 3: 48 Hopper forward (no f32 forward),
+                24 dQ and 24 dK/dV launches per train step and the sample and
+                gather kernels on every step,
                 finite losses, moved parameters, the tree's root changed at the
                 flush after update_priorities, the step-6 checkpoint restored
                 into a fresh state bit for bit, the sample and gather kernels
@@ -127,6 +136,14 @@ FLASH_CASES = [
     (4, 200, 64, "sliding", 64, True, False, "bfloat16"),
     (32, 128, 128, "full", 0, True, True, "bfloat16"),
     (32, 512, 128, "full", 0, True, True, "bfloat16")]
+# phase 7's further bf16 cases, of the Hopper forward: the serve and train
+# shapes at full size, hd 96 at a ragged S, sliding and chunked at hd 128
+FLASH_SM90_CASES = [
+    (32, 4096, 128, "full", 0, True, True, "bfloat16"),
+    (128, 256, 128, "full", 0, True, True, "bfloat16"),
+    (3, 1000, 96, "full", 0, True, True, "bfloat16"),
+    (4, 512, 128, "sliding", 128, True, False, "bfloat16"),
+    (4, 512, 128, "chunked", 128, True, False, "bfloat16")]
 
 
 def fail(msg: str) -> None:
@@ -253,8 +270,8 @@ def profile_summary(torch, prof, wall_us: float, steps: int) -> dict:
                     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]]}
 
 
-def flash_phases(torch, dev, card: str) -> dict:
-    """Phases 7-10 → the flash kernel's entry of the kernels line."""
+def flash_phases(torch, dev, card: str) -> list:
+    """Phases 7-10 → the two forward kernels' entries of the kernels line."""
     import dataclasses
 
     import numpy as np
@@ -273,27 +290,38 @@ def flash_phases(torch, dev, card: str) -> dict:
         return [(torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(dtype)
                 for _ in range(3)]
 
-    # 7. the kernel against its plain version, run in f32 on the same inputs
-    cases = FLASH_CASES
-    err = {"f32": 0.0, "bf16": 0.0, "bf16_ulps": 0.0, "lse_rel": 0.0}
+    # 7. the forward kernels against their plain version, run in f32 on the
+    # same inputs; each case goes to the kernel _fwd_kernel_for picks
+    cases = FLASH_CASES + FLASH_SM90_CASES
+    err = {name: {"max_abs_err": 0.0, "bf16_max_ulps_beyond_atol": 0.0, "lse_max_rel": 0.0,
+                  "cases": 0} for name in (fa.NAME, fa.SM90_NAME)}
     for n, s, hd, attn, win, causal, glob, dt in cases:
         dt = getattr(torch, dt)
         q, k, v = qkv(n, s, hd, dt)
+        name = fa._fwd_kernel_for(dt, hd)
+        before = ops.launch_counts[name]
         o, lse = fa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
         o_ref, lse_ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), attn, win,
                                                   causal, glob)
         torch.cuda.synchronize()
         rep = parity.flash_check(o, lse, o_ref, lse_ref)
-        check(o.dtype == dt and rep.ok, f"flash kernel at ({n}, {s}, {hd}) {attn} window "
-              f"{win} causal={causal} global={glob} {dt}: {rep}")
-        key = "bf16" if dt == bf16 else "f32"
-        err[key] = max(err[key], rep.max_abs_err)
-        err["bf16_ulps"] = max(err["bf16_ulps"], rep.max_ulps)
-        err["lse_rel"] = max(err["lse_rel"], rep.lse_max_rel)
-    print(f"[flash parity] {len(cases)} cases agree with the plain version: f32 max |err| "
-          f"{err['f32']:.3g} (atol 2e-6 + rtol 1e-4), bf16 max |err| {err['bf16']:.3g} "
-          f"(at most {err['bf16_ulps']:.3f} bf16 ulp beyond atol 2e-6; 1 allowed), LSE max "
-          f"rel {err['lse_rel']:.3g}", flush=True)
+        check(o.dtype == dt and rep.ok and ops.launch_counts[name] == before + 1,
+              f"{name} at ({n}, {s}, {hd}) {attn} window {win} causal={causal} "
+              f"global={glob} {dt}: {rep}")
+        e = err[name]
+        e["max_abs_err"] = max(e["max_abs_err"], rep.max_abs_err)
+        e["bf16_max_ulps_beyond_atol"] = max(e["bf16_max_ulps_beyond_atol"], rep.max_ulps)
+        e["lse_max_rel"] = max(e["lse_max_rel"], rep.lse_max_rel)
+        e["cases"] += 1
+        del q, k, v, o, lse, o_ref, lse_ref
+    f32e, sm90e = err[fa.NAME], err[fa.SM90_NAME]
+    print(f"[flash parity] {len(cases)} cases agree with the plain version: {fa.NAME} "
+          f"{f32e['cases']} cases (f32 max |err| {f32e['max_abs_err']:.3g}, atol 2e-6 + rtol "
+          f"1e-4); {fa.SM90_NAME} {sm90e['cases']} cases (bf16 max |err| "
+          f"{sm90e['max_abs_err']:.3g}, at most {sm90e['bf16_max_ulps_beyond_atol']:.3f} bf16 "
+          f"ulp beyond atol 2e-6; 1 allowed); LSE max rel "
+          f"{max(f32e['lse_max_rel'], sm90e['lse_max_rel']):.3g}", flush=True)
+    torch.cuda.empty_cache()
 
     # 8. the serve path: Granite-8B at full width and depth through ActorServer
     cfg = dataclasses.replace(get_config("granite_8b"), attn_impl="flash")
@@ -336,9 +364,11 @@ def flash_phases(torch, dev, card: str) -> dict:
     check(st["prime_compiles"] <= 3, f"{st['prime_compiles']} prefill shapes for 3 buckets")
     per_prefill = backbone.flash_launches_per_prefill(cfg)
     predicted = per_prefill * st["admissions"]       # one pass per prefill
-    flash_launches = counts.get("flash_attention_fwd", 0)
-    check(flash_launches == predicted > 0, f"flash launches {flash_launches} on the serve "
-          f"path, predicted {per_prefill} x {st['admissions']} prefills = {predicted}")
+    flash_launches = counts.get(fa.SM90_NAME, 0)
+    check(flash_launches == predicted > 0 and not counts.get(fa.NAME),
+          f"{fa.SM90_NAME} launches {flash_launches} on the serve path, predicted "
+          f"{per_prefill} x {st['admissions']} prefills = {predicted}, and no {fa.NAME}: "
+          f"{counts}")
     check(all(0 <= t < cfg.vocab_size for c in done for t in c.tokens), "token out of range")
 
     nserver, ndone, nwall = serve(naive_cfg, prompts, 32)
@@ -390,6 +420,10 @@ def flash_phases(torch, dev, card: str) -> dict:
         wall_d = (time.perf_counter() - t0) * 1e6
     prof = {"prefill": profile_summary(torch, prof_p, wall_p, 1),
             "decode": profile_summary(torch, prof_d, wall_d, 8)}
+    # the Hopper forward's share of the prefill's device time
+    prof["prefill"]["flash_fwd_us"] = sum(
+        e.self_device_time_total for e in prof_p.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and "flash_fwd_sm90" in e.key)
 
     def phases(stats, secs):
         return {"first_tokens_per_s": stats["admissions"] / stats["prefill_s"],
@@ -424,6 +458,11 @@ def flash_phases(torch, dev, card: str) -> dict:
               f"{pr['device_busy_us'] / pr['steps']:,.0f} us device-busy and "
               f"{pr['device_ops_per_step']:,.0f} device ops per step (busy share "
               f"{pr['device_busy_share']}) | {card}", flush=True)
+    pp = prof["prefill"]
+    print(f"[serve profile] the prefill of a {int(lens.max())}-token prompt (bucket 512): "
+          f"{fa.SM90_NAME} {pp['flash_fwd_us']:,.0f} us of {pp['device_busy_us']:,.0f} us "
+          f"device-busy ({pp['flash_fwd_us'] / max(pp['device_busy_us'], 1e-9):.3f}) | {card}",
+          flush=True)
     print(f"[serve rate] {json.dumps(rate)}", flush=True)
     del server, nserver, eng, state, slot_cache, params
     torch.cuda.empty_cache()
@@ -463,35 +502,49 @@ def flash_phases(torch, dev, card: str) -> dict:
           f"prefill): continuous = solo greedy, {len(departures)} near-tie departures",
           flush=True)
 
-    # 10. the kernel's time beside its bound, its plain version and SDPA
-    times = {}
-    for n, s in ((32, 512), (32, 4096)):
-        q, k, v = qkv(n, s, 128, bf16)
+    # 10. the forward kernels' times beside their bounds, their plain version
+    # and SDPA
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd_times(n, s, hd, dt, ops_per_s, kern):
+        q, k, v = qkv(n, s, hd, dt)
         q4, k4, v4 = q[None], k[None], v[None]
         pairs = s * (s + 1) / 2                      # causal (query, key) pairs per head
-        b_ms, b_by = bound(4 * n * s * 128 * 2 + n * s * 4, 4 * 128 * n * pairs, BF16_OPS_PER_S)
-        times[s] = {
-            "ms": device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v)),
-            "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v)),
-            "library_ms": device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True)),
-            "bound_ms": b_ms, "bound_by": b_by, "call_ms": call_ms(
-                torch, lambda: fa.flash_attention_cuda(q, k, v))}
-        t = times[s]
+        size = q.element_size()
+        b_ms, b_by = bound(4 * n * s * hd * size + n * s * 4, 4 * hd * n * pairs, ops_per_s)
+        t = {"ms": device_ms(torch, lambda: kern(q, k, v)),
+             "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v)),
+             "library_ms": device_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True)),
+             "bound_ms": b_ms, "bound_by": b_by, "call_ms": call_ms(torch, lambda: kern(q, k, v))}
         check(all(math.isfinite(t[x]) for x in ("ms", "plain_ms", "library_ms")),
-              f"timing of flash at S={s} is not finite")
-        print(f"[times] flash_attention_fwd ({n}, {s}, 128) bf16 causal: device "
-              f"{t['ms'] * 1e3:.1f} us (plain {t['plain_ms'] * 1e3:.1f} us, SDPA "
-              f"{t['library_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} us by "
-              f"{t['bound_by']}, call {t['call_ms'] * 1e3:.1f} us) | {card}", flush=True)
-        del q, k, v, q4, k4, v4
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:123", "launches": flash_launches,
-            "path": "serve", "launches_per_prefill": per_prefill, "max_abs_err": err["f32"],
-            "bf16_max_abs_err": err["bf16"], "bf16_max_ulps_beyond_atol": err["bf16_ulps"],
-            "lse_max_rel": err["lse_rel"], **times[512],
-            "shape": "(32, 512, 128) bf16 causal", "at_32x4096": times[4096]}
+              f"timing of the flash forward at ({n}, {s}, {hd}) is not finite")
+        return t
+
+    times = {}
+    for n, s in ((32, 512), (32, 4096), (128, 256)):
+        t = times[(n, s)] = fwd_times(n, s, 128, bf16, BF16_OPS_PER_S, fa.flash_attention_cuda)
+        print(f"[times] {fa.SM90_NAME} ({n}, {s}, 128) bf16 causal: device {t['ms'] * 1e3:.1f} us "
+              f"(plain {t['plain_ms'] * 1e3:.1f} us, SDPA {t['library_ms'] * 1e3:.1f} us, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, call {t['call_ms'] * 1e3:.1f} us) "
+              f"| {card}", flush=True)
+    f32t = fwd_times(4, 256, 64, torch.float32, F32_OPS_PER_S, fa.flash_attention_cuda)
+    print(f"[times] {fa.NAME} (4, 256, 64) f32 causal: device {f32t['ms'] * 1e3:.1f} us (plain "
+          f"{f32t['plain_ms'] * 1e3:.1f} us, SDPA {f32t['library_ms'] * 1e3:.1f} us, bound "
+          f"{f32t['bound_ms'] * 1e3:.2f} us by {f32t['bound_by']}, call "
+          f"{f32t['call_ms'] * 1e3:.1f} us) | {card}", flush=True)
+    torch.cuda.empty_cache()
+    e32 = {k: v for k, v in err[fa.NAME].items() if k != "bf16_max_ulps_beyond_atol"}
+    return [{"name": fa.SM90_NAME, "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{fa.SM90_NAME}.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:123", "launches": flash_launches,
+             "path": "serve", "launches_per_prefill": per_prefill, **err[fa.SM90_NAME],
+             **times[(32, 512)], "shape": "(32, 512, 128) bf16 causal",
+             "at_32x4096": times[(32, 4096)], "at_128x256": times[(128, 256)]},
+            {"name": fa.NAME, "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{fa.NAME}.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:123",
+             "launches": counts.get(fa.NAME, 0), "path": "none (f32 and hd 16 only)", **e32,
+             **f32t, "shape": "(4, 256, 64) f32 causal"}]
 
 
 # -- phases 11-14: the flash backward and the token-DQN training path ----------
@@ -631,7 +684,7 @@ def train_phases(torch, dev, card: str) -> list:
         ops.reset_launch_counts()
         arms = {"flash": td_grads(cfg, params, batch)}
         gate_counts = dict(ops.launch_counts)
-        check(gate_counts.get("flash_attention_fwd") == 2 * layers
+        check(gate_counts.get(fa.SM90_NAME) == 2 * layers and not gate_counts.get(fa.NAME)
               and gate_counts.get("flash_attention_dq") == layers
               and gate_counts.get("flash_attention_dkv") == layers,
               f"one TD loss and its gradients launched {gate_counts}, expected {2 * layers} "
@@ -677,8 +730,8 @@ def train_phases(torch, dev, card: str) -> list:
         hist, state = res["history"], res["state"]
         steps = len(hist)
         check(steps == 6 and res["start"] is None, f"{steps} steps, start {res['start']}")
-        want = {"flash_attention_fwd": 2 * layers * steps, "flash_attention_dq": layers * steps,
-                "flash_attention_dkv": layers * steps}
+        want = {fa.SM90_NAME: 2 * layers * steps, fa.NAME: None,
+                "flash_attention_dq": layers * steps, "flash_attention_dkv": layers * steps}
         check(all(train_counts.get(k) == v for k, v in want.items())
               and train_counts.get("sumtree_sample", 0) >= steps
               and train_counts.get("gather", 0) >= steps
@@ -847,7 +900,7 @@ def main() -> None:
     from repro_torch.core import sumtree
     from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
     from repro_torch.envs.classic import make_vec
-    from repro_torch.kernels import ops, parity
+    from repro_torch.kernels import _build, ops, parity
     from repro_torch.kernels import sumtree_update as kupdate
     from repro_torch.quickstart import transition_example
     from repro_torch.runtime.executors import FusedExecutor
@@ -871,6 +924,15 @@ def main() -> None:
     secs = ops.build_all()
     print(f"[build] {len(ops.KERNELS)} kernels built in {secs:.1f} s (0 = already built)",
           flush=True)
+    # the Hopper flash forward's machine code: wgmma (HGMMA) and TMA loads (UTMALDG)
+    lib = _build._lib_path("flash_attention_fwd_sm90")
+    sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300)
+    hgmma, utmaldg = sass.stdout.count("HGMMA"), sass.stdout.count("UTMALDG")
+    print(f"[sass] {lib.name}: {hgmma} HGMMA and {utmaldg} UTMALDG instructions (cuobjdump "
+          f"-sass)", flush=True)
+    check(sass.returncode == 0 and hgmma > 0 and utmaldg > 0,
+          f"no wgmma or no TMA load in {lib.name}'s SASS (cuobjdump rc {sass.returncode})")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {"sumtree_sample": 0.0, "gather": 0.0, "sample_gather": 0.0,
@@ -1171,7 +1233,7 @@ def main() -> None:
               f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.4f} us)", flush=True)
     print(f"[main path rate] {json.dumps(main_rate)}", flush=True)
 
-    kernels.append(flash_phases(torch, dev, card))
+    kernels += flash_phases(torch, dev, card)
     bwd_entries, train_counts = train_phases(torch, dev, card)
     for entry in kernels:       # the replay kernels and the forward on the training path
         entry["train_launches"] = train_counts.get(entry["name"], 0)

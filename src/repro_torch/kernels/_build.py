@@ -25,7 +25,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 KERNELS = ("sumtree_sample", "gather", "sample_gather", "sumtree_update",
-           "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+           "flash_attention_fwd", "flash_attention_fwd_sm90", "flash_attention_dq",
+           "flash_attention_dkv")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"

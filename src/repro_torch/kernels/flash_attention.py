@@ -1,7 +1,9 @@
-"""Flash-attention kernels — forward (``csrc/flash_attention_fwd.cu``),
-dQ (``csrc/flash_attention_dq.cu``) and dK/dV
+"""Flash-attention kernels — two forwards (``csrc/flash_attention_fwd_sm90.cu``,
+wgmma and TMA, for bf16 at hd 64/96/128; ``csrc/flash_attention_fwd.cu``,
+f32 FMA, for f32 and hd 16), dQ (``csrc/flash_attention_dq.cu``) and dK/dV
 (``csrc/flash_attention_dkv.cu``) — with their plain versions and the
-``torch.autograd.Function`` that ties them together.
+``torch.autograd.Function`` that ties them together.  ``_fwd_kernel_for``
+picks the forward from the dtype and the head width alone.
 
 Port of the TPU kernels of ``repro/kernels/flash_attention.py``: ``_fwd``
 (fused attention on (N, S, hd) tensors, N = batch·heads, with an online
@@ -32,12 +34,14 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "flash_attention_fwd"
+SM90_NAME = "flash_attention_fwd_sm90"
 DQ_NAME = "flash_attention_dq"
 DKV_NAME = "flash_attention_dkv"
 NEG = -1e30
 ATTENTION = {"full": 0, "sliding": 1, "chunked": 2}
 HEAD_DIMS = (16, 64, 96, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SM90_HEAD_DIMS = (64, 96, 128)     # the Hopper forward's (bf16 only)
 
 
 def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, attention: str,
@@ -152,6 +156,11 @@ def _fn():
 
 
 @functools.cache
+def _sm90_fn():
+    return _lib_fn(SM90_NAME, 5, 8)
+
+
+@functools.cache
 def _dq_fn():
     return _lib_fn(DQ_NAME, 7, 9)
 
@@ -204,10 +213,20 @@ def _check_cuda(*ts: torch.Tensor) -> None:
         raise ValueError(f"N = {ts[0].shape[0]} exceeds the grid's y extent")
 
 
+def _fwd_kernel_for(dtype: torch.dtype, hd: int) -> str:
+    """The forward kernel for inputs of ``dtype`` at head width ``hd``: the
+    Hopper kernel for bf16 at hd 64, 96 or 128, the f32-FMA kernel for the
+    rest (f32, and hd 16)."""
+    return SM90_NAME if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS else NAME
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          attention: str = "full", window: int = 0,
                          causal: bool = True, is_global: bool = True
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel that ``_fwd_kernel_for`` picks → (O, LSE)."""
+    if _fwd_kernel_for(q.dtype, q.shape[-1]) == SM90_NAME:
+        return flash_attention_sm90_cuda(q, k, v, attention, window, causal, is_global)
     check_inputs(q, k, v, attention, window)
     _check_cuda(q, k, v)
     n, s, hd = q.shape
@@ -217,6 +236,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                lse.data_ptr(), n, s, k.shape[1], hd,
                *_mask_args(q, attention, window, causal, is_global))
     _build.check(rc, NAME)
+    return o, lse
+
+
+def flash_attention_sm90_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              attention: str = "full", window: int = 0,
+                              causal: bool = True, is_global: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Hopper forward kernel → (O, LSE)."""
+    check_inputs(q, k, v, attention, window)
+    _check_cuda(q, k, v)
+    n, s, hd = q.shape
+    if q.dtype != torch.bfloat16 or hd not in SM90_HEAD_DIMS:
+        raise ValueError(f"{SM90_NAME} takes bf16 at hd {SM90_HEAD_DIMS}, got {q.dtype}, "
+                         f"hd {hd}")
+    o = torch.empty_like(q)
+    lse = torch.empty((n, s), dtype=torch.float32, device=q.device)
+    rc = _sm90_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                    n, s, k.shape[1], hd, ATTENTION[attention], int(window),
+                    int(bool(causal)), int(bool(is_global)), _build.stream_handle(q.device))
+    _build.check(rc, SM90_NAME)
     return o, lse
 
 

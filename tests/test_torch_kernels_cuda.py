@@ -15,7 +15,11 @@ leaves bit for bit and each interior level at rtol 1e-5 plus 1e-6 of its
 own magnitude.  Flash attention (forward): the five mask cases of
 tests/test_flash_attention.py at (4, 256, 64) f32, hd 16, 96 and 128, a
 ragged S = 200, and the Granite-8B prefill shapes (32, 128/512, 128) in
-bf16, held by parity.flash_check (f32 O at atol 2e-6 + rtol 1e-4, bf16 O
+bf16; the Hopper forward (bf16) at every mask and hd 64/96/128, ragged S
+200 and 1,000, Sk != S, (32, 4096, 128) and the training shape (128,
+256, 128), with its launch count, and with NaN rows after each tensor
+that it must not read; all held by
+parity.flash_check (f32 O at atol 2e-6 + rtol 1e-4, bf16 O
 within one bf16 ulp of the f32 plain result + 2e-6, LSE rtol 1e-5 +
 atol 1e-6).  Flash attention (backward): the same cases and the
 InternLM2-1.8B training shape (128, 256, 128) bf16, the dQ and dK/dV
@@ -164,6 +168,70 @@ def test_cuda_flash_matches_plain(cuda_dev, n, s, hd, attn, win, causal, glob, d
                                                causal, glob)
     torch.cuda.synchronize()
     assert o.dtype == dtype and lse.dtype == torch.float32
+    report = parity.flash_check(o, lse, o_ref, lse_ref)
+    assert report.ok, report
+
+
+# the Hopper forward (bf16 at hd 64/96/128): (n, s, sk, hd, attention, window,
+# causal, is_global) — every mask at each hd, ragged S, Sk != S, and the
+# serve and train shapes
+MASKS = [("full", 0, True, True), ("full", 0, False, True), ("sliding", 64, True, False),
+         ("sliding", 64, True, True), ("chunked", 64, True, False)]
+SM90_CASES = [(4, 256, 256, hd, *m) for hd in (64, 96, 128) for m in MASKS] + [
+    (3, 200, 200, 128, "full", 0, True, True), (2, 1000, 1000, 128, "full", 0, True, True),
+    (3, 200, 200, 96, "sliding", 50, True, False), (2, 1000, 1000, 64, "chunked", 96, True, False),
+    (2, 256, 100, 128, "full", 0, False, True), (2, 100, 300, 128, "full", 0, True, True),
+    (2, 300, 1000, 64, "full", 0, False, True), (32, 4096, 4096, 128, "full", 0, True, True),
+    (128, 256, 256, 128, "full", 0, True, True)]
+
+
+def _sm90_check(dev, n, s, sk, hd, attn, win, causal, glob):
+    g = torch.Generator(device=dev).manual_seed(n * s + sk + hd)
+    q = (torch.randn((n, s, hd), generator=g, device=dev) * 0.3).bfloat16()
+    k, v = ((torch.randn((n, sk, hd), generator=g, device=dev) * 0.3).bfloat16()
+            for _ in range(2))
+    before = dict(tops.launch_counts)
+    o, lse = tfa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
+    o_ref, lse_ref = tfa.flash_attention_plain(q.float(), k.float(), v.float(), attn, win,
+                                               causal, glob)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert tops.launch_counts[tfa.SM90_NAME] == before.get(tfa.SM90_NAME, 0) + 1
+    assert tops.launch_counts[tfa.NAME] == before.get(tfa.NAME, 0)
+    report = parity.flash_check(o, lse, o_ref, lse_ref)
+    assert report.ok, report
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,sk,hd,attn,win,causal,glob", SM90_CASES)
+def test_cuda_flash_sm90_matches_plain(cuda_dev, n, s, sk, hd, attn, win, causal, glob):
+    """The Hopper forward, routed by flash_attention_cuda, against the plain
+    version in f32; one launch of it and none of the f32 kernel."""
+    _sm90_check(cuda_dev, n, s, sk, hd, attn, win, causal, glob)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,sk,hd", [(200, 200, 128), (256, 100, 64), (130, 1000, 96)])
+def test_cuda_flash_sm90_reads_nothing_past_its_tensors(cuda_dev, s, sk, hd):
+    """q, k and v each followed in memory by NaN rows: the tensor maps are
+    3-D, so the tiles that run past S or Sk are zero-filled and never read
+    those rows (a map over all heads' rows at once would read them into the
+    last head's P·V, 0·NaN = NaN)."""
+    n = 3
+    g = torch.Generator(device=cuda_dev).manual_seed(s + sk + hd)
+
+    def guarded(rows):
+        buf = torch.full((n * rows + 128, hd), float("nan"), dtype=torch.bfloat16,
+                         device=cuda_dev)
+        x = buf[: n * rows].view(n, rows, hd)
+        x.copy_(torch.randn((n, rows, hd), generator=g, device=cuda_dev) * 0.3)
+        return x
+
+    q, k, v = guarded(s), guarded(sk), guarded(sk)
+    o, lse = tfa.flash_attention_cuda(q, k, v)
+    o_ref, lse_ref = tfa.flash_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
     report = parity.flash_check(o, lse, o_ref, lse_ref)
     assert report.ok, report
 

@@ -5,10 +5,10 @@
 
 For each mutant below, copies ``src/repro_torch`` and
 ``tests/test_torch_kernels_cuda.py`` into ``build/mutants/<name>/``,
-applies one edit to one kernel source there (the forward, the shared
-masks of ``flash_mask.cuh``, or the dQ or dK/dV kernel), builds the
-kernels from the copy and runs the flash cases of the CUDA test file,
-forward and backward (``parity.flash_check`` and
+applies one edit to one kernel source there (the f32 forward, the Hopper
+forward, the shared masks of ``flash_mask.cuh``, or the dQ or dK/dV
+kernel), builds the kernels from the copy and runs the flash cases of the
+CUDA test file, forward and backward (``parity.flash_check`` and
 ``parity.flash_bwd_check``, the rules ``chip_smoke.py`` applies).  A
 mutant must fail at least one case; the script exits non-zero if one
 survives, if an edit no longer applies, or if the unmutated kernels fail.
@@ -36,6 +36,20 @@ MUTANTS = {
     "no-rescale": ("flash_attention_fwd.cu", "acc[i][jj] *= corr;", "acc[i][jj] *= 1.0f;"),
     "no-skip-guard": ("flash_attention_fwd.cu", "if (kp >= Sk) x = -INFINITY;",
                       "if (kp >= Sk + 1) x = -INFINITY;"),
+    # the Hopper forward: P_lo dropped (P in bf16 alone, as FlashAttention-2/3)
+    "sm90-no-p-lo": ("flash_attention_fwd_sm90.cu",
+                     "wgmma_rs<HDP>(acc, &p_lo[4 * kk], dv);", ""),
+    # ... wgmma reading the 128-byte-swizzled tiles as 64-byte-swizzled
+    "sm90-swizzle": ("flash_attention_fwd_sm90.cu", "| (1ull << 62);", "| (2ull << 62);"),
+    # ... the second stage's mbarrier phase flipped
+    "sm90-phase-flip": ("flash_attention_fwd_sm90.cu",
+                        "const uint32_t phase = (it / STAGES) & 1;",
+                        "const uint32_t phase = ((it / STAGES) & 1) ^ (s == 1);"),
+    # ... the rows of one head running on into the next, as in a flattened
+    # 2-D map: rows past S or Sk are no longer zero
+    "sm90-2d-map": ("flash_attention_fwd_sm90.cu",
+                    "dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)heads};",
+                    "dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows * heads, (cuuint64_t)heads};"),
     # dQ: ds without its - delta
     "dq-no-delta": ("flash_attention_dq.cu", "p * (dp[i][j] - row_delta[i])", "p * dp[i][j]"),
     # dK/dV: the causal diagonal dropped (k <= q turned into k < q) there only
@@ -71,7 +85,7 @@ def run(name: str, src: str, old: str, new: str) -> tuple[bool, str]:
     env = dict(os.environ, PYTHONPATH=str(work / "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "--noconftest", "-p", "no:cacheprovider",
-         "-m", "cuda", "-k", "flash_matches or flash_bwd_matches", str(TEST)],
+         "-m", "cuda", "-k", "flash_matches or flash_sm90 or flash_bwd_matches", str(TEST)],
         cwd=work, env=env, capture_output=True, text=True, timeout=900)
     summary = (proc.stdout.strip().splitlines() or ["(no output)"])[-1]
     return proc.returncode == 0 and " passed" in summary, summary
