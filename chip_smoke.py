@@ -9,7 +9,8 @@ failure and prints no result):
   1. device   — the card's name and power limit (nvidia-smi);
   2. build    — every CUDA kernel from src/repro_torch/kernels/csrc, and the
                 count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in
-                the Hopper flash forward's SASS (cuobjdump), which must not be 0;
+                the SASS (cuobjdump) of each of the three Hopper flash kernels
+                (the forward, dQ and dK/dV), none of which may be 0;
   3. parity   — each kernel against its plain PyTorch version on the card,
                 at the main path's shapes (capacity 50,000, K=128, B=64),
                 at the Nature-DQN replay size (1,000,000, K=128, B=512),
@@ -65,12 +66,16 @@ failure and prints no result):
                 (128, 256, 128) bf16 causal; the f32 kernel at (4, 256, 64) f32
                 causal.
 
- 11. flash bwd — the dQ and dK/dV kernels against the plain backward (in f32
-                on the same q, k, v, dO and the forward kernel's O and LSE),
-                on phase 7's cases and the training shape (128, 256, 128)
-                bf16, under parity.flash_bwd_check; and the FlashAttention
-                Function's gradients against autograd through the plain
-                forward, three masks at (3, 200, 64) f32;
+ 11. flash bwd — the backward pair that _bwd_kernel_for picks (the Hopper dQ
+                and dK/dV kernels for bf16 at hd 64/96/128, the f32-FMA pair
+                for f32 and hd 16) against the plain backward (in f32 on the
+                same q, k, v, dO and the forward kernel's O and LSE), on all
+                of phase 7's cases (the serve and train shapes, (32, 4096,
+                128), hd 96 at S = 1000, sliding and chunked at hd 128) under
+                parity.flash_bwd_check, one launch of each kernel of the pair
+                and none of the other, and a second call bit for bit the same;
+                and the FlashAttention Function's gradients against autograd
+                through the plain forward, three masks at (3, 200, 64) f32;
  12. grad gate — InternLM2-1.8B at its published width and depth in bf16,
                 one TD loss and its gradients on each of four seeded (8, 256)
                 batches with flash and with naive attention, against the same
@@ -79,18 +84,22 @@ failure and prints no result):
                 (the loss and the per-sequence |TD| reported beside them);
  13. train    — `python -m repro_torch.launch.train`'s main at InternLM2-1.8B's
                 full width and depth, flash, --seq 256 --batch 8 --n-envs 16
-                --steps 6 --ckpt-every 3: 48 Hopper forward (no f32 forward),
-                24 dQ and 24 dK/dV launches per train step and the sample and
-                gather kernels on every step,
+                --steps 6 --ckpt-every 3: 48 Hopper forward, 24 Hopper dQ and
+                24 Hopper dK/dV launches per train step (none of the f32
+                forward and backward kernels) and the sample and gather
+                kernels on every step,
                 finite losses, moved parameters, the tree's root changed at the
                 flush after update_priorities, the step-6 checkpoint restored
                 into a fresh state bit for bit, the sample and gather kernels
                 against their plain versions on the run's own tree and token
                 rows, a profiled train step, and a second call with --steps 8
                 that resumes from step 6;
- 14. bwd times — dQ and dK/dV at (128, 256, 128) and (32, 4096, 128) bf16
-                causal beside their bounds, their plain versions and one SDPA
-                backward call that computes all three gradients.
+ 14. bwd times — the Hopper dQ and dK/dV kernels and the f32-FMA pair at
+                (128, 256, 128) and (32, 4096, 128) bf16 causal beside their
+                bounds, their plain versions and one SDPA backward call that
+                computes all three gradients, with the TFLOP/s reached on the
+                work the bounds count (3 and 4 products a pair) and on the
+                products the kernels do (the hi/lo splits: 4 and 7).
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration.
@@ -598,31 +607,43 @@ def train_phases(torch, dev, card: str) -> list:
         return (torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(dtype)
 
     # 11. the backward kernels against their plain version, on the forward
-    # kernel's O and LSE; the plain backward in f32 on the same inputs
-    bwd_cases = FLASH_CASES + [(128, 256, 128, "full", 0, True, True, "bfloat16")]
-    err = {"f32": 0.0, "bf16": 0.0, "bf16_ulps": 0.0}
+    # kernel's O and LSE; the plain backward in f32 on the same inputs.  Each
+    # case goes to the pair _bwd_kernel_for picks, and a second call must give
+    # the same gradients bit for bit
+    bwd_cases = FLASH_CASES + FLASH_SM90_CASES
+    bwd_names = (fa.DQ_SM90_NAME, fa.DKV_SM90_NAME, fa.DQ_NAME, fa.DKV_NAME)
     # each kernel's worst case: dQ's own, dK/dV's over dK and dV
-    per_kernel = {kern: {"f32": 0.0, "bf16": 0.0, "bf16_ulps": 0.0} for kern in ("dq", "dkv")}
+    per_kernel = {name: {"max_abs_err": 0.0, "bf16_max_ulps_beyond_atol": 0.0, "cases": 0}
+                  for name in bwd_names}
     for n, s, hd, attn, win, causal, glob, dt in bwd_cases:
         dt = getattr(torch, dt)
         q, k, v, do = (randn(n, s, hd, dt) for _ in range(4))
         o, lse = fa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
-        dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
+        chosen = fa._bwd_kernel_for(dt, hd)
+        before = dict(ops.launch_counts)
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
+        launched = {name: ops.launch_counts[name] - before.get(name, 0) for name in bwd_names}
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
         ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
                                            do.float(), attn, win, causal, glob)
         torch.cuda.synchronize()
-        rep = parity.flash_bwd_check(dq, dk, dv, *ref)
-        check(all(t.dtype == dt for t in (dq, dk, dv)) and rep.ok,
-              f"flash backward at ({n}, {s}, {hd}) {attn} window {win} causal={causal} "
-              f"global={glob} {dt}: {rep}")
-        key = "bf16" if dt == torch.bfloat16 else "f32"
-        err[key] = max(err[key], rep.max_abs_err)
-        err["bf16_ulps"] = max(err["bf16_ulps"], rep.max_ulps)
-        for kern, grads in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+        rep = parity.flash_bwd_check(*got, *ref)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        case = (f"({n}, {s}, {hd}) {attn} window {win} causal={causal} global={glob} {dt}")
+        check(all(t.dtype == dt for t in got) and rep.ok,
+              f"flash backward {chosen} at {case}: {rep}")
+        check(launched == {name: int(name in chosen) for name in bwd_names},
+              f"flash backward at {case} launched {launched}, expected one each of {chosen}")
+        check(same, f"flash backward {chosen} at {case}: a second call gave other gradients")
+        for kern, grads in ((chosen[0], ("dq",)), (chosen[1], ("dk", "dv"))):
+            e = per_kernel[kern]
             for g in grads:
-                e, u = rep.per[g]
-                per_kernel[kern][key] = max(per_kernel[kern][key], e)
-                per_kernel[kern]["bf16_ulps"] = max(per_kernel[kern]["bf16_ulps"], u)
+                worst, ulps = rep.per[g]
+                e["max_abs_err"] = max(e["max_abs_err"], worst)
+                e["bf16_max_ulps_beyond_atol"] = max(e["bf16_max_ulps_beyond_atol"], ulps)
+            e["cases"] += 1
+        del q, k, v, do, o, lse, got, again, ref
+    torch.cuda.empty_cache()
     fn_err = 0.0
     for attn, win, causal, glob in (("full", 0, True, True), ("sliding", 64, True, False),
                                     ("chunked", 48, False, False)):
@@ -635,11 +656,15 @@ def train_phases(torch, dev, card: str) -> list:
             check(bool(((a - b).abs() <= 2e-5 + 1e-3 * b.abs()).all()),
                   f"FlashAttention gradients vs autograd through the plain forward ({attn})")
             fn_err = max(fn_err, float((a - b).abs().max()))
-    print(f"[flash bwd parity] {len(bwd_cases)} cases: dQ, dK, dV agree with the plain backward "
-          f"(f32 max |err| {err['f32']:.3g}, atol 2e-5 + rtol 1e-3; bf16 max |err| "
-          f"{err['bf16']:.3g}, at most {err['bf16_ulps']:.3f} bf16 ulp beyond atol 2e-5; 1 "
-          f"allowed); FlashAttention's gradients vs autograd through the plain forward, 3 masks "
-          f"at (3, 200, 64) f32: max |err| {fn_err:.3g}", flush=True)
+    sm90e, f32e = per_kernel[fa.DKV_SM90_NAME], per_kernel[fa.DKV_NAME]
+    print(f"[flash bwd parity] {len(bwd_cases)} cases: dQ, dK, dV agree with the plain backward, "
+          f"a second call bit for bit: the Hopper pair {sm90e['cases']} cases (bf16 max |err| dQ "
+          f"{per_kernel[fa.DQ_SM90_NAME]['max_abs_err']:.3g}, dK/dV {sm90e['max_abs_err']:.3g}, "
+          f"at most {max(sm90e['bf16_max_ulps_beyond_atol'], per_kernel[fa.DQ_SM90_NAME]['bf16_max_ulps_beyond_atol']):.3f} "
+          f"bf16 ulp beyond atol 2e-5; 1 allowed); the f32 pair {f32e['cases']} cases (f32 max "
+          f"|err| dQ {per_kernel[fa.DQ_NAME]['max_abs_err']:.3g}, dK/dV {f32e['max_abs_err']:.3g}, "
+          f"atol 2e-5 + rtol 1e-3); FlashAttention's gradients vs autograd through the plain "
+          f"forward, 3 masks at (3, 200, 64) f32: max |err| {fn_err:.3g}", flush=True)
 
     # 12. the gradient gate at full width: flash bf16 and naive bf16 against
     # the same weights in f32 (naive, TF32 off), one TD loss and its
@@ -685,10 +710,11 @@ def train_phases(torch, dev, card: str) -> list:
         arms = {"flash": td_grads(cfg, params, batch)}
         gate_counts = dict(ops.launch_counts)
         check(gate_counts.get(fa.SM90_NAME) == 2 * layers and not gate_counts.get(fa.NAME)
-              and gate_counts.get("flash_attention_dq") == layers
-              and gate_counts.get("flash_attention_dkv") == layers,
+              and gate_counts.get(fa.DQ_SM90_NAME) == layers
+              and gate_counts.get(fa.DKV_SM90_NAME) == layers
+              and not gate_counts.get(fa.DQ_NAME) and not gate_counts.get(fa.DKV_NAME),
               f"one TD loss and its gradients launched {gate_counts}, expected {2 * layers} "
-              f"forward and {layers} dQ and dK/dV")
+              f"Hopper forward and {layers} Hopper dQ and dK/dV")
         arms["naive"] = td_grads(naive_cfg, params, batch)
         x = td_grads(exact_cfg, exact, batch)
         row = {}
@@ -731,7 +757,8 @@ def train_phases(torch, dev, card: str) -> list:
         steps = len(hist)
         check(steps == 6 and res["start"] is None, f"{steps} steps, start {res['start']}")
         want = {fa.SM90_NAME: 2 * layers * steps, fa.NAME: None,
-                "flash_attention_dq": layers * steps, "flash_attention_dkv": layers * steps}
+                fa.DQ_SM90_NAME: layers * steps, fa.DKV_SM90_NAME: layers * steps,
+                fa.DQ_NAME: None, fa.DKV_NAME: None}
         check(all(train_counts.get(k) == v for k, v in want.items())
               and train_counts.get("sumtree_sample", 0) >= steps
               and train_counts.get("gather", 0) >= steps
@@ -806,7 +833,7 @@ def train_phases(torch, dev, card: str) -> list:
         check("resumed from step 6" in printed.getvalue() and res2["start"] == 6
               and len(res2["history"]) == 2, f"the second call did not resume from step 6: "
               f"start {res2['start']}, {len(res2['history'])} steps")
-        check(resume_counts.get("flash_attention_dq") == 2 * layers,
+        check(resume_counts.get(fa.DQ_SM90_NAME) == 2 * layers,
               f"resumed run launches {resume_counts}")
         peak = res2["peak_memory_bytes"] or 0
         hist2 = res2["history"]
@@ -835,7 +862,8 @@ def train_phases(torch, dev, card: str) -> list:
     print(f"[train rate] {json.dumps(rate)}", flush=True)
 
     # 14. the backward kernels' times beside their bounds, their plain
-    # versions and one SDPA backward call
+    # versions and one SDPA backward call; the f32-FMA pair is the Hopper
+    # pair's earlier version, timed on the same bf16 inputs
     times = {}
     for n, s in ((128, 256), (32, 4096)):
         q, k, v, do = (randn(n, s, 128, torch.bfloat16) for _ in range(4))
@@ -845,42 +873,66 @@ def train_phases(torch, dev, card: str) -> list:
         reads = 4 * n * s * 128 * 2 + 2 * n * s * 4  # q, k, v, dO; lse, delta
         backend, lib = sdpa_backward(torch, q[None], k[None], v[None], do[None])
         lib_ms = device_ms(torch, lib)
+        args = (q, k, v, do, lse, delta)
+        dq_plain = device_ms(torch, lambda: fa.flash_attention_dq_plain(*args))
+        dkv_plain = device_ms(torch, lambda: fa.flash_attention_dkv_plain(*args))
+        dq_bound = bound(reads + n * s * 128 * 2, 3 * 2 * 128 * pairs, BF16_OPS_PER_S)
+        dkv_bound = bound(reads + 2 * n * s * 128 * 2, 4 * 2 * 128 * pairs, BF16_OPS_PER_S)
+        # name → (launch, plain ms, bound, products a pair: the bound's, the kernel's)
         calls = {
-            "flash_attention_dq": (
-                lambda: fa.flash_attention_dq_cuda(q, k, v, do, lse, delta),
-                lambda: fa.flash_attention_dq_plain(q, k, v, do, lse, delta),
-                bound(reads + n * s * 128 * 2, 3 * 2 * 128 * pairs, BF16_OPS_PER_S)),
-            "flash_attention_dkv": (
-                lambda: fa.flash_attention_dkv_cuda(q, k, v, do, lse, delta),
-                lambda: fa.flash_attention_dkv_plain(q, k, v, do, lse, delta),
-                bound(reads + 2 * n * s * 128 * 2, 4 * 2 * 128 * pairs, BF16_OPS_PER_S)),
+            fa.DQ_SM90_NAME: (lambda: fa.flash_attention_dq_sm90_cuda(*args), dq_plain,
+                              dq_bound, 3, 4),
+            fa.DKV_SM90_NAME: (lambda: fa.flash_attention_dkv_sm90_cuda(*args), dkv_plain,
+                               dkv_bound, 4, 7),
+            fa.DQ_NAME: (lambda: fa.flash_attention_dq_cuda(*args), dq_plain, dq_bound, 3, 3),
+            fa.DKV_NAME: (lambda: fa.flash_attention_dkv_cuda(*args), dkv_plain, dkv_bound, 4, 4),
         }
-        for name, (kern, plain, (b_ms, b_by)) in calls.items():
-            t = {"ms": device_ms(torch, kern), "plain_ms": device_ms(torch, plain),
-                 "library_ms": lib_ms, "library": f"one SDPA {backend} backward call (dQ, dK "
-                 f"and dV together)", "bound_ms": b_ms, "bound_by": b_by,
-                 "call_ms": call_ms(torch, kern)}
+        for name, (kern, plain_ms, (b_ms, b_by), work, done) in calls.items():
+            ms = device_ms(torch, kern)
+            t = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "library": f"one SDPA {backend} backward call (dQ, dK and dV together)",
+                 "bound_ms": b_ms, "bound_by": b_by, "call_ms": call_ms(torch, kern),
+                 "tflops": work * 2 * 128 * pairs / (ms * 1e-3) / 1e12,
+                 "tflops_products_done": done * 2 * 128 * pairs / (ms * 1e-3) / 1e12,
+                 "products_a_pair": done}
             check(all(math.isfinite(t[x]) for x in ("ms", "plain_ms", "library_ms")),
                   f"timing of {name} at S={s} is not finite")
             times.setdefault(name, {})[s] = t
-            print(f"[times] {name} ({n}, {s}, 128) bf16 causal: device {t['ms'] * 1e3:.1f} us "
-                  f"(plain {t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} us by "
-                  f"{t['bound_by']}, call {t['call_ms'] * 1e3:.1f} us); SDPA {backend} backward "
-                  f"(all three gradients) {lib_ms * 1e3:.1f} us | {card}", flush=True)
-        del q, k, v, do, o, lse, delta, lib
+            print(f"[times] {name} ({n}, {s}, 128) bf16 causal: device {ms * 1e3:.1f} us "
+                  f"(plain {plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us by {b_by}, call "
+                  f"{t['call_ms'] * 1e3:.1f} us; {t['tflops']:.1f} TFLOP/s of the work, "
+                  f"{t['tflops_products_done']:.1f} of its {done} products a pair); SDPA "
+                  f"{backend} backward (all three gradients) {lib_ms * 1e3:.1f} us | {card}",
+                  flush=True)
+        new = times[fa.DQ_SM90_NAME][s]["ms"] + times[fa.DKV_SM90_NAME][s]["ms"]
+        old = times[fa.DQ_NAME][s]["ms"] + times[fa.DKV_NAME][s]["ms"]
+        print(f"[times] backward pair ({n}, {s}, 128) bf16 causal: Hopper {new * 1e3:.1f} us, f32 "
+              f"pair {old * 1e3:.1f} us ({old / new:.2f}x), one SDPA backward "
+              f"{lib_ms * 1e3:.1f} us ({new / lib_ms:.2f}x of it) | {card}", flush=True)
+        del q, k, v, do, o, lse, delta, lib, args
         torch.cuda.empty_cache()
     entries = []
-    for name, line, kerr in (("flash_attention_dq", 237, per_kernel["dq"]),
-                             ("flash_attention_dkv", 255, per_kernel["dkv"])):
-        entries.append({
+    for name, line, path, earlier in (
+            (fa.DQ_SM90_NAME, 237, "train", fa.DQ_NAME),
+            (fa.DKV_SM90_NAME, 255, "train", fa.DKV_NAME),
+            (fa.DQ_NAME, 237, "none (f32 and hd 16 only)", None),
+            (fa.DKV_NAME, 255, "none (f32 and hd 16 only)", None)):
+        e = per_kernel[name]
+        entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
-            "launches": train_counts.get(name, 0), "path": "train",
+            "launches": train_counts.get(name, 0), "path": path,
             "launches_per_train_step": train_counts.get(name, 0) / steps,
-            "max_abs_err": kerr["f32"], "bf16_max_abs_err": kerr["bf16"],
-            "bf16_max_ulps_beyond_atol": kerr["bf16_ulps"], **times[name][256],
-            "shape": "(128, 256, 128) bf16 causal", "at_32x4096": times[name][4096]})
+            "max_abs_err": e["max_abs_err"], "parity_cases": e["cases"], **times[name][256],
+            "shape": "(128, 256, 128) bf16 causal", "at_32x4096": times[name][4096]}
+        if earlier is None:
+            entry["max_abs_err_dtype"] = "f32"
+        else:
+            entry["bf16_max_ulps_beyond_atol"] = e["bf16_max_ulps_beyond_atol"]
+            entry["earlier"] = {"name": earlier, "ms": times[earlier][256]["ms"],
+                                "at_32x4096_ms": times[earlier][4096]["ms"]}
+        entries.append(entry)
     return entries, train_counts
 
 
@@ -924,15 +976,24 @@ def main() -> None:
     secs = ops.build_all()
     print(f"[build] {len(ops.KERNELS)} kernels built in {secs:.1f} s (0 = already built)",
           flush=True)
-    # the Hopper flash forward's machine code: wgmma (HGMMA) and TMA loads (UTMALDG)
-    lib = _build._lib_path("flash_attention_fwd_sm90")
-    sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
-                          capture_output=True, text=True, timeout=300)
-    hgmma, utmaldg = sass.stdout.count("HGMMA"), sass.stdout.count("UTMALDG")
-    print(f"[sass] {lib.name}: {hgmma} HGMMA and {utmaldg} UTMALDG instructions (cuobjdump "
-          f"-sass)", flush=True)
-    check(sass.returncode == 0 and hgmma > 0 and utmaldg > 0,
-          f"no wgmma or no TMA load in {lib.name}'s SASS (cuobjdump rc {sass.returncode})")
+    # the Hopper flash kernels' machine code: wgmma (HGMMA) and TMA loads (UTMALDG)
+    for name in ("flash_attention_fwd_sm90", "flash_attention_dq_sm90",
+                 "flash_attention_dkv_sm90"):
+        lib = _build._lib_path(name)
+        sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300)
+        hgmma, utmaldg = sass.stdout.count("HGMMA"), sass.stdout.count("UTMALDG")
+        print(f"[sass] {lib.name}: {hgmma} HGMMA and {utmaldg} UTMALDG instructions (cuobjdump "
+              f"-sass)", flush=True)
+        check(sass.returncode == 0 and hgmma > 0 and utmaldg > 0,
+              f"no wgmma or no TMA load in {lib.name}'s SASS (cuobjdump rc {sass.returncode})")
+        # ptxas -v of each instance (hd 128, 96, 64): registers, spills, and
+        # whether it serialized a wgmma (C7512/C7513/C7518)
+        log = _build.build_log(name)
+        usage = [line.strip() for line in log.splitlines() if "spill" in line]
+        serial = sorted(set(code for code in ("C7512", "C7513", "C7518") if code in log))
+        print(f"[ptxas] {name}: {'; '.join(usage)}; wgmma serialized: "
+              f"{', '.join(serial) or 'no'}", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {"sumtree_sample": 0.0, "gather": 0.0, "sample_gather": 0.0,

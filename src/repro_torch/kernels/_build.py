@@ -26,12 +26,12 @@ from typing import Dict, Optional
 
 KERNELS = ("sumtree_sample", "gather", "sample_gather", "sumtree_update",
            "flash_attention_fwd", "flash_attention_fwd_sm90", "flash_attention_dq",
-           "flash_attention_dkv")
+           "flash_attention_dkv", "flash_attention_dq_sm90", "flash_attention_dkv_sm90")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches of each kernel, counted by its wrapper right after a launch
 # that the runtime accepted (and nowhere else)
@@ -70,6 +70,13 @@ def _lib_path(name: str) -> Path:
     return build_dir() / f"lib{name}.so"
 
 
+def build_log(name: str) -> str:
+    """The compiler's output of kernel ``name``'s build: ptxas's registers,
+    spills and warnings for each kernel instance (``-Xptxas -v``)."""
+    path = build_dir() / f"lib{name}.log"
+    return path.read_text() if path.exists() else ""
+
+
 def build_all() -> float:
     """Compile every kernel that is not built yet, all ``nvcc`` processes
     started together; returns the seconds spent.  Raises with the
@@ -94,6 +101,7 @@ def build_all() -> float:
         if proc.returncode != 0:
             failed.append(f"--- {name} (rc {proc.returncode}) ---\n{log}")
         else:
+            (out / f"lib{name}.log").write_text(log)
             os.replace(tmp, _lib_path(name))   # atomic: concurrent builds agree
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

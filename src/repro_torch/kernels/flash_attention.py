@@ -1,9 +1,12 @@
 """Flash-attention kernels — two forwards (``csrc/flash_attention_fwd_sm90.cu``,
 wgmma and TMA, for bf16 at hd 64/96/128; ``csrc/flash_attention_fwd.cu``,
-f32 FMA, for f32 and hd 16), dQ (``csrc/flash_attention_dq.cu``) and dK/dV
-(``csrc/flash_attention_dkv.cu``) — with their plain versions and the
-``torch.autograd.Function`` that ties them together.  ``_fwd_kernel_for``
-picks the forward from the dtype and the head width alone.
+f32 FMA, for f32 and hd 16) and two backward pairs of dQ and dK/dV
+(``csrc/flash_attention_dq_sm90.cu`` and ``csrc/flash_attention_dkv_sm90.cu``,
+wgmma and TMA, for bf16 at hd 64/96/128; ``csrc/flash_attention_dq.cu`` and
+``csrc/flash_attention_dkv.cu``, f32 FMA, for f32 and hd 16) — with their
+plain versions and the ``torch.autograd.Function`` that ties them together.
+``_fwd_kernel_for`` and ``_bwd_kernel_for`` pick the kernels from the dtype
+and the head width alone.
 
 Port of the TPU kernels of ``repro/kernels/flash_attention.py``: ``_fwd``
 (fused attention on (N, S, hd) tensors, N = batch·heads, with an online
@@ -37,11 +40,13 @@ NAME = "flash_attention_fwd"
 SM90_NAME = "flash_attention_fwd_sm90"
 DQ_NAME = "flash_attention_dq"
 DKV_NAME = "flash_attention_dkv"
+DQ_SM90_NAME = "flash_attention_dq_sm90"
+DKV_SM90_NAME = "flash_attention_dkv_sm90"
 NEG = -1e30
 ATTENTION = {"full": 0, "sliding": 1, "chunked": 2}
 HEAD_DIMS = (16, 64, 96, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SM90_HEAD_DIMS = (64, 96, 128)     # the Hopper forward's (bf16 only)
+SM90_HEAD_DIMS = (64, 96, 128)     # the Hopper kernels' (bf16 only)
 
 
 def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, attention: str,
@@ -170,6 +175,16 @@ def _dkv_fn():
     return _lib_fn(DKV_NAME, 8, 9)
 
 
+@functools.cache
+def _dq_sm90_fn():
+    return _lib_fn(DQ_SM90_NAME, 7, 8)
+
+
+@functools.cache
+def _dkv_sm90_fn():
+    return _lib_fn(DKV_SM90_NAME, 8, 8)
+
+
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  attention: str, window: int) -> None:
     if attention not in ATTENTION:
@@ -218,6 +233,15 @@ def _fwd_kernel_for(dtype: torch.dtype, hd: int) -> str:
     Hopper kernel for bf16 at hd 64, 96 or 128, the f32-FMA kernel for the
     rest (f32, and hd 16)."""
     return SM90_NAME if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS else NAME
+
+
+def _bwd_kernel_for(dtype: torch.dtype, hd: int) -> Tuple[str, str]:
+    """The (dQ, dK/dV) kernels for inputs of ``dtype`` at head width ``hd``:
+    the Hopper pair for bf16 at hd 64, 96 or 128, the f32-FMA pair for the
+    rest (f32, and hd 16)."""
+    if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS:
+        return DQ_SM90_NAME, DKV_SM90_NAME
+    return DQ_NAME, DKV_NAME
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -304,16 +328,56 @@ def flash_attention_dkv_cuda(q, k, v, do, lse, delta, attention="full", window=0
     return dk, dv
 
 
+def _check_sm90(name: str, q: torch.Tensor, *ts: torch.Tensor) -> None:
+    _check_cuda(q, *ts)
+    if q.dtype != torch.bfloat16 or q.shape[2] not in SM90_HEAD_DIMS:
+        raise ValueError(f"{name} takes bf16 at hd {SM90_HEAD_DIMS}, got {q.dtype}, "
+                         f"hd {q.shape[2]}")
+
+
+def flash_attention_dq_sm90_cuda(q, k, v, do, lse, delta, attention="full", window=0,
+                                 causal=True, is_global=True) -> torch.Tensor:
+    """The Hopper dQ kernel → dQ.  The caller has checked the shapes
+    (``flash_attention_bwd_cuda``)."""
+    _check_sm90(DQ_SM90_NAME, q, k, v, do, lse, delta)
+    n, s, hd = q.shape
+    dq = torch.empty_like(q)
+    rc = _dq_sm90_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                       lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, s, k.shape[1], hd,
+                       *_mask_args(q, attention, window, causal, is_global)[1:])
+    _build.check(rc, DQ_SM90_NAME)
+    return dq
+
+
+def flash_attention_dkv_sm90_cuda(q, k, v, do, lse, delta, attention="full", window=0,
+                                  causal=True, is_global=True
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Hopper dK/dV kernel → (dK, dV).  The caller has checked the
+    shapes."""
+    _check_sm90(DKV_SM90_NAME, q, k, v, do, lse, delta)
+    n, s, hd = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = _dkv_sm90_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), n, s,
+                        k.shape[1], hd, *_mask_args(q, attention, window, causal, is_global)[1:])
+    _build.check(rc, DKV_SM90_NAME)
+    return dk, dv
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                              attention: str = "full", window: int = 0,
                              causal: bool = True, is_global: bool = True
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """delta (a plain op), then the dQ and the dK/dV kernels → (dQ, dK, dV)."""
+    """delta (a plain op), then the dQ and the dK/dV kernels that
+    ``_bwd_kernel_for`` picks → (dQ, dK, dV)."""
     check_bwd_inputs(q, k, v, o, lse, do, attention, window)
     _check_cuda(q, k, v, o, lse, do)
     delta = flash_delta(o, do)
     mask = (attention, window, causal, is_global)
+    if _bwd_kernel_for(q.dtype, q.shape[2])[0] == DQ_SM90_NAME:
+        return (flash_attention_dq_sm90_cuda(q, k, v, do, lse, delta, *mask),
+                *flash_attention_dkv_sm90_cuda(q, k, v, do, lse, delta, *mask))
     return (flash_attention_dq_cuda(q, k, v, do, lse, delta, *mask),
             *flash_attention_dkv_cuda(q, k, v, do, lse, delta, *mask))
 

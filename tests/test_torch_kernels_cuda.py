@@ -22,10 +22,14 @@ that it must not read; all held by
 parity.flash_check (f32 O at atol 2e-6 + rtol 1e-4, bf16 O
 within one bf16 ulp of the f32 plain result + 2e-6, LSE rtol 1e-5 +
 atol 1e-6).  Flash attention (backward): the same cases and the
-InternLM2-1.8B training shape (128, 256, 128) bf16, the dQ and dK/dV
-kernels against the plain backward in f32 on the same q, k, v, O, LSE and
-dO (O and LSE from the forward kernel), held by parity.flash_bwd_check
-(f32 at atol 2e-5 + rtol 1e-3, bf16 within one bf16 ulp beyond 2e-5);
+InternLM2-1.8B training shape (128, 256, 128) bf16, the backward pair that
+flash_attention_bwd_cuda picks (the Hopper dQ and dK/dV kernels for bf16
+at hd 64/96/128, the f32 pair otherwise) against the plain backward in
+f32 on the same q, k, v, O, LSE and dO (O and LSE from the forward
+kernel), held by parity.flash_bwd_check (f32 at atol 2e-5 + rtol 1e-3,
+bf16 within one bf16 ulp beyond 2e-5), with its launch count; the Hopper
+pair also at the Hopper forward's cases, bit for bit the same on a second
+call, and with NaN rows after each tensor that it must not read;
 and the autograd Function's f32 gradients against autograd through the
 plain forward, at that same f32 bar.
 """
@@ -252,9 +256,69 @@ def test_cuda_flash_bwd_matches_plain(cuda_dev, n, s, hd, attn, win, causal, glo
                                         do.float(), attn, win, causal, glob)
     torch.cuda.synchronize()
     assert all(t.dtype == dtype for t in (dq, dk, dv))
-    for name in ("flash_attention_dq", "flash_attention_dkv"):
-        assert tops.launch_counts[name] == before.get(name, 0) + 1
+    _assert_bwd_launches(before, tfa._bwd_kernel_for(dtype, hd))
     report = parity.flash_bwd_check(dq, dk, dv, *ref)
+    assert report.ok, report
+
+
+def _assert_bwd_launches(before, chosen):
+    """One launch of each kernel of the chosen backward pair, none of the other pair."""
+    for name in (tfa.DQ_NAME, tfa.DKV_NAME, tfa.DQ_SM90_NAME, tfa.DKV_SM90_NAME):
+        assert tops.launch_counts[name] == before.get(name, 0) + (name in chosen), name
+
+
+def _bwd_inputs(dev, n, s, sk, hd, attn, win, causal, glob, rows=None):
+    """bf16 q, dO (n, s, hd) and k, v (n, sk, hd) ~N(0, 0.3²), with the
+    Hopper forward's O and LSE; ``rows(n, r)`` makes each tensor's storage."""
+    g = torch.Generator(device=dev).manual_seed(n * s + sk + hd + 2)
+    rows = rows or (lambda n_, r: torch.empty((n_, r, hd), dtype=torch.bfloat16, device=dev))
+
+    def rnd(r):
+        x = rows(n, r)
+        x.copy_(torch.randn((n, r, hd), generator=g, device=dev) * 0.3)
+        return x
+
+    q, k, v, do = rnd(s), rnd(sk), rnd(sk), rnd(s)
+    o, lse = tfa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,sk,hd,attn,win,causal,glob", SM90_CASES)
+def test_cuda_flash_bwd_sm90_matches_plain(cuda_dev, n, s, sk, hd, attn, win, causal, glob):
+    """The Hopper backward pair, routed by flash_attention_bwd_cuda, against
+    the plain backward in f32 on the forward kernel's O and LSE; one launch
+    of each and none of the f32 pair; a second call bit for bit the same."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda_dev, n, s, sk, hd, attn, win, causal, glob)
+    before = dict(tops.launch_counts)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
+    _assert_bwd_launches(before, (tfa.DQ_SM90_NAME, tfa.DKV_SM90_NAME))
+    again = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
+    ref = tfa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                        do.float(), attn, win, causal, glob)
+    torch.cuda.synchronize()
+    assert all(t.dtype == torch.bfloat16 for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    report = parity.flash_bwd_check(*got, *ref)
+    assert report.ok, report
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,sk,hd", [(200, 200, 128), (256, 100, 64), (130, 1000, 96)])
+def test_cuda_flash_bwd_sm90_reads_nothing_past_its_tensors(cuda_dev, s, sk, hd):
+    """q, k, v and dO each followed in memory by NaN rows: the 3-D tensor maps
+    zero-fill the tiles that run past S or Sk and never read those rows."""
+    def guarded(n, r):
+        buf = torch.full((n * r + 128, hd), float("nan"), dtype=torch.bfloat16, device=cuda_dev)
+        return buf[: n * r].view(n, r, hd)
+
+    q, k, v, o, lse, do = _bwd_inputs(cuda_dev, 3, s, sk, hd, "full", 0, True, True, guarded)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    ref = tfa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                        do.float())
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    report = parity.flash_bwd_check(*got, *ref)
     assert report.ok, report
 
 

@@ -128,20 +128,30 @@ def test_double_q_and_max_targets_differ():
 def test_ema_update_bit_exact(dtype):
     """t·(1-τ) + o·τ rounds once, as the reference: a bf16 target equal to
     online stays bit-identical (a fused or in-place bf16 form changes
-    ~43 % of its elements), and random trees agree bit for bit."""
+    ~43 % of its elements), and random trees agree bit for bit.  The port
+    gets its own copy of every input: ``from_numpy(x).to(float32)`` shares
+    x's buffer, ``jnp.asarray`` may alias it too, and JAX reads it
+    asynchronously, so an in-place write into x could race the
+    reference's read."""
     rng = np.random.default_rng(0)
     t = rng.normal(size=(3, 4096)).astype(np.float32)
     o = rng.normal(size=(3, 4096)).astype(np.float32)
     tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
     for target, online in ((t, t), (t, o)):
         want = jadam.ema_update([jnp.asarray(target, dtype)], [jnp.asarray(online, dtype)], 0.01)
-        got = [torch.from_numpy(target).to(tdt)]
-        tadam.ema_update(got, [torch.from_numpy(online).to(tdt)], 0.01)
+        got = [torch.from_numpy(target.copy()).to(tdt)]
+        tadam.ema_update(got, [torch.from_numpy(online.copy()).to(tdt)], 0.01)
         np.testing.assert_array_equal(got[0].float().numpy(),
                                       np.asarray(want[0], np.float32))
-    same = torch.from_numpy(t).to(tdt)
+    # a target updated toward a clone of itself: the reference's result bit
+    # for bit; in bf16 that is the target itself (f32's t·(1-τ) + t·τ rounds
+    # and is not)
+    same = torch.from_numpy(t.copy()).to(tdt)
     tadam.ema_update([same], [same.clone()], 0.01)
-    assert torch.equal(same, torch.from_numpy(t).to(tdt))
+    want = jadam.ema_update([jnp.asarray(t, dtype)], [jnp.asarray(t, dtype)], 0.01)
+    np.testing.assert_array_equal(same.float().numpy(), np.asarray(want[0], np.float32))
+    if tdt == torch.bfloat16:
+        assert torch.equal(same, torch.from_numpy(t.copy()).to(tdt))
 
 
 def test_adam_bf16_params_take_the_f32_step_once():

@@ -6,12 +6,14 @@
 For each mutant below, copies ``src/repro_torch`` and
 ``tests/test_torch_kernels_cuda.py`` into ``build/mutants/<name>/``,
 applies one edit to one kernel source there (the f32 forward, the Hopper
-forward, the shared masks of ``flash_mask.cuh``, or the dQ or dK/dV
-kernel), builds the kernels from the copy and runs the flash cases of the
-CUDA test file, forward and backward (``parity.flash_check`` and
-``parity.flash_bwd_check``, the rules ``chip_smoke.py`` applies).  A
-mutant must fail at least one case; the script exits non-zero if one
-survives, if an edit no longer applies, or if the unmutated kernels fail.
+forward, the Hopper building blocks of ``sm90.cuh`` that all three Hopper
+kernels share, the shared masks of ``flash_mask.cuh``, the f32 dQ or dK/dV
+kernel, or the Hopper dQ or dK/dV kernel), builds the kernels from the
+copy and runs the flash cases of the CUDA test file, forward and backward
+(``parity.flash_check`` and ``parity.flash_bwd_check``, the rules
+``chip_smoke.py`` applies).  A mutant must fail at least one case; the
+script exits non-zero if one survives, if an edit no longer applies, or if
+the unmutated kernels fail.
 """
 
 from __future__ import annotations
@@ -39,15 +41,16 @@ MUTANTS = {
     # the Hopper forward: P_lo dropped (P in bf16 alone, as FlashAttention-2/3)
     "sm90-no-p-lo": ("flash_attention_fwd_sm90.cu",
                      "wgmma_rs<HDP>(acc, &p_lo[4 * kk], dv);", ""),
-    # ... wgmma reading the 128-byte-swizzled tiles as 64-byte-swizzled
-    "sm90-swizzle": ("flash_attention_fwd_sm90.cu", "| (1ull << 62);", "| (2ull << 62);"),
+    # the Hopper kernels' shared wgmma descriptor reading the 128-byte-swizzled
+    # tiles as 64-byte-swizzled
+    "sm90-swizzle": ("sm90.cuh", "| (1ull << 62);", "| (2ull << 62);"),
     # ... the second stage's mbarrier phase flipped
     "sm90-phase-flip": ("flash_attention_fwd_sm90.cu",
                         "const uint32_t phase = (it / STAGES) & 1;",
                         "const uint32_t phase = ((it / STAGES) & 1) ^ (s == 1);"),
-    # ... the rows of one head running on into the next, as in a flattened
-    # 2-D map: rows past S or Sk are no longer zero
-    "sm90-2d-map": ("flash_attention_fwd_sm90.cu",
+    # ... their tensor maps: the rows of one head running on into the next, as
+    # in a flattened 2-D map, so rows past S or Sk are no longer zero
+    "sm90-2d-map": ("sm90.cuh",
                     "dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)heads};",
                     "dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows * heads, (cuuint64_t)heads};"),
     # dQ: ds without its - delta
@@ -64,6 +67,51 @@ MUTANTS = {
     # dK/dV: the ragged last query tile's rows past S read and let through
     "dkv-ragged-query": ("flash_attention_dkv.cu", "const int q_live = min(S - q_start, BQ);",
                          "const int q_live = BQ;"),
+    # the Hopper dQ: dS_lo dropped (dS in bf16 alone)
+    "dq-sm90-no-ds-lo": ("flash_attention_dq_sm90.cu",
+                         "wgmma_rs<HDP>(acc, &ds_lo[4 * kk], dk);", ""),
+    # ... a 64-byte swizzle in the descriptor of K as dS K's B operand
+    "dq-sm90-swizzle": ("flash_attention_dq_sm90.cu",
+                        "const uint64_t dk = sw128_desc(k_addr + kk * 16 * 128, BK * 128, 1024);",
+                        "const uint64_t dk = sw128_desc(k_addr + kk * 16 * 128, BK * 128, 1024)"
+                        " ^ (3ull << 62);"),
+    # ... the second ring stage's full-barrier phase flipped
+    "dq-sm90-phase-flip": ("flash_attention_dq_sm90.cu",
+                           "const uint32_t phase = (it / STAGES) & 1;",
+                           "const uint32_t phase = ((it / STAGES) & 1) ^ (s == 1);"),
+    # ... the LSE of the fragment's other row
+    "dq-sm90-lse-row": ("flash_attention_dq_sm90.cu",
+                        "float p = exp2f(sc[i] * scale_log2 - lse2[h]);",
+                        "float p = exp2f(sc[i] * scale_log2 - lse2[h ^ 1]);"),
+    # ... the causal diagonal key tile skipped
+    "dq-sm90-causal-diagonal": ("flash_attention_dq_sm90.cu", "--kt_hi;",
+                                "--kt_hi;\n    if (causal) --kt_hi;"),
+    # the Hopper dK/dV: P^T_lo dropped from dV, and dS^T_lo from dK
+    "dkv-sm90-no-p-lo": ("flash_attention_dkv_sm90.cu",
+                         "split_hi_lo<NS>(sc, hi, lo);            // P^T",
+                         "split_hi_lo<NS>(sc, hi, lo);\n"
+                         "                for (int i = 0; i < NS / 2; ++i) lo[i] = 0u;"),
+    "dkv-sm90-no-ds-lo": ("flash_attention_dkv_sm90.cu",
+                          "split_hi_lo<NS>(sc, hi, lo);            // dS^T",
+                          "split_hi_lo<NS>(sc, hi, lo);\n"
+                          "                for (int i = 0; i < NS / 2; ++i) lo[i] = 0u;"),
+    # ... a 64-byte swizzle in the descriptor of dO and Q as B operands
+    "dkv-sm90-swizzle": ("flash_attention_dkv_sm90.cu",
+                         "const uint64_t db = sw128_desc(b_addr + kk * 16 * 128, BQ * 128, 1024);",
+                         "const uint64_t db = sw128_desc(b_addr + kk * 16 * 128, BQ * 128, 1024)"
+                         " ^ (3ull << 62);"),
+    # ... the second ring stage's full-barrier phase flipped
+    "dkv-sm90-phase-flip": ("flash_attention_dkv_sm90.cu",
+                            "const uint32_t phase = (it / STAGES) & 1;",
+                            "const uint32_t phase = ((it / STAGES) & 1) ^ (s == 1);"),
+    # ... the LSE of the neighbouring query column
+    "dkv-sm90-lse-column": ("flash_attention_dkv_sm90.cu",
+                            "float p = exp2f(sc[i] * scale_log2 - lse2[c]);",
+                            "float p = exp2f(sc[i] * scale_log2 - lse2[c ^ 1]);"),
+    # ... the causal diagonal query tile skipped
+    "dkv-sm90-causal-diagonal": ("flash_attention_dkv_sm90.cu",
+                                 "if (qt_lo == nq) qt_hi = -1;",
+                                 "if (qt_lo == nq) qt_hi = -1;\n    if (causal) ++qt_lo;"),
 }
 
 
@@ -85,7 +133,7 @@ def run(name: str, src: str, old: str, new: str) -> tuple[bool, str]:
     env = dict(os.environ, PYTHONPATH=str(work / "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "--noconftest", "-p", "no:cacheprovider",
-         "-m", "cuda", "-k", "flash_matches or flash_sm90 or flash_bwd_matches", str(TEST)],
+         "-m", "cuda", "-k", "flash_matches or flash_sm90 or flash_bwd", str(TEST)],
         cwd=work, env=env, capture_output=True, text=True, timeout=900)
     summary = (proc.stdout.strip().splitlines() or ["(no output)"])[-1]
     return proc.returncode == 0 and " passed" in summary, summary
