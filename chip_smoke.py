@@ -20,22 +20,31 @@ failure and prints no result):
                 bumped above its children (the padded-tail clamp), under
                 the rules of src/repro_torch/kernels/parity.py: sampled
                 indices under the fp-tie rule (at B and at 65,536 draws),
-                rows bit-exact, the update's leaves bit for bit and each
-                interior level at rtol 1e-5 plus 1e-6 of its magnitude;
+                rows bit-exact (one leaf a launch, every leaf in one
+                gather_items launch, the fused kernel; and rows holding inf,
+                NaN and int32 above 2^24 through all three, byte for byte),
+                the update's leaves bit for bit and each interior level at
+                rtol 1e-5 plus 1e-6 of its magnitude;
   4. main path — FusedExecutor on CUDA with the settings of
                 tests/test_system.py (CartPole × 8 envs, DQN (4, 256, 256, 2),
                 capacity 20,000, K=128, batch 64, 1,400 iterations): the
                 return must beat 30, the sample and gather kernels must
-                have launched, and a step must not synchronize with the
-                host (checked under torch.cuda.set_sync_debug_mode);
+                have launched, one gather launch for each descent (every
+                storage leaf in one launch), and a step must not synchronize
+                with the host (checked under torch.cuda.set_sync_debug_mode);
   5. arms     — 200 iterations each of the fused sample+gather arm and the
                 eager-replay arm, which launch the other two kernels;
-  6. times    — each kernel, its plain version and (for the gather) the
-                library call: device time, the median of 60 calls queued
-                back to back behind a GPU sleep, one CUDA-event pair each
-                (the update kernel given its mask; the public wrapper, which
-                computes the mask, is timed beside it); and the call latency
-                from an idle card, Python wrapper included;
+  6. times    — the launch floor (torch.cuda._sleep(0)); each kernel, its
+                plain version and the library call (searchsorted on the
+                leaves' CDF for the descent, index_select for the gather):
+                device time, the median of 60 calls queued back to back
+                behind a GPU sleep, one CUDA-event pair each (the update
+                kernel given its mask; the public wrapper, which computes
+                the mask, is timed beside it); gather_items over every leaf;
+                the call latency from an idle card, Python wrapper included;
+                and a learner call's sampling chain in four arms, in turns
+                (sampling_chain), at 50,000/B=64 with CartPole's five leaves
+                and at 8,192/B=8 with the token replay's four;
   7. flash    — the flash-attention forward kernels against their plain
                 version: the five mask cases of tests/test_flash_attention.py
                 at (4, 256, 64) f32, (8, 128, 16) f32, a ragged S = 200 at
@@ -245,6 +254,124 @@ def nodes_touched(torch, spec, idx):
         nodes += int(torch.unique(cur).numel())
         cur = cur // spec.fanout
     return nodes
+
+
+# -- phases 3 and 6: the replay kernels ------------------------------------------
+
+
+def replay_tree(torch, dev, gen, capacity: int, fanout: int):
+    """(spec, tree) of uniform priorities in [0.01, 2)."""
+    from repro_torch.core import sumtree
+    spec = sumtree.make_spec(capacity, fanout)
+    pri = torch.rand((capacity,), generator=gen, device=dev) * 1.99 + 0.01
+    return spec, sumtree.build(spec, pri)
+
+
+def bumped(spec, tree):
+    """Root and the last real level-1 parent raised coherently: every
+    leaf row undershoots, so u → 1 draws clamp into the padded tail."""
+    t = tree.clone()
+    extra = 0.05 * float(t[0])
+    t[0] += extra
+    t[spec.offsets[1] + (spec.capacity - 1) // spec.fanout ** (spec.height - 1)] += extra
+    return t
+
+
+def replay_storage(torch, dev, gen, capacity: int, token: bool = False) -> dict:
+    """CartPole's five transition leaves plus a bf16 (3, 5) one, or the
+    token-DQN training path's four (256,) leaves."""
+    if token:
+        return {
+            "tokens": torch.randint(0, 92_544, (capacity, 256), generator=gen,
+                                    device=dev, dtype=torch.int32),
+            "actions": torch.randint(0, 92_544, (capacity, 256), generator=gen,
+                                     device=dev, dtype=torch.int32),
+            "rewards": torch.rand((capacity, 256), generator=gen, device=dev),
+            "dones": (torch.rand((capacity, 256), generator=gen, device=dev) < 0.01).float(),
+        }
+    return {
+        "obs": torch.randn((capacity, 4), generator=gen, device=dev),
+        "action": torch.randint(0, 2**31 - 1, (capacity,), generator=gen,
+                                device=dev, dtype=torch.int32),
+        "reward": torch.rand((capacity,), generator=gen, device=dev),
+        "next_obs": torch.randn((capacity, 4), generator=gen, device=dev),
+        "done": (torch.rand((capacity,), generator=gen, device=dev) < 0.1).float(),
+        "frames": torch.randn((capacity, 3, 5), generator=gen,
+                              device=dev).to(torch.bfloat16),
+    }
+
+
+def nonfinite_storage(torch, dev, gen, capacity: int, drawn) -> dict:
+    """f32 rows with inf, -inf and NaN in rows that are not drawn and in one
+    that is (``drawn[0]``), and an int32 leaf of 2^24 + 1 and above (which
+    an f32 round trip rounds)."""
+    x = torch.randn((capacity, 3), generator=gen, device=dev)
+    taken = torch.zeros(capacity, dtype=torch.bool, device=dev)
+    taken[drawn] = True
+    spare = torch.nonzero(~taken)[:6, 0]
+    x[spare[:2], 0] = float("inf")
+    x[spare[2:4], 1] = float("nan")
+    x[spare[4:], 2] = float("-inf")
+    x[drawn[0]] = torch.tensor([float("inf"), float("nan"), float("-inf")], device=dev)
+    return {"x": x, "n": (2**24 + 1 + torch.arange(capacity, device=dev)).to(torch.int32)}
+
+
+def same_bytes(torch, a, b) -> bool:
+    """Bit for bit (NaN != NaN, so compare the bytes)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+CHAIN_ARMS = ("sample + one-leaf gathers", "sample + gather_items", "fused sample_gather",
+              "searchsorted + index_select")
+
+
+def sampling_chain(torch, dev, gen, capacity: int, batch: int, token: bool = False,
+                   names=CHAIN_ARMS) -> dict:
+    """A learner call's sampling, timed as one unit (``device_ms`` and
+    ``call_ms``) in four arms, in turns (each twice, in order and then in
+    reverse; the mean of the two): the descent and one one-leaf gather
+    per storage leaf (the earlier sequence, through ``prioritized_gather``);
+    the descent and one ``gather_items``; the fused kernel; and the library
+    yardstick, ``torch.searchsorted`` on the leaves' CDF (built outside the
+    timed call, its last entry inf so every draw lands on a leaf) and one
+    ``index_select`` per leaf.  ``names`` picks some of the arms."""
+    from repro_torch.core import sumtree
+    from repro_torch.kernels import ops
+    spec, tree = replay_tree(torch, dev, gen, capacity, 128)
+    storage = {k: v for k, v in replay_storage(torch, dev, gen, capacity, token).items()
+               if k != "frames"}
+    leaves = list(storage.values())
+    u = torch.rand((batch,), generator=gen, device=dev)
+    cdf = torch.cumsum(sumtree.leaves(spec, tree), 0)
+    cdf[-1] = float("inf")
+    pos = torch.clamp(u, 1e-12, 1.0 - 1e-7) * tree[0]
+
+    def one_leaf():
+        idx, _ = ops.sumtree_sample(spec, tree, u)
+        return [ops.prioritized_gather(b, idx) for b in leaves]
+
+    def items():
+        idx, _ = ops.sumtree_sample(spec, tree, u)
+        return ops.gather_items(storage, idx)
+
+    def library():
+        idx = torch.searchsorted(cdf, pos)
+        return [torch.index_select(b, 0, idx) for b in leaves]
+
+    arms = dict(zip(CHAIN_ARMS, (one_leaf, items,
+                                 lambda: ops.sumtree_sample_gather(spec, tree, u, storage),
+                                 library)))
+    arms = {name: fn for name, fn in arms.items() if name in names}
+    runs = {name: {"device_ms": [], "call_ms": []} for name in arms}
+    for name in list(arms) + list(arms)[::-1]:
+        runs[name]["device_ms"].append(device_ms(torch, arms[name]))
+        runs[name]["call_ms"].append(call_ms(torch, arms[name]))
+    torch.cuda.synchronize()
+    return {"capacity": capacity, "K": 128, "B": batch, "leaves": len(leaves),
+            "arms": {name: {"device_ms": statistics.mean(r["device_ms"]),
+                            "call_ms": statistics.mean(r["call_ms"]), "runs": r}
+                     for name, r in runs.items()}}
 
 
 # -- phases 7-10: flash attention and the token-model serve path ---------------
@@ -801,8 +928,10 @@ def train_phases(torch, dev, card: str) -> list:
             check(rep.ok, f"sumtree_sample on the training run's tree, {draws} draws: {rep}")
             agree = ki == pi
             torch.testing.assert_close(kp[agree], pp[agree], rtol=1e-5, atol=0)
+            items = ops.gather_items(rst.storage, ki)
             for key, buf in rst.storage.items():
-                check(torch.equal(ops.prioritized_gather(buf, ki), buf[ki]),
+                check(torch.equal(ops.prioritized_gather(buf, ki), buf[ki])
+                      and torch.equal(items[key], buf[ki]),
                       f"gather of the training run's {key} rows {tuple(buf.shape)} {buf.dtype}")
         print(f"[train replay parity] capacity {replay.spec.capacity}, K={replay.spec.fanout}, "
               f"{rst.count} rows filled: sample indices agree with the plain descent under the "
@@ -999,49 +1128,14 @@ def main() -> None:
     err = {"sumtree_sample": 0.0, "gather": 0.0, "sample_gather": 0.0,
            "sumtree_update": 0.0}
 
-    def tree_for(capacity, fanout):
-        spec = sumtree.make_spec(capacity, fanout)
-        pri = torch.rand((capacity,), generator=gen, device=dev) * 1.99 + 0.01
-        return spec, sumtree.build(spec, pri)
-
-    def bumped(spec, tree):
-        """Root and the last real level-1 parent raised coherently: every
-        leaf row undershoots, so u → 1 draws clamp into the padded tail."""
-        t = tree.clone()
-        extra = 0.05 * float(t[0])
-        t[0] += extra
-        t[spec.offsets[1] + (spec.capacity - 1) // spec.fanout ** (spec.height - 1)] += extra
-        return t
-
-    def storage_for(capacity, token=False):
-        if token:      # the token-DQN training path's rows: (256,) per field
-            return {
-                "tokens": torch.randint(0, 92_544, (capacity, 256), generator=gen,
-                                        device=dev, dtype=torch.int32),
-                "actions": torch.randint(0, 92_544, (capacity, 256), generator=gen,
-                                         device=dev, dtype=torch.int32),
-                "rewards": torch.rand((capacity, 256), generator=gen, device=dev),
-                "dones": (torch.rand((capacity, 256), generator=gen, device=dev) < 0.01).float(),
-            }
-        return {
-            "obs": torch.randn((capacity, 4), generator=gen, device=dev),
-            "action": torch.randint(0, 2**31 - 1, (capacity,), generator=gen,
-                                    device=dev, dtype=torch.int32),
-            "reward": torch.rand((capacity,), generator=gen, device=dev),
-            "next_obs": torch.randn((capacity, 4), generator=gen, device=dev),
-            "done": (torch.rand((capacity,), generator=gen, device=dev) < 0.1).float(),
-            "frames": torch.randn((capacity, 3, 5), generator=gen,
-                                  device=dev).to(torch.bfloat16),
-        }
-
     # 3. parity: each kernel against its plain version on the card
     shapes = [("main path", 50_000, 128, 64), ("Nature DQN", 1_000_000, 128, 512),
               ("token replay", 8192, 128, 8), ("K=8", 100_000, 8, 512),
               ("K=256", 100_000, 256, 512), ("tiny tail", 10, 4, 64)]
     ties = {}
     for label, capacity, fanout, batch in shapes:
-        spec, tree0 = tree_for(capacity, fanout)
-        storage = storage_for(capacity, token=label == "token replay")
+        spec, tree0 = replay_tree(torch, dev, gen, capacity, fanout)
+        storage = replay_storage(torch, dev, gen, capacity, token=label == "token replay")
         reports = {65_536: [], batch: []}
         for tree in (tree0, bumped(spec, tree0)):
             # 1: sample — indices equal except under the fp-tie rule of
@@ -1063,16 +1157,28 @@ def main() -> None:
                 check(bool((ki[:4] <= capacity - 1).all()) and bool((kp[:4] > 0).all()),
                       f"tail draws did not clamp onto a live leaf at {label}")
             # the batch-sized draws of the last pass feed the gathers
-            # 2: gather — bit-exact in every dtype, rank 1 to 3
+            # 2: gather — bit-exact in every dtype, rank 1 to 3, one leaf a
+            # launch and every leaf in one launch
+            items = ops.gather_items(storage, ki)
             for name, buf in storage.items():
                 got = ops.prioritized_gather(buf, ki)
                 torch.testing.assert_close(got, buf[ki], rtol=0, atol=0)
+                check(same_bytes(torch, items[name], buf[ki]),
+                      f"gather_items of {name} at {label}")
             # 3: fused sample+gather ≡ split kernels
             fi, fp, items = ops.sumtree_sample_gather(spec, tree, u, storage)
             torch.testing.assert_close(fi, ki, rtol=0, atol=0)
             torch.testing.assert_close(fp, kp, rtol=0, atol=0)
             for name, buf in storage.items():
                 torch.testing.assert_close(items[name], buf[ki], rtol=0, atol=0)
+            # inf, NaN and int32 above 2^24 through all three, byte for byte
+            odd = nonfinite_storage(torch, dev, gen, capacity, ki)
+            fi, _, fused = ops.sumtree_sample_gather(spec, tree, u, odd)
+            for via, got in (("gather", {k: ops.prioritized_gather(b, ki) for k, b in odd.items()}),
+                             ("gather_items", ops.gather_items(odd, ki)), ("sample_gather", fused)):
+                check(torch.equal(fi, ki) and all(same_bytes(torch, got[k], b[ki])
+                                                  for k, b in odd.items()),
+                      f"{via} of non-finite and int32 >= 2^24 rows at {label}")
             torch.cuda.synchronize()
         # 4: update — duplicates and unique; leaves bit for bit, each
         # interior level to its own scale (atomics reorder the sums)
@@ -1101,7 +1207,8 @@ def main() -> None:
             f"{reps[0].allowed} each), farthest {max(r.max_dist_ulp for r in reps):.3f} ulp"
             for d, reps in reports.items())
         print(f"[parity] {label}: capacity {capacity}, K={fanout}, B={batch}: "
-              "sample/gather/sample_gather/update agree; sample indices on the plain "
+              "sample/gather/gather_items/sample_gather/update agree (rows byte for byte, "
+              "inf/NaN/int32 >= 2^24 rows too); sample indices on the plain "
               f"tree + the bumped tree, {flips} (window "
               f"{reports[batch][0].window_ulp:g} ulp(total))", flush=True)
 
@@ -1148,6 +1255,8 @@ def main() -> None:
     check(final > 30.0, f"main path return {final} does not beat 30")
     check(main_counts.get("sumtree_sample", 0) > 0 and main_counts.get("gather", 0) > 0,
           f"the main path did not launch the sample and gather kernels: {main_counts}")
+    check(main_counts.get("gather") == main_counts.get("sumtree_sample"),
+          f"not one gather launch per learner call: {main_counts}")
     check(bool(torch.isfinite(hist["loss"]).all()), "non-finite loss on the main path")
     check(sumtree.check_invariant(replay.spec, replay.flush(state.replay).tree),
           "tree invariant broken after the main path")
@@ -1208,8 +1317,9 @@ def main() -> None:
 
     # 6. times at the main path's shapes and at the Nature-DQN size
     def measure(capacity, batch, token=False):
-        spec, tree = tree_for(capacity, 128)
-        storage = {k: v for k, v in storage_for(capacity, token).items() if k != "frames"}
+        spec, tree = replay_tree(torch, dev, gen, capacity, 128)
+        storage = {k: v for k, v in replay_storage(torch, dev, gen, capacity, token).items()
+                   if k != "frames"}
         u = torch.rand((batch,), generator=gen, device=dev)
         idx, _ = ops.sumtree_sample(spec, tree, u)
         obs = next(iter(storage.values()))     # the gather's timed rows: obs or tokens
@@ -1223,9 +1333,15 @@ def main() -> None:
                         + batch * 12)
         sample_ops = batch * spec.height * spec.fanout
         ob = obs[0].numel() * obs.element_size()
+        # the library yardstick of the descent: one searchsorted on the
+        # leaves' CDF, both built outside the timed call
+        cdf = torch.cumsum(sumtree.leaves(spec, tree), 0)
+        cdf[-1] = float("inf")
+        pos = torch.clamp(u, 1e-12, 1.0 - 1e-7) * tree[0]
         calls = {
             "sumtree_sample": (lambda: ops.sumtree_sample(spec, tree, u),
-                               lambda: sumtree.sample(spec, tree, u), None,
+                               lambda: sumtree.sample(spec, tree, u),
+                               lambda: torch.searchsorted(cdf, pos),
                                bound(sample_bytes, sample_ops)),
             "gather": (lambda: ops.prioritized_gather(obs, idx),
                        lambda: obs[idx.clamp(0, capacity - 1)],
@@ -1252,12 +1368,31 @@ def main() -> None:
         # the public wrapper adds the last-writer mask (a sort) to the kernel
         out["sumtree_update"]["wrapper_ms"] = device_ms(
             torch, lambda: ops.sumtree_update(spec, upd_tree, upd_idx, upd_val))
+        # every leaf of the storage in one gather launch, and its plain version
+        out["gather"]["items"] = {
+            "leaves": len(storage), "ms": device_ms(torch, lambda: ops.gather_items(storage, idx)),
+            "plain_ms": device_ms(torch, lambda: [b[idx.clamp(0, capacity - 1)]
+                                                  for b in storage.values()]),
+            "call_ms": call_ms(torch, lambda: ops.gather_items(storage, idx))}
         torch.cuda.synchronize()
         return out
 
+    # the floor under every launch: an empty kernel queued back to back
+    floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
+    print(f"[launch floor] torch.cuda._sleep(0): device {floor_ms * 1e3:.2f} us | {card}",
+          flush=True)
     main_t = measure(50_000, 64)
     big_t = measure(1_000_000, 512)
     tok_t = measure(8192, 8, token=True)
+    chains = {
+        "main path 50,000/B=64, CartPole's 5 leaves": sampling_chain(torch, dev, gen, 50_000, 64),
+        "token replay 8,192/B=8, 4 (256,) leaves": sampling_chain(torch, dev, gen, 8192, 8,
+                                                                  token=True)}
+    for c in chains.values():
+        print(f"[sampling chain] {c['capacity']:,}/K={c['K']}/B={c['B']}, {c['leaves']} leaves: "
+              + "; ".join(f"{name} device {a['device_ms'] * 1e3:.2f} us, call "
+                          f"{a['call_ms'] * 1e3:.1f} us" for name, a in c["arms"].items())
+              + f" | {card}", flush=True)
 
     info = {
         "sumtree_sample": ("src/repro/kernels/sumtree_sample.py:111", "main"),
@@ -1281,17 +1416,29 @@ def main() -> None:
         })
         if name == "sumtree_sample":
             kernels[-1]["fp_ties"] = ties
+            kernels[-1]["launch_floor_ms"] = floor_ms
+        if name == "gather":
+            kernels[-1]["sampling_chain"] = chains
         t = tok_t[name]
         check(all(math.isfinite(x) for x in (m["ms"], m["plain_ms"], b["ms"], b["plain_ms"],
                                              t["ms"], t["plain_ms"])),
               f"timing of {name} is not finite")
-        lib = f", library {m['library_ms'] * 1e3:.1f} us" if m["library_ms"] else ""
+        def lib(x):
+            return f", library {x['library_ms'] * 1e3:.2f} us" if x["library_ms"] else ""
         print(f"[times] {name}: device {m['ms'] * 1e3:.2f} us (plain {m['plain_ms'] * 1e3:.1f}"
-              f" us{lib}, bound {m['bound_ms'] * 1e3:.4f} us by {m['bound_by']}, call "
+              f" us{lib(m)}, bound {m['bound_ms'] * 1e3:.4f} us by {m['bound_by']}, call "
               f"{m['call_ms'] * 1e3:.1f} us); at 1M/B=512 device {b['ms'] * 1e3:.2f} us "
-              f"(plain {b['plain_ms'] * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.4f} us); at the "
-              f"token replay 8192/B=8 device {t['ms'] * 1e3:.2f} us (plain "
-              f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.4f} us)", flush=True)
+              f"(plain {b['plain_ms'] * 1e3:.1f} us{lib(b)}, bound {b['bound_ms'] * 1e3:.4f} us); "
+              f"at the token replay 8192/B=8 device {t['ms'] * 1e3:.2f} us (plain "
+              f"{t['plain_ms'] * 1e3:.1f} us{lib(t)}, bound {t['bound_ms'] * 1e3:.4f} us) | {card}",
+              flush=True)
+        if name == "gather":
+            print("[times] gather_items, every leaf in one launch: " + "; ".join(
+                f"{where} {x['items']['leaves']} leaves device {x['items']['ms'] * 1e3:.2f} us "
+                f"(plain {x['items']['plain_ms'] * 1e3:.1f} us, call "
+                f"{x['items']['call_ms'] * 1e3:.1f} us)"
+                for where, x in (("50,000/B=64", m), ("1M/B=512", b), ("8192/B=8", t)))
+                + f" | {card}", flush=True)
     print(f"[main path rate] {json.dumps(main_rate)}", flush=True)
 
     kernels += flash_phases(torch, dev, card)

@@ -205,8 +205,7 @@ class PrioritizedReplay:
                                                      state.storage)
         else:
             idx, pri = self.ops.sample(self.spec, state.tree, u)
-            items = {k: self.ops.gather(buf, idx)
-                     for k, buf in state.storage.items()}
+            items = self.ops.gather_items(state.storage, idx)
         prob = pri / torch.clamp(state.tree[0], min=1e-12)
         w = (float(max(state.count, 1)) * torch.clamp(prob, min=1e-12)) ** (-beta)
         # an fp-tail draw can land on a zero-priority leaf (in-flight or

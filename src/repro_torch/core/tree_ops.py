@@ -6,7 +6,8 @@ two implementations.
     backend), on any device;
   * ``cuda``  — the hand-written kernels (``kernels/ops.py``, the
     counterpart of ``pallas``) for the irregular accesses: descent,
-    gather, fused sample+gather and the eager update.  Like the
+    gather (every storage leaf in one launch), fused sample+gather and
+    the eager update.  Like the
     reference's Pallas backend it keeps the plain ``write_leaves`` and
     ``flush`` (a small scatter and a dense K-aligned reshape-sum).
 
@@ -15,7 +16,9 @@ the CPU.  Fused vs split sampling defaults to split.
 
 Tree ops update the tree **in place** (and return it).  Every backend
 counts its calls per op in ``counts``, so a test can assert how many
-propagation passes one loop iteration runs.
+propagation passes one loop iteration runs; ``counts["gather"]`` counts
+storage leaves gathered (5 a CartPole learner call), whatever the number
+of launches.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from repro_torch.core import sumtree
 from repro_torch.core.sumtree import SumTreeSpec
 # the kernels' plain versions; importing them builds nothing
-from repro_torch.kernels.gather import gather_plain
+from repro_torch.kernels.gather import gather_items_plain
 from repro_torch.kernels.sample_gather import sample_gather_plain
 
 Storage = Dict[str, torch.Tensor]
@@ -62,8 +65,8 @@ class TreeOps(Protocol):
         """Batched inverse-CDF descent → (leaf_idx, leaf_priority)."""
         ...
 
-    def gather(self, storage: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        """out[i] = storage[idx[i]] for one storage leaf."""
+    def gather_items(self, storage: Storage, idx: torch.Tensor) -> Storage:
+        """out[k][i] = storage[k][idx[i]] for every storage leaf."""
         ...
 
     def sample_gather(self, spec: SumTreeSpec, tree: torch.Tensor,
@@ -97,9 +100,9 @@ class TorchTreeOps:
         self.counts["sample"] += 1
         return sumtree.sample(spec, tree, u)
 
-    def gather(self, storage, idx):
-        self.counts["gather"] += 1
-        return gather_plain(storage, idx)
+    def gather_items(self, storage, idx):
+        self.counts["gather"] += len(storage)      # leaves gathered
+        return gather_items_plain(storage, idx)
 
     def sample_gather(self, spec, tree, u, storage):
         self.counts["sample_gather"] += 1
@@ -126,9 +129,9 @@ class CudaTreeOps(TorchTreeOps):
         self.counts["sample"] += 1
         return self._kops.sumtree_sample(spec, tree, u)
 
-    def gather(self, storage, idx):
-        self.counts["gather"] += 1
-        return self._kops.prioritized_gather(storage, idx)
+    def gather_items(self, storage, idx):
+        self.counts["gather"] += len(storage)      # leaves gathered, one launch
+        return self._kops.gather_items(storage, idx)
 
     def sample_gather(self, spec, tree, u, storage):
         self.counts["sample_gather"] += 1

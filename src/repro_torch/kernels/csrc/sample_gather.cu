@@ -1,18 +1,21 @@
 // Fused inverse-CDF sample + storage-row gather, one launch.
 //
-// Replaces the TPU kernel src/repro/kernels/sample_gather.py
+// Replaces the TPU kernel src/repro/kernels/sample_gather.py:119
 // (sample_gather_levels -> pl.pallas_call, _kernel).  The TPU kernel runs
 // the descent at storage step 0 and then streams every storage leaf
 // through VMEM as f32, accumulating one-hot matmuls (so integers are exact
 // only below 2^24 and every row of storage is read).  Here the warp that
-// descends for a draw copies that draw's row from every storage leaf
-// straight away, through a table of (source, destination, row bytes) in
-// the native dtypes: no f32 flatten, and only the sampled rows move.
+// descends for a draw (descend.cuh, the descent sumtree_sample.cu runs:
+// one round trip per level) copies that draw's row from every storage
+// leaf straight away, through a table of (source, destination, row bytes)
+// in the native dtypes: no f32 flatten, and only the sampled rows move.
 //
 // What bounds it on an H100: at the main path's sizes (B = 64, five
-// CartPole leaves of 4-16 bytes a row) a few hundred KB of dependent
-// reads, so launch latency; the fusion saves one launch and the round
-// trip of the indices through device memory between two launches.
+// CartPole leaves of 4-16 bytes a row) the chain of dependent round trips
+// (the descent's, then one per leaf copied in turn) and the launch, not
+// bytes; the fusion saves one launch and the round trip of the indices
+// through device memory between two launches.  The copy loop is the
+// earlier one (one leaf after another in each warp).
 #include "descend.cuh"
 
 namespace {
@@ -40,18 +43,20 @@ __device__ __forceinline__ bool aligned(const void* p, long long a) {
     return (reinterpret_cast<uintptr_t>(p) & (uintptr_t)(a - 1)) == 0;
 }
 
-__global__ void sample_gather_kernel(const float* __restrict__ tree,
-                                     const float* __restrict__ u,
-                                     long long* __restrict__ out_idx,
-                                     float* __restrict__ out_pri,
-                                     int B, int K, int capacity,
-                                     TreeLevels lv, LeafTable leaves) {
+template <int C>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+sample_gather_kernel(const float* __restrict__ tree, const float* __restrict__ u,
+                     long long* __restrict__ out_idx, float* __restrict__ out_pri,
+                     int B, int K, int capacity, bool vec, TreeLevels lv,
+                     LeafTable leaves) {
     const int draw = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
     if (draw >= B) return;
     const int lane = threadIdx.x & 31;
+    const float ud = u[draw];
+    const float total = tree[0];
     long long leaf;
     float pri;
-    descend_warp(tree, u[draw], lv, K, capacity, &leaf, &pri);
+    descend::descend_warp<C>(tree, ud, total, lv, K, capacity, vec, &leaf, &pri);
     if (lane == 0) {
         out_idx[draw] = leaf;
         out_pri[draw] = pri;
@@ -95,9 +100,13 @@ extern "C" int sample_gather_launch(const float* tree, const float* u,
     tab.n = n_leaves;
     if (B > 0) {
         const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-        sample_gather_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                               (cudaStream_t)stream>>>(
-            tree, u, out_idx, out_pri, B, K, capacity, lv, tab);
+        const int C = descend::row_width(K);
+        const bool vec = descend::row_vectors(tree, K, C);
+        descend::with_row_width(C, [&](auto width) {
+            sample_gather_kernel<decltype(width)::value>
+                <<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+                    tree, u, out_idx, out_pri, B, K, capacity, vec, lv, tab);
+        });
     }
     return (int)cudaGetLastError();
 }

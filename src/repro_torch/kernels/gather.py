@@ -2,10 +2,13 @@
 
 Port of the TPU kernel ``repro/kernels/gather.py``: ``out[i] =
 storage[idx[i]]`` for storage of any rank and dtype, copied as bytes in
-the widest vector the row size and alignment allow.  Indices are clamped
-into ``[0, N-1]`` as XLA's gather clamps them.  Bit-exact for every
-dtype, including int32 values ≥ 2^24 that the TPU kernel's f32 one-hot
-matmul cannot carry.
+the widest vector the row size and alignment allow.  One launch gathers
+every leaf of a storage dict (at most 16), through a table of (source,
+destination, row bytes, rows, vector width); a single tensor is a
+one-entry table.  Indices are clamped into each leaf's ``[0, N-1]`` as
+XLA's gather clamps them.  Bit-exact for every dtype, including int32
+values ≥ 2^24 that the TPU kernel's f32 one-hot matmul cannot carry, and
+inf and NaN, which that matmul spreads into every gathered row.
 """
 
 from __future__ import annotations
@@ -13,24 +16,32 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Dict
 
 import torch
 
 from repro_torch.kernels import _build
 
 NAME = "gather"
+MAX_LEAVES = 16   # kMaxLeaves in csrc/gather.cu
+
+Storage = Dict[str, torch.Tensor]
 
 
 def gather_plain(storage: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return storage[idx.clamp(0, storage.shape[0] - 1)]
 
 
+def gather_items_plain(storage: Storage, idx: torch.Tensor) -> Storage:
+    return {k: gather_plain(buf, idx) for k, buf in storage.items()}
+
+
 @functools.cache
 def _fn():
-    fn = _build.load(NAME).gather_rows_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn = _build.load(NAME).gather_items_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -59,14 +70,31 @@ def check_rows(storage: torch.Tensor, idx: torch.Tensor) -> None:
                          f"{idx.dtype} {tuple(idx.shape)}")
 
 
-def gather_cuda(storage: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    check_rows(storage, idx)
+def gather_items_cuda(storage: Storage, idx: torch.Tensor) -> Storage:
+    if not 1 <= len(storage) <= MAX_LEAVES:
+        raise ValueError(f"1 to {MAX_LEAVES} storage leaves a launch, got {len(storage)}")
     b = idx.shape[0]
-    out = torch.empty((b,) + tuple(storage.shape[1:]), dtype=storage.dtype,
-                      device=storage.device)
-    nbytes = row_bytes(storage)
-    vec = vector_bytes(nbytes, storage.data_ptr(), out.data_ptr())
-    rc = _fn()(storage.data_ptr(), idx.data_ptr(), out.data_ptr(), b,
-               storage.shape[0], nbytes, vec, _build.stream_handle(storage.device))
+    items = {}
+    for k, buf in storage.items():
+        check_rows(buf, idx)
+        items[k] = torch.empty((b,) + tuple(buf.shape[1:]), dtype=buf.dtype,
+                               device=buf.device)
+    bufs, outs = list(storage.values()), list(items.values())
+    rbytes = [row_bytes(buf) for buf in bufs]
+    if b == 0 or not any(rbytes):
+        return items            # nothing to copy: no launch
+    n = len(bufs)
+    vecs = [vector_bytes(rb, buf.data_ptr(), out.data_ptr())
+            for rb, buf, out in zip(rbytes, bufs, outs)]
+    rc = _fn()(idx.data_ptr(), b, n,
+               (ctypes.c_void_p * n)(*[buf.data_ptr() for buf in bufs]),
+               (ctypes.c_void_p * n)(*[out.data_ptr() for out in outs]),
+               (ctypes.c_longlong * n)(*rbytes),
+               (ctypes.c_longlong * n)(*[buf.shape[0] for buf in bufs]),
+               (ctypes.c_int * n)(*vecs), _build.stream_handle(idx.device))
     _build.check(rc, NAME)
-    return out
+    return items
+
+
+def gather_cuda(storage: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return gather_items_cuda({"rows": storage}, idx)["rows"]

@@ -72,6 +72,13 @@ def prioritized_gather(storage: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
     return _gather.gather_cuda(storage, idx)
 
 
+def gather_items(storage: Storage, idx: torch.Tensor) -> Storage:
+    """{k: storage[k][idx]} for every leaf (at most 16), in one launch."""
+    if all(_on_cpu(buf) for buf in storage.values()) and _on_cpu(idx):
+        return _gather.gather_items_plain(storage, idx)
+    return _gather.gather_items_cuda(storage, idx)
+
+
 def flash_attention_nhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          attention: str = "full", window: int = 0,
                          causal: bool = True, is_global: bool = True) -> torch.Tensor:

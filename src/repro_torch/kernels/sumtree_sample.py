@@ -2,12 +2,14 @@
 version.
 
 Port of the TPU kernel ``repro/kernels/sumtree_sample.py``: one warp per
-draw walks the flat tree, scanning each K-wide sibling row in 32-lane
-chunks (warp-shuffle scan, ``__ballot_sync``/``__ffs`` for the first
-hit).  The total is read from the root ``tree[0]``, as the reference
-``sumtree.sample`` does.  The scan sums in another order than a
-sequential cumsum, so a sampled index may differ from the plain version
-only at an fp tie of the CDF.
+draw walks the flat tree, loading each K-wide sibling row whole (C =
+ceil(K/32) children a lane) and scanning it in registers: sequential sums
+in each lane, a warp-shuffle scan of the lane totals, ``__ballot_sync``/
+``__ffs`` for the first lane that reaches the residual and a short search
+in that lane (``csrc/descend.cuh``).  The total is read from the root
+``tree[0]``, as the reference ``sumtree.sample`` does.  The scan sums in
+another order than a sequential cumsum, so a sampled index may differ
+from the plain version only at an fp tie of the CDF.
 """
 
 from __future__ import annotations

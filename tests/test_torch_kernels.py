@@ -8,8 +8,9 @@ On the CPU the wrappers run their plain versions (the tensors lie on the
 CPU), so this file holds the plain versions to the reference.
 Tolerances: sampled indices exact, or differing only under the fp-tie
 rule of parity.sample_ties; priorities rtol 1e-5; gathered rows
-bit-exact; tree updates level by level under parity.tree_mismatch (rtol
-1e-5 plus 1e-6 of the level's magnitude; the Pallas kernel sets a leaf
+bit-exact (compared as bytes where they hold inf or NaN); tree updates
+level by level under parity.tree_mismatch (rtol 1e-5 plus 1e-6 of the
+level's magnitude; the Pallas kernel sets a leaf
 to old + (new − old), so leaves are held like a level, and the port's
 written leaves are checked against the values exactly)."""
 
@@ -106,6 +107,67 @@ def test_gather_int32_beyond_f32_exact():
         idx = torch.from_numpy(rng.integers(0, 300, 50))
         torch.testing.assert_close(tops.prioritized_gather(x, idx), x[idx],
                                    rtol=0, atol=0)
+
+
+def test_gather_items_matches_ref():
+    """Every leaf of a mixed storage dict in one call, each against the
+    reference's one-leaf gather; indices past either end clamp per leaf."""
+    rng = np.random.default_rng(11)
+    pairs = {"f32": _storage_pair("float32", 700, 5, rng),
+             "bf16": _storage_pair("bfloat16", 700, 3, rng),
+             "i32": _storage_pair("int32", 650, 1, rng)}
+    idx = np.concatenate([rng.integers(0, 650, 61), [-3, 649, 699, 705]]).astype(np.int32)
+    got = tops.gather_items({k: t for k, (_, t) in pairs.items()},
+                            torch.from_numpy(idx).long())
+    assert list(got) == list(pairs)
+    for k, (j, t) in pairs.items():
+        want = np.asarray(jops.prioritized_gather(j, jnp.asarray(np.clip(idx, 0, j.shape[0] - 1)))
+                          .astype(jnp.float32))
+        assert got[k].dtype == t.dtype and got[k].shape == (65,) + tuple(t.shape[1:])
+        np.testing.assert_array_equal(got[k].float().numpy(), want)
+
+
+def nonfinite_storage(capacity: int, drawn: np.ndarray, rng) -> dict:
+    """f32 rows with inf, -inf and NaN in rows that are not drawn and in one
+    that is (``drawn[0]``), and an int32 leaf holding 2^24 + 1 and above
+    (which an f32 round trip rounds)."""
+    x = rng.normal(size=(capacity, 3)).astype(np.float32)
+    spare = np.setdiff1d(np.arange(capacity), drawn)[:6]
+    x[spare[:2], 0] = np.inf
+    x[spare[2:4], 1] = np.nan
+    x[spare[4:], 2] = -np.inf
+    x[drawn[0]] = [np.inf, np.nan, -np.inf]
+    ints = (2**24 + 1 + np.arange(capacity)).astype(np.int32)
+    return {"x": torch.from_numpy(x), "n": torch.from_numpy(ints),
+            "r": torch.from_numpy(rng.normal(size=capacity).astype(np.float32))}
+
+
+def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit (NaN != NaN, so compare the bytes)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("api", ["gather", "gather_items", "sample_gather"])
+def test_nonfinite_rows_come_back_bit_for_bit(api):
+    """The stored rows, inf and NaN included, bit for bit: the Pallas
+    gathers' f32 one-hot matmul turns one inf into NaN in every gathered
+    row of its column (ROADMAP Queue 3 item 6); the port copies bytes."""
+    _, ts, _, tt, rng = mk(600, seed=31)
+    u = torch.from_numpy(rng.uniform(0, 1, 40).astype(np.float32))
+    idx, _ = tops.sumtree_sample(ts, tt, u)
+    storage = nonfinite_storage(600, idx.numpy(), rng)
+    if api == "gather":
+        got = {k: tops.prioritized_gather(buf, idx) for k, buf in storage.items()}
+    elif api == "gather_items":
+        got = tops.gather_items(storage, idx)
+    else:
+        fi, _, got = tops.sumtree_sample_gather(ts, tt, u, storage)
+        torch.testing.assert_close(fi, idx, rtol=0, atol=0)
+    for k, buf in storage.items():
+        assert same_bytes(got[k], buf[idx]), k
+    assert not bool(torch.isfinite(got["x"][0]).any())
+    assert int(got["n"].min()) >= 2**24 + 1
 
 
 @pytest.mark.parametrize("capacity,batch", [(100, 1), (1000, 64), (16384, 300)])

@@ -8,7 +8,14 @@ tests/conftest.py imports jax, so there run it without the conftest:
 
 Shapes: the main path's replay (50,000, K=128, B=64), the Nature-DQN
 replay (10^6, K=128, B=512), K=8 and K=256 at 10^5, and a 10-leaf tree
-whose tail draws clamp.  Tolerances are the rules of
+whose tail draws clamp; for the descent also K=64 and K=1000 (chunks of
+256), and a root raised alone at 128^3 + 1 and 64^4 + 1 leaves, where a
+descent past its padding-node guard would read 1-2 GB past the tree.
+The gathers: one leaf a launch and every leaf in one launch (mixed
+dtypes and row sizes of 1 to 1,024 bytes, unaligned views, 16 leaves;
+17 raise), rows with inf, NaN and int32 above 2^24 byte for byte, and
+one replay sample on the split path = one descent and one gather
+launch.  Tolerances are the rules of
 repro_torch.kernels.parity: sampled indices under the fp-tie rule and
 priorities exact where the indices agree; rows bit-exact; the update's
 leaves bit for bit and each interior level at rtol 1e-5 plus 1e-6 of its
@@ -39,6 +46,7 @@ import pytest
 import torch
 
 from repro_torch.core import sumtree as tst
+from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import parity
@@ -47,6 +55,9 @@ from repro_torch.kernels import parity
 # replay (8,192, K = 128, B = 8), K = 8 and K = 256, and a tiny tail
 SHAPES = [(50_000, 128, 64), (1_000_000, 128, 512), (8192, 128, 8), (100_000, 8, 512),
           (100_000, 256, 512), (10, 4, 64)]
+# the descent's other instances: K > 256 in chunks with scalar loads, and
+# K = 64 (C = 2, float2 loads)
+SAMPLE_SHAPES = SHAPES + [(20_000, 1000, 512), (20_000, 64, 512)]
 
 
 @pytest.fixture
@@ -74,7 +85,7 @@ def _bumped(ts, tt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("capacity,fanout,batch", SHAPES)
+@pytest.mark.parametrize("capacity,fanout,batch", SAMPLE_SHAPES)
 def test_cuda_sample_matches_plain(cuda_dev, capacity, fanout, batch):
     ts, tt, rng = mk(capacity, fanout, capacity + fanout, cuda_dev)
     for tree in (tt, _bumped(ts, tt.clone())):
@@ -93,18 +104,174 @@ def test_cuda_sample_matches_plain(cuda_dev, capacity, fanout, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("capacity,fanout", [(128**3 + 1, 128), (64**4 + 1, 64)])
+def test_cuda_sample_padding_cascade_stays_in_the_tree(cuda_dev, capacity, fanout):
+    """The root alone raised by 5 %: a draw past the leaves' total has no
+    hit at level 1, whose last child is a padding node with no child row.
+    The descent must clamp there (capacity - 1, its priority re-read); a
+    descent that went on would read rows up to ~1 GB past the tree."""
+    torch.cuda.empty_cache()
+    ts, tt, rng = mk(capacity, fanout, 3, cuda_dev)
+    tt[0] *= 1.05
+    u = torch.from_numpy(np.concatenate([
+        np.full(4, 1.0 - 1e-7, np.float32),
+        rng.uniform(0.9, 1.0, 4092).astype(np.float32)])).to(cuda_dev)
+    ki, kp = tops.sumtree_sample(ts, tt, u)
+    pi, pp = tst.sample(ts, tt, u)
+    torch.cuda.synchronize()
+    report = parity.sample_ties(ts, tt, u, ki, pi)
+    assert report.ok, str(report)
+    past = u > 1 / 1.05 + 1e-4
+    assert int(past.sum()) > 100 and bool((ki[past] == capacity - 1).all())
+    torch.testing.assert_close(kp[ki == pi], pp[ki == pi], rtol=0, atol=0)
+    assert bool((kp[past] == tst.get(ts, tt, ki[past])).all())
+
+
+def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit (NaN != NaN, so compare the bytes)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def rows_of(dev, g, dtype, shape):
+    if dtype == torch.int32:
+        return torch.randint(0, 2**31 - 1, shape, generator=g, device=dev, dtype=torch.int32)
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("api", ["prioritized_gather", "gather_items"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
 @pytest.mark.parametrize("shape", [(5000,), (5000, 4), (5000, 3, 5), (5000, 33),
                                    (8192, 256)])
-def test_cuda_gather_bit_exact(cuda_dev, dtype, shape):
+def test_cuda_gather_bit_exact(cuda_dev, dtype, shape, api):
     g = torch.Generator(device=cuda_dev).manual_seed(0)
-    if dtype == torch.int32:
-        x = torch.randint(0, 2**31 - 1, shape, generator=g, device=cuda_dev,
-                          dtype=torch.int32)
-    else:
-        x = torch.randn(shape, generator=g, device=cuda_dev).to(dtype)
+    x = rows_of(cuda_dev, g, dtype, shape)
     idx = torch.randint(0, shape[0], (517,), generator=g, device=cuda_dev)
-    torch.testing.assert_close(tops.prioritized_gather(x, idx), x[idx], rtol=0, atol=0)
+    before = tops.launch_counts["gather"]
+    if api == "prioritized_gather":
+        got = tops.prioritized_gather(x, idx)
+    else:
+        got = tops.gather_items({"x": x}, idx)["x"]
+    torch.testing.assert_close(got, x[idx], rtol=0, atol=0)
+    assert tops.launch_counts["gather"] == before + 1
+
+
+def _unaligned(dev, g, n):
+    """Contiguous views that start 4, 2 and 1 bytes into their buffers."""
+    f = rows_of(dev, g, torch.float32, (n * 4 + 1,))[1:].view(n, 4)
+    h = rows_of(dev, g, torch.bfloat16, (n * 3 + 1,))[1:].view(n, 3)
+    b = rows_of(dev, g, torch.uint8, (n * 6 + 1,))[1:].view(n, 6)
+    return {"f32x4+4": f, "bf16x3+2": h, "u8x6+1": b}
+
+
+# leaf tables of one gather_items launch: row sizes of 1, 4, 12, 16 and
+# 1,024 bytes in mixed dtypes and row counts; views that start unaligned;
+# 16 leaves
+TABLES = {
+    "mixed": lambda dev, g, n: {
+        "u8": rows_of(dev, g, torch.uint8, (n,)),
+        "f32": rows_of(dev, g, torch.float32, (n - 7,)),
+        "i32x3": rows_of(dev, g, torch.int32, (n + 3, 3)),
+        "f32x4": rows_of(dev, g, torch.float32, (n, 4)),
+        "bf16x512": rows_of(dev, g, torch.bfloat16, (n - 1, 512))},
+    "unaligned": _unaligned,
+    "16 leaves": lambda dev, g, n: {
+        f"l{j}": rows_of(dev, g, (torch.float32, torch.int32, torch.bfloat16, torch.uint8)[j % 4],
+                         (n - j,) + ((j % 5 + 1,) if j % 3 else ()))
+        for j in range(16)},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", list(TABLES))
+def test_cuda_gather_items_bit_exact(cuda_dev, table):
+    """Every leaf in one launch, bit for bit against the plain gather; the
+    indices include -3 and past every leaf's last row, which clamp per leaf."""
+    g = torch.Generator(device=cuda_dev).manual_seed(2)
+    storage = TABLES[table](cuda_dev, g, 3000)
+    idx = torch.cat([torch.randint(0, 2990, (300,), generator=g, device=cuda_dev),
+                     torch.tensor([-3, 0, 2999, 3002, 3500], device=cuda_dev)])
+    before = tops.launch_counts["gather"]
+    got = tops.gather_items(storage, idx)
+    torch.cuda.synchronize()
+    assert tops.launch_counts["gather"] == before + 1
+    assert list(got) == list(storage)
+    for k, buf in storage.items():
+        assert same_bytes(got[k], buf[idx.clamp(0, buf.shape[0] - 1)]), k
+
+
+@pytest.mark.cuda
+def test_cuda_gather_items_refuses_17_leaves(cuda_dev):
+    storage = {f"l{j}": torch.zeros((10, 2), device=cuda_dev) for j in range(17)}
+    idx = torch.zeros((4,), dtype=torch.int64, device=cuda_dev)
+    before = tops.launch_counts["gather"]
+    with pytest.raises(ValueError, match="16"):
+        tops.gather_items(storage, idx)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tops.gather_items({"x": torch.zeros((10, 2), device=cuda_dev)}, idx.cpu())
+    assert tops.launch_counts["gather"] == before
+
+
+def nonfinite_storage(dev, capacity, drawn):
+    """f32 rows with inf, -inf and NaN in rows that are not drawn and in one
+    that is (``drawn[0]``), and an int32 leaf holding 2^24 + 1 and above."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((capacity, 3), generator=g, device=dev)
+    taken = torch.zeros(capacity, dtype=torch.bool, device=dev)
+    taken[drawn] = True
+    spare = torch.nonzero(~taken)[:6, 0]
+    x[spare[:2], 0] = float("inf")
+    x[spare[2:4], 1] = float("nan")
+    x[spare[4:], 2] = float("-inf")
+    x[drawn[0]] = torch.tensor([float("inf"), float("nan"), float("-inf")], device=dev)
+    ints = (2**24 + 1 + torch.arange(capacity, device=dev)).to(torch.int32)
+    return {"x": x, "n": ints, "r": torch.randn((capacity,), generator=g, device=dev)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("api", ["gather", "gather_items", "sample_gather"])
+def test_cuda_nonfinite_rows_come_back_bit_for_bit(cuda_dev, api):
+    ts, tt, rng = mk(50_000, 128, 31, cuda_dev)
+    u = torch.from_numpy(rng.uniform(0, 1, 64).astype(np.float32)).to(cuda_dev)
+    idx, _ = tops.sumtree_sample(ts, tt, u)
+    storage = nonfinite_storage(cuda_dev, 50_000, idx)
+    if api == "gather":
+        got = {k: tops.prioritized_gather(buf, idx) for k, buf in storage.items()}
+    elif api == "gather_items":
+        got = tops.gather_items(storage, idx)
+    else:
+        fi, _, got = tops.sumtree_sample_gather(ts, tt, u, storage)
+        torch.testing.assert_close(fi, idx, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    for k, buf in storage.items():
+        assert same_bytes(got[k], buf[idx]), k
+    assert not bool(torch.isfinite(got["x"][0]).any())
+    assert int(got["n"].min()) >= 2**24 + 1
+
+
+@pytest.mark.cuda
+def test_cuda_replay_split_sample_launches_once(cuda_dev):
+    """One PrioritizedReplay.sample on the split path: one descent launch
+    and one gather launch for CartPole's five leaves, the items bit for bit
+    those of five one-leaf gathers."""
+    example = {"obs": torch.zeros(4), "action": torch.zeros((), dtype=torch.int32),
+               "reward": torch.zeros(()), "next_obs": torch.zeros(4), "done": torch.zeros(())}
+    rb = PrioritizedReplay(ReplayConfig(capacity=5000, fanout=128), example, device=cuda_dev)
+    g = torch.Generator(device=cuda_dev).manual_seed(4)
+    items = {k: rows_of(cuda_dev, g, v.dtype, (3000,) + tuple(v.shape))
+             for k, v in example.items()}
+    st = rb.insert(rb.init(), items)
+    before = dict(tops.launch_counts)
+    idx, got, _ = rb.sample(st, g, 64)
+    torch.cuda.synchronize()
+    for name in ("sumtree_sample", "gather"):
+        assert tops.launch_counts[name] == before.get(name, 0) + 1, name
+    assert rb.ops.counts["gather"] == 5
+    for k, buf in st.storage.items():
+        assert same_bytes(got[k], tops.prioritized_gather(buf, idx)), k
 
 
 @pytest.mark.cuda

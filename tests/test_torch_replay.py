@@ -193,6 +193,7 @@ def test_fused_sample_gather_matches_split(backend):
         for k in it_f:
             torch.testing.assert_close(it_f[k], it_s[k], rtol=0, atol=0)
     assert rb_f.ops.counts["sample_gather"] == 3 and rb_s.ops.counts["sample"] == 3
+    assert rb_s.ops.counts["gather"] == 3 * 3       # leaves gathered, 3 a sample
 
 
 def test_append_is_one_lazy_transaction():
