@@ -24,7 +24,14 @@ failure and prints no result):
                 gather_items launch, the fused kernel; and rows holding inf,
                 NaN and int32 above 2^24 through all three, byte for byte),
                 the update's leaves bit for bit and each interior level at
-                rtol 1e-5 plus 1e-6 of its magnitude;
+                rtol 1e-5 plus 1e-6 of its magnitude, and a second call bit
+                for bit the same; then, at 50,000/K=128, the update at B = 1,
+                8, 64, 512, 1,025 and 2,100 with repeats spread across the
+                batch and its chunks of 1,024 (ceil(B / 1,024) launches, a
+                second call bit for bit), and the fused kernel on a table of
+                1-, 4-, 12-, 16- and 1,024-byte rows with views 4, 2 and 1
+                bytes off alignment and on 16 leaves (indices and
+                priorities those of the split descent, rows byte for byte);
   4. main path — FusedExecutor on CUDA with the settings of
                 tests/test_system.py (CartPole × 8 envs, DQN (4, 256, 256, 2),
                 capacity 20,000, K=128, batch 64, 1,400 iterations): the
@@ -33,14 +40,18 @@ failure and prints no result):
                 storage leaf in one launch), and a step must not synchronize
                 with the host (checked under torch.cuda.set_sync_debug_mode);
   5. arms     — 200 iterations each of the fused sample+gather arm and the
-                eager-replay arm, which launch the other two kernels;
+                eager-replay arm, which launch the other two kernels: one
+                fused launch a learner call, one update launch a learner
+                call and two an iteration (the insert's two phases), each
+                count equal to the tree op's calls; then the main path's
+                profiler window over 20 more iterations of each arm;
   6. times    — the launch floor (torch.cuda._sleep(0)); each kernel, its
                 plain version and the library call (searchsorted on the
                 leaves' CDF for the descent, index_select for the gather):
                 device time, the median of 60 calls queued back to back
                 behind a GPU sleep, one CUDA-event pair each (the update
-                kernel given its mask; the public wrapper, which computes
-                the mask, is timed beside it); gather_items over every leaf;
+                kernel, and beside it ops.sumtree_update, the replay's call:
+                wrapper_ms); gather_items over every leaf;
                 the call latency from an idle card, Python wrapper included;
                 and a learner call's sampling chain in four arms, in turns
                 (sampling_chain), at 50,000/B=64 with CartPole's five leaves
@@ -111,7 +122,8 @@ failure and prints no result):
                 products the kernels do (the hi/lo splits: 4 and 7).
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
-iterations gives the device-busy share and the ops per iteration.
+iterations gives the device-busy share and the ops per iteration; phase
+5 takes the same window on each arm.
 Granite-8B's weights and its f32 copy are freed before phase 11; phase 12
 runs before the training state and the 34.3 GB token-MDP table exist, and
 each training run's state is freed before the next.
@@ -322,6 +334,36 @@ def same_bytes(torch, a, b) -> bool:
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
+# the update's batches in phase 3: an insert, CartPole's, Nature DQN's, past
+# one CTA of 1,024 updates, and three chunks
+UPDATE_BATCHES = (1, 8, 64, 512, 1025, 2100)
+
+
+def mixed_leaves(torch, dev, gen, n: int = 50_000) -> dict:
+    """Leaves of 1-, 4-, 12-, 16- and 1,024-byte rows with row counts around
+    ``n``, and views that start 4, 2 and 1 bytes into their buffers (the
+    f32 (4,) rows 4 bytes off 16-byte alignment)."""
+    def rows(dtype, shape):
+        if dtype.is_floating_point:
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return torch.randint(0, 2**31 - 1, shape, generator=gen, device=dev).to(dtype)
+    return {"u8": rows(torch.uint8, (n,)), "f32": rows(torch.float32, (n - 7,)),
+            "i32x3": rows(torch.int32, (n + 3, 3)), "f32x4": rows(torch.float32, (n, 4)),
+            "bf16x512": rows(torch.bfloat16, (n - 1, 512)),
+            "f32x4+4": rows(torch.float32, (n * 4 + 1,))[1:].view(n, 4),
+            "bf16x3+2": rows(torch.bfloat16, (n * 3 + 1,))[1:].view(n, 3),
+            "u8x6+1": rows(torch.uint8, (n * 6 + 1,))[1:].view(n, 6)}
+
+
+def sixteen_leaves(torch, dev, gen, n: int = 50_000) -> dict:
+    """The most leaves one fused launch takes: four dtypes, rows of 1-5
+    elements or none, row counts n - j."""
+    dtypes = (torch.float32, torch.int32, torch.bfloat16, torch.uint8)
+    return {f"l{j}": torch.randint(0, 127, (n - j,) + ((j % 5 + 1,) if j % 3 else ()),
+                                   generator=gen, device=dev).to(dtypes[j % 4])
+            for j in range(16)}
+
+
 CHAIN_ARMS = ("sample + one-leaf gathers", "sample + gather_items", "fused sample_gather",
               "searchsorted + index_select")
 
@@ -372,6 +414,92 @@ def sampling_chain(torch, dev, gen, capacity: int, batch: int, token: bool = Fal
             "arms": {name: {"device_ms": statistics.mean(r["device_ms"]),
                             "call_ms": statistics.mean(r["call_ms"]), "runs": r}
                      for name, r in runs.items()}}
+
+
+# -- phases 4 and 5: the CartPole loop --------------------------------------------
+
+
+def run_arm(torch, iterations: int, fused: bool, lazy: bool, capacity: int = 20_000,
+            warmup: int = 400, seed: int = 1):
+    """FusedExecutor on CUDA with the settings of tests/test_system.py
+    (CartPole × 8 envs, DQN (4, 256, 256, 2), K=128, batch 64, ε 0.2):
+    ``iterations`` counted iterations after ``init`` → (executor, state,
+    history, seconds, kernel launches of the run, calls of the run: each
+    tree op's and ``learner_calls``).  Three more steps run with every
+    synchronizing CUDA call an error."""
+    from repro_torch.agents.dqn import DQNConfig, make_dqn
+    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.kernels import ops
+    from repro_torch.quickstart import transition_example
+    from repro_torch.runtime.executors import FusedExecutor
+    from repro_torch.runtime.loop import LoopConfig
+
+    env_fn = lambda n: make_vec("cartpole", n)  # noqa: E731
+    spec_env, _, _ = env_fn(1)
+    replay = PrioritizedReplay(
+        ReplayConfig(capacity=capacity, fanout=128, fused_sample_gather=fused),
+        transition_example(spec_env), device="cuda")
+    check(replay.ops.name == "cuda", "the CUDA device did not default to the kernels")
+    cfg = LoopConfig(batch_size=64, warmup=warmup, epsilon=0.2, lazy_replay=lazy)
+    ex = FusedExecutor(make_dqn(spec_env, DQNConfig()), replay, env_fn, cfg, n_envs=8)
+    state = ex.init(seed)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    before = dict(replay.ops.counts)
+    t0 = time.perf_counter()
+    state, hist = ex.run(state, iterations)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    calls = {k: v - before.get(k, 0) for k, v in replay.ops.counts.items()}
+    calls["learner_calls"] = state.learn_steps
+    # the step must never wait on the device: a few more steps with
+    # every synchronizing CUDA call turned into an error
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, _ = ex.step(state)
+    except RuntimeError as e:
+        fail(f"a loop step (fused={fused}, lazy={lazy}) synchronized: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return ex, state, hist, secs, counts, calls
+
+
+def profile_loop(torch, ex, state, iterations: int = 20):
+    """A torch.profiler window of ``iterations`` steady loop iterations →
+    (state, {wall, device-busy and device ops per iteration, busy share,
+    the top device entries}); the busy figures are None where the profiler
+    recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = ex.run(state, iterations)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev_events)
+    n_kernels = sum(e.count for e in dev_events)
+    return state, {
+        "iterations": iterations, "wall_us_per_iteration": wall_us / iterations,
+        "device_busy_us_per_iteration": busy_us / iterations if busy_us else None,
+        "device_busy_share": busy_us / wall_us if busy_us else None,
+        "device_ops_per_iteration": n_kernels / iterations if busy_us else None,
+        "top": [[e.key[:70], e.count / iterations, e.self_device_time_total / iterations]
+                for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]],
+    }
+
+
+def profile_line(what: str, p: dict) -> str:
+    if p["device_busy_share"] is None:
+        return f"[profile] {what}: torch.profiler recorded no device time: busy share not measured"
+    return (f"[profile] {what}, {p['iterations']} iterations under torch.profiler: "
+            f"{p['wall_us_per_iteration']:,.0f} us wall, "
+            f"{p['device_busy_us_per_iteration']:,.1f} us device-busy and "
+            f"{p['device_ops_per_iteration']:,.1f} device ops per iteration (busy share "
+            f"{p['device_busy_share']:.4f})")
 
 
 # -- phases 7-10: flash attention and the token-model serve path ---------------
@@ -1077,15 +1205,9 @@ def main() -> None:
         fail(f"src/repro_torch not found beside {Path(__file__).name}")
     sys.path.insert(0, str(HERE / "src"))
 
-    from repro_torch.agents.dqn import DQNConfig, make_dqn
     from repro_torch.core import sumtree
-    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
-    from repro_torch.envs.classic import make_vec
     from repro_torch.kernels import _build, ops, parity
     from repro_torch.kernels import sumtree_update as kupdate
-    from repro_torch.quickstart import transition_example
-    from repro_torch.runtime.executors import FusedExecutor
-    from repro_torch.runtime.loop import LoopConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1190,11 +1312,14 @@ def main() -> None:
                 idx[: batch // 4] = idx[0]
             val = torch.rand(idx.shape, generator=gen, device=dev) * 3
             got = ops.sumtree_update(spec, tree0.clone(), idx, val, unique=unique)
+            again = ops.sumtree_update(spec, tree0.clone(), idx, val, unique=unique)
             want = sumtree.update(spec, tree0.clone(), idx, val, unique=unique)
             torch.cuda.synchronize()
             problems = parity.tree_mismatch(spec, got, want)
             check(not problems, f"sumtree_update at {label} (unique={unique}): {problems}")
             check(sumtree.check_invariant(spec, got), f"update broke the tree at {label}")
+            check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                  f"sumtree_update at {label}: a second call differs")
             err["sumtree_update"] = max(err["sumtree_update"],
                                         float((got - want).abs().max()))
         ties[label] = {str(d): {"flips": [r.flips for r in reps],
@@ -1212,40 +1337,51 @@ def main() -> None:
               f"tree + the bumped tree, {flips} (window "
               f"{reports[batch][0].window_ulp:g} ulp(total))", flush=True)
 
+    # the update past one CTA and the fused kernel's leaf tables, at the main
+    # path's tree
+    spec, tree0 = replay_tree(torch, dev, gen, 50_000, 128)
+    for batch in UPDATE_BATCHES:
+        idx = torch.randint(0, 50_000, (batch,), generator=gen, device=dev)
+        # every fifth entry repeats an earlier one: duplicates across the
+        # batch and across the chunks of 1,024
+        rep = torch.arange(batch, device=dev)[4::5]
+        idx[rep] = idx[torch.randint(0, batch, rep.shape, generator=gen, device=dev)]
+        val = torch.rand((batch,), generator=gen, device=dev) * 3
+        before = ops.launch_counts["sumtree_update"]
+        got = ops.sumtree_update(spec, tree0.clone(), idx, val)
+        launched = ops.launch_counts["sumtree_update"] - before
+        again = ops.sumtree_update(spec, tree0.clone(), idx, val)
+        want = sumtree.update(spec, tree0.clone(), idx, val)
+        torch.cuda.synchronize()
+        problems = parity.tree_mismatch(spec, got, want)
+        check(not problems, f"sumtree_update at B={batch}: {problems}")
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"sumtree_update at B={batch}: a second call differs")
+        check(launched == -(-batch // kupdate.CHUNK),
+              f"sumtree_update at B={batch}: {launched} launches")
+        err["sumtree_update"] = max(err["sumtree_update"], float((got - want).abs().max()))
+    print(f"[parity] update at 50,000/K=128, B = {', '.join(map(str, UPDATE_BATCHES))} "
+          "(repeats across chunks): leaves bit for bit, interior under the level rule, a "
+          f"second call bit for bit, ceil(B / {kupdate.CHUNK}) launches", flush=True)
+    u = torch.cat([torch.full((4,), 1.0 - 1e-7, device=dev),
+                   torch.rand((60,), generator=gen, device=dev)])
+    si, sp = ops.sumtree_sample(spec, tree0, u)
+    for table, storage in (("mixed widths, one leaf 4 bytes off", mixed_leaves(torch, dev, gen)),
+                           ("16 leaves", sixteen_leaves(torch, dev, gen))):
+        fi, fp, items = ops.sumtree_sample_gather(spec, tree0, u, storage)
+        torch.cuda.synchronize()
+        check(torch.equal(fi, si) and torch.equal(fp, sp),
+              f"sample_gather on {table}: indices or priorities differ from the split descent")
+        for name, buf in storage.items():
+            check(same_bytes(torch, items[name], buf[si.clamp(0, buf.shape[0] - 1)]),
+                  f"sample_gather on {table}: leaf {name}")
+    print("[parity] sample_gather on a table of 1-, 4-, 12-, 16- and 1,024-byte rows with "
+          "views 4, 2 and 1 bytes off alignment, and on 16 leaves: indices and priorities "
+          "those of the split descent, rows byte for byte", flush=True)
+
     # 4. main path: the paper's system through the user entry points
-    env_fn = lambda n: make_vec("cartpole", n)  # noqa: E731
-    spec_env, _, _ = env_fn(1)
-
-    def run_arm(iterations, fused, lazy, capacity=20_000, warmup=400, seed=1):
-        replay = PrioritizedReplay(
-            ReplayConfig(capacity=capacity, fanout=128, fused_sample_gather=fused),
-            transition_example(spec_env), device="cuda")
-        check(replay.ops.name == "cuda", "the CUDA device did not default to the kernels")
-        cfg = LoopConfig(batch_size=64, warmup=warmup, epsilon=0.2, lazy_replay=lazy)
-        ex = FusedExecutor(make_dqn(spec_env, DQNConfig()), replay, env_fn, cfg,
-                           n_envs=8)
-        state = ex.init(seed)
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        state, hist = ex.run(state, iterations)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts = dict(ops.launch_counts)
-        # the step must never wait on the device: a few more steps with
-        # every synchronizing CUDA call turned into an error
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            for _ in range(3):
-                state, _ = ex.step(state)
-        except RuntimeError as e:
-            fail(f"a loop step (fused={fused}, lazy={lazy}) synchronized: {e}")
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        return ex, state, hist, secs, counts
-
     main_iters = 1400
-    ex, state, hist, secs, main_counts = run_arm(main_iters, fused=False, lazy=True)
+    ex, state, hist, secs, main_counts, _ = run_arm(torch, main_iters, fused=False, lazy=True)
     replay = ex.replay
     final = float(hist["mean_episode_return"][-1])
     print(f"[main path] {main_iters} iterations in {secs:.2f} s: "
@@ -1274,46 +1410,31 @@ def main() -> None:
 
     # where the main path's time goes: a profiler window of steady iterations
     # (8 learner calls each), taken after the counted run
-    prof_iters = 20
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = ex.run(state, prof_iters)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in dev_events)
-    n_kernels = sum(e.count for e in dev_events)
-    main_rate["profile"] = {
-        "iterations": prof_iters, "wall_us_per_iteration": wall_us / prof_iters,
-        "device_busy_us_per_iteration": busy_us / prof_iters,
-        "device_busy_share": busy_us / wall_us if busy_us else None,
-        "device_ops_per_iteration": n_kernels / prof_iters,
-        "top": [[e.key[:70], e.count / prof_iters, e.self_device_time_total / prof_iters]
-                for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]],
-    }
-    if busy_us:
-        print(f"[profile] {prof_iters} iterations under torch.profiler: "
-              f"{wall_us / prof_iters:,.0f} us wall, {busy_us / prof_iters:,.1f} us "
-              f"device-busy and {n_kernels / prof_iters:,.0f} device ops per iteration "
-              f"(busy share {busy_us / wall_us:.4f})", flush=True)
-    else:
-        print("[profile] torch.profiler recorded no device time: busy share not "
-              "measured", flush=True)
+    state, main_rate["profile"] = profile_loop(torch, ex, state)
+    print(profile_line("main path", main_rate["profile"]), flush=True)
 
-    # 5. the other two arms
-    arms = {}
+    # 5. the other two arms, each with the same profiler window; the launches
+    # the code predicts: one fused launch a learner call; one update launch a
+    # learner call and two an iteration (the insert's zeroing and its commit)
+    arms, arm_profiles = {}, {}
+    arm_iters = 200
     for arm, fused, lazy, kernel in (("fused", True, True, "sample_gather"),
                                      ("eager", False, False, "sumtree_update")):
-        _, st, h, s, counts = run_arm(200, fused=fused, lazy=lazy, warmup=400)
-        check(counts.get(kernel, 0) > 0,
-              f"the {arm} arm did not launch {kernel}: {counts}")
+        ex_a, st, h, s, counts, calls = run_arm(torch, arm_iters, fused=fused, lazy=lazy)
+        want = calls["learner_calls"] + (0 if fused else 2 * arm_iters)
+        op = "sample_gather" if fused else "update"
+        check(counts.get(kernel, 0) == want == calls.get(op, 0),
+              f"the {arm} arm launched {kernel} {counts.get(kernel, 0)} times for "
+              f"{calls.get(op, 0)} {op} calls; the code predicts {want}: {counts}")
         check(bool(torch.isfinite(h["loss"]).all()), f"non-finite loss on the {arm} arm")
         arms[arm] = counts
-        print(f"[{arm} arm] 200 iterations in {s:.2f} s: {st.env_steps / s:,.1f} "
+        print(f"[{arm} arm] {arm_iters} iterations in {s:.2f} s: {st.env_steps / s:,.1f} "
               f"env-steps/s, {st.learn_steps / s:,.1f} learner calls/s, "
-              f"launches {counts}", flush=True)
+              f"launches {counts} ({want} predicted)", flush=True)
+        _, arm_profiles[arm] = profile_loop(torch, ex_a, st)
+        print(profile_line(f"{arm} arm", arm_profiles[arm]), flush=True)
+        del ex_a, st
+    main_rate["arm_profiles"] = arm_profiles
 
     # 6. times at the main path's shapes and at the Nature-DQN size
     def measure(capacity, batch, token=False):
@@ -1325,7 +1446,6 @@ def main() -> None:
         obs = next(iter(storage.values()))     # the gather's timed rows: obs or tokens
         upd_idx = torch.randint(0, capacity, (batch,), generator=gen, device=dev)
         upd_val = torch.rand((batch,), generator=gen, device=dev)
-        upd_mask = sumtree.last_writer_mask(upd_idx, spec.num_leaves)
         upd_tree, plain_tree = tree.clone(), tree.clone()
         row_sum = sum(v[0].numel() * v.element_size() for v in storage.values())
         n_rows = int(torch.unique(idx).numel())
@@ -1353,10 +1473,9 @@ def main() -> None:
                     sumtree.sample(spec, tree, u)[0]), None,
                 bound(sample_bytes + n_rows * row_sum + batch * row_sum, sample_ops)),
             "sumtree_update": (
-                lambda: kupdate.sumtree_update_cuda(spec, upd_tree, upd_idx, upd_val,
-                                                    upd_mask),
+                lambda: kupdate.sumtree_update_cuda(spec, upd_tree, upd_idx, upd_val),
                 lambda: sumtree.update(spec, plain_tree, upd_idx, upd_val), None,
-                bound(batch * 13 + nodes_touched(torch, spec, upd_idx) * 8,
+                bound(batch * 12 + nodes_touched(torch, spec, upd_idx) * 8,
                       batch * spec.height)),
         }
         out = {}
@@ -1365,7 +1484,7 @@ def main() -> None:
                          "library_ms": device_ms(torch, lib) if lib else None,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "call_ms": call_ms(torch, kern)}
-        # the public wrapper adds the last-writer mask (a sort) to the kernel
+        # the public wrapper, as the replay calls it
         out["sumtree_update"]["wrapper_ms"] = device_ms(
             torch, lambda: ops.sumtree_update(spec, upd_tree, upd_idx, upd_val))
         # every leaf of the storage in one gather launch, and its plain version
@@ -1395,19 +1514,23 @@ def main() -> None:
               + f" | {card}", flush=True)
 
     info = {
-        "sumtree_sample": ("src/repro/kernels/sumtree_sample.py:111", "main"),
-        "gather": ("src/repro/kernels/gather.py:60", "main"),
-        "sample_gather": ("src/repro/kernels/sample_gather.py:119", "fused"),
-        "sumtree_update": ("src/repro/kernels/sumtree_update.py:110", "eager"),
+        "sumtree_sample": ("src/repro/kernels/sumtree_sample.py:111", "main",
+                           "redesigned: one round trip a level (descend.cuh)"),
+        "gather": ("src/repro/kernels/gather.py:60", "main",
+                   "redesigned: every storage leaf in one launch, PDL"),
+        "sample_gather": ("src/repro/kernels/sample_gather.py:119", "fused",
+                          "redesigned: descend.cuh, then every leaf's row in flight at once"),
+        "sumtree_update": ("src/repro/kernels/sumtree_update.py:110", "eager",
+                           "redesigned: in-CTA last-writer dedup, segmented sums, no atomics"),
     }
     kernels = []
-    for name, (replaces, path) in info.items():
+    for name, (replaces, path, status) in info.items():
         counts = main_counts if path == "main" else arms[path]
-        iters = main_iters if path == "main" else 200
+        iters = main_iters if path == "main" else arm_iters
         m, b = main_t[name], big_t[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu", "status": status,
             "replaces": replaces, "launches": counts.get(name, 0),
             "path": path, "launches_per_iteration": counts.get(name, 0) / iters,
             "max_abs_err": err[name], **m,
@@ -1432,6 +1555,11 @@ def main() -> None:
               f"at the token replay 8192/B=8 device {t['ms'] * 1e3:.2f} us (plain "
               f"{t['plain_ms'] * 1e3:.1f} us{lib(t)}, bound {t['bound_ms'] * 1e3:.4f} us) | {card}",
               flush=True)
+        if name == "sumtree_update":
+            print("[times] sumtree_update through ops.sumtree_update (the replay's call): "
+                  + "; ".join(f"{where} device {x['wrapper_ms'] * 1e3:.2f} us"
+                              for where, x in (("50,000/B=64", m), ("1M/B=512", b),
+                                               ("8192/B=8", t))) + f" | {card}", flush=True)
         if name == "gather":
             print("[times] gather_items, every leaf in one launch: " + "; ".join(
                 f"{where} {x['items']['leaves']} leaves device {x['items']['ms'] * 1e3:.2f} us "

@@ -134,9 +134,9 @@ def level_offsets(spec) -> ctypes.Array:
     return (ctypes.c_longlong * len(offs))(*offs)
 
 
-def check(rc: int, name: str) -> None:
-    """Raise on a refused launch; count the launch otherwise."""
+def check(rc: int, name: str, launches: int = 1) -> None:
+    """Raise on a refused launch; count the ``launches`` made otherwise."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
-    launch_counts[name] += 1
+    launch_counts[name] += launches

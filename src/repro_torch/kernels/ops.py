@@ -15,7 +15,6 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.core import sumtree
 from repro_torch.core.sumtree import SumTreeSpec
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gather as _gather
@@ -46,14 +45,13 @@ def sumtree_sample(spec: SumTreeSpec, tree: torch.Tensor, u: torch.Tensor
 
 def sumtree_update(spec: SumTreeSpec, tree: torch.Tensor, idx: torch.Tensor,
                    values: torch.Tensor, unique: bool = False) -> torch.Tensor:
-    """Batched priority SET, in place.  Duplicates resolve
-    last-writer-wins through the mask computed here; ``unique=True``
-    skips it for caller-guaranteed distinct indices."""
+    """Batched priority SET, in place; duplicates resolve last-writer-wins.
+    The plain version skips its mask for ``unique=True`` (caller-guaranteed
+    distinct indices); the kernel dedups inside its launch either way."""
     if _on_cpu(tree):
         return _update.sumtree_update_plain(spec, tree, idx, values,
                                             unique=unique)
-    mask = None if unique else sumtree.last_writer_mask(idx, spec.num_leaves)
-    return _update.sumtree_update_cuda(spec, tree, idx, values, mask)
+    return _update.sumtree_update_cuda(spec, tree, idx, values)
 
 
 def sumtree_sample_gather(spec: SumTreeSpec, tree: torch.Tensor,

@@ -17,9 +17,11 @@ and the CPU hold a kernel to one rule.
   leaf off away from a boundary, or on too many draws, fails.
 * **Tree update** (the update kernel).  The kernel writes leaves with
   plain stores, so the leaf level (with the scratch slot) is held bit
-  for bit.  Each interior level sums its deltas with atomics in a
-  varying order and is held at rtol 1e-5 plus an atol of 1e-6 of that
-  level's own largest magnitude.
+  for bit.  Each interior level sums its deltas in another order than
+  the plain version's ``index_add_`` (segmented scans, fixed from call
+  to call; a batch past one launch's chunk adds each chunk's deltas in
+  turn) and is held at rtol 1e-5 plus an atol of 1e-6 of that level's
+  own largest magnitude.
 * **Flash attention** (the forward kernel), against the plain version in
   f32 on the same inputs.  O in f32 within the reference's own bar, atol
   2e-6 plus rtol 1e-4 (tests/test_flash_attention.py); O in bf16 within

@@ -5,8 +5,10 @@ Port of the TPU kernel ``repro/kernels/sample_gather.py``: the warp that
 descends for a draw (the descent shared with ``sumtree_sample.cu``
 through ``descend.cuh``) copies that draw's row from every storage leaf,
 in the leaf's native dtype, through a table of (source, destination,
-row bytes).  Returns the same ``(idx, pri)`` as the split sample kernel
-and the rows bit-exact.
+row bytes, vector width, first chunk).  Its lanes share the chunks of
+all the leaves' rows and load them all before storing any, so every
+leaf's row is in flight at once.  Returns the same ``(idx, pri)`` as the
+split sample kernel and the rows bit-exact.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 from repro_torch.core import sumtree
 from repro_torch.core.sumtree import SumTreeSpec
 from repro_torch.kernels import _build
-from repro_torch.kernels.gather import check_rows, gather_plain, row_bytes
+from repro_torch.kernels.gather import check_rows, gather_plain, row_bytes, vector_bytes
 from repro_torch.kernels.sumtree_sample import check_tree
 
 NAME = "sample_gather"
@@ -43,7 +45,7 @@ def _fn():
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -63,14 +65,17 @@ def sample_gather_cuda(spec: SumTreeSpec, tree: torch.Tensor, u: torch.Tensor,
         items[k] = torch.empty((b,) + tuple(buf.shape[1:]), dtype=buf.dtype,
                                device=buf.device)
     n = len(storage)
-    bufs = list(storage.values())
-    srcs = (ctypes.c_void_p * n)(*[buf.data_ptr() for buf in bufs])
-    dsts = (ctypes.c_void_p * n)(*[out.data_ptr() for out in items.values()])
-    rbytes = (ctypes.c_longlong * n)(*[row_bytes(buf) for buf in bufs])
-    nrows = (ctypes.c_longlong * n)(*[buf.shape[0] for buf in bufs])
+    bufs, outs = list(storage.values()), list(items.values())
+    rbytes = [row_bytes(buf) for buf in bufs]
+    vecs = [vector_bytes(rb, buf.data_ptr(), out.data_ptr())
+            for rb, buf, out in zip(rbytes, bufs, outs)]
     rc = _fn()(tree.data_ptr(), u.data_ptr(), idx.data_ptr(), pri.data_ptr(),
                b, spec.fanout, spec.capacity, _build.level_offsets(spec),
-               len(spec.offsets), n, srcs, dsts, rbytes, nrows,
-               _build.stream_handle(tree.device))
+               len(spec.offsets), n,
+               (ctypes.c_void_p * n)(*[buf.data_ptr() for buf in bufs]),
+               (ctypes.c_void_p * n)(*[out.data_ptr() for out in outs]),
+               (ctypes.c_longlong * n)(*rbytes),
+               (ctypes.c_longlong * n)(*[buf.shape[0] for buf in bufs]),
+               (ctypes.c_int * n)(*vecs), _build.stream_handle(tree.device))
     _build.check(rc, NAME)
     return idx, pri, items

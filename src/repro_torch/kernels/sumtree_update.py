@@ -2,19 +2,19 @@
 version.
 
 Port of the TPU kernel ``repro/kernels/sumtree_update.py``: a batched
-priority SET that writes each surviving leaf and ``atomicAdd``s its
-delta into every ancestor and the root, in place in the flat tree.  The
-last-writer mask is computed outside the kernel (the port's
-``sumtree.last_writer_mask``), or skipped when the indices are unique.
-Float atomics sum in a varying order, so the kernel is held to the plain
-version with allclose, not bit for bit.
+priority SET, in place in the flat tree.  One launch a chunk of up to
+``CHUNK`` updates does the last-writer dedup itself (a sort of
+(index, position) keys in the CTA), writes each surviving leaf and adds
+every ancestor's run of deltas with one plain store per node (segmented
+scans, no atomics), so the same inputs give the same tree bit for bit.
+A larger batch runs as chunks in position order, one launch each.  The
+plain version, ``core/sumtree.py::update``, keeps ``last_writer_mask``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
 
 import torch
 
@@ -23,6 +23,7 @@ from repro_torch.core.sumtree import SumTreeSpec
 from repro_torch.kernels import _build
 
 NAME = "sumtree_update"
+CHUNK = 1024   # kChunk in csrc/sumtree_update.cu: updates a launch
 
 
 def sumtree_update_plain(spec: SumTreeSpec, tree: torch.Tensor,
@@ -35,17 +36,17 @@ def sumtree_update_plain(spec: SumTreeSpec, tree: torch.Tensor,
 def _fn():
     fn = _build.load(NAME).sumtree_update_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
 
 
 def sumtree_update_cuda(spec: SumTreeSpec, tree: torch.Tensor,
-                        idx: torch.Tensor, values: torch.Tensor,
-                        mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """In-place SET of ``tree``; ``mask`` (bool, one per update) marks the
-    surviving writes, ``None`` means every index is distinct."""
+                        idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """In-place SET of ``tree``, duplicates last-writer-wins (resolved in
+    the kernel, so distinct indices need no flag): ceil(B / CHUNK)
+    launches.  Indices must lie in [0, num_leaves)."""
     if tree.device.type != "cuda" or idx.device != tree.device:
         raise ValueError(f"tree and idx must be on one CUDA device, got "
                          f"{tree.device} and {idx.device}")
@@ -61,14 +62,9 @@ def sumtree_update_cuda(spec: SumTreeSpec, tree: torch.Tensor,
     if values.shape != (b,) or idx.dim() != 1:
         raise ValueError(f"idx and values must be (B,), got {tuple(idx.shape)} "
                          f"and {tuple(values.shape)}")
-    mask_ptr = None
-    if mask is not None:
-        if mask.shape != (b,) or mask.device != tree.device:
-            raise ValueError("mask must be (B,) on the tree's device")
-        mask = mask.to(torch.uint8).contiguous()
-        mask_ptr = mask.data_ptr()
-    rc = _fn()(tree.data_ptr(), idx.data_ptr(), values.data_ptr(), mask_ptr, b,
-               spec.fanout, _build.level_offsets(spec), len(spec.offsets),
-               _build.stream_handle(tree.device))
-    _build.check(rc, NAME)
+    launches = ctypes.c_int(0)
+    rc = _fn()(tree.data_ptr(), idx.data_ptr(), values.data_ptr(), b, spec.fanout,
+               _build.level_offsets(spec), len(spec.offsets),
+               _build.stream_handle(tree.device), ctypes.byref(launches))
+    _build.check(rc, NAME, launches.value)
     return tree

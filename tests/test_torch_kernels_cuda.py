@@ -15,7 +15,12 @@ The gathers: one leaf a launch and every leaf in one launch (mixed
 dtypes and row sizes of 1 to 1,024 bytes, unaligned views, 16 leaves;
 17 raise), rows with inf, NaN and int32 above 2^24 byte for byte, and
 one replay sample on the split path = one descent and one gather
-launch.  Tolerances are the rules of
+launch.  The fused kernel also on a table of 1- to 1,024-byte rows
+with views 4, 2 and 1 bytes off alignment and on 16 leaves.  The update
+at the shapes above, at B = 1 to 2,100 (past one launch's 1,024, with
+repeats across chunks; ceil(B / 1,024) launches) also at K = 100 (a
+division where K is no power of two) and at 2^22 + 1 leaves (64-bit
+sort keys) with K = 128 and K = 100, and a second call bit for bit.  Tolerances are the rules of
 repro_torch.kernels.parity: sampled indices under the fp-tie rule and
 priorities exact where the indices agree; rows bit-exact; the update's
 leaves bit for bit and each interior level at rtol 1e-5 plus 1e-6 of its
@@ -50,6 +55,7 @@ from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import parity
+from repro_torch.kernels import sumtree_update as kupdate
 
 # CartPole's replay, the Nature-DQN size, the token-DQN training path's
 # replay (8,192, K = 128, B = 8), K = 8 and K = 256, and a tiny tail
@@ -307,9 +313,68 @@ def test_cuda_update_matches_plain(cuda_dev, capacity, fanout, batch, unique):
     val = torch.from_numpy(rng.uniform(0, 3, idx.shape[0]).astype(np.float32)).to(cuda_dev)
     got = tops.sumtree_update(ts, tt.clone(), idx, val, unique=unique)
     want = tst.update(ts, tt.clone(), idx, val, unique=unique)
+    again = tops.sumtree_update(ts, tt.clone(), idx, val, unique=unique)
     torch.cuda.synchronize()
     assert parity.tree_mismatch(ts, got, want) == []
     assert tst.check_invariant(ts, got)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+# the eager update's batches: an insert, CartPole's, Nature DQN's, past one
+# CTA of 1,024 updates, and three chunks; duplicates across the whole batch
+UPDATE_BATCHES = [1, 8, 64, 512, 1025, 2100]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity,fanout", [(50_000, 128), (100_000, 8), (3000, 100),
+                                             (2**22 + 1, 128), (2**22 + 1, 100)])
+@pytest.mark.parametrize("batch", UPDATE_BATCHES)
+def test_cuda_update_chunks_and_repeats(cuda_dev, capacity, fanout, batch):
+    """ceil(B / 1,024) launches; leaves bit for bit and the interior under
+    the level rule against the plain version, with every fifth entry a
+    repeat of an earlier one (within and across chunks); a second call on
+    the same inputs bit for bit the same."""
+    ts, tt, rng = mk(capacity, fanout, capacity + batch, cuda_dev)
+    idx = rng.integers(0, capacity, batch)
+    idx[4::5] = idx[rng.integers(0, batch, idx[4::5].shape[0])]
+    idx = torch.from_numpy(idx).to(cuda_dev)
+    val = torch.from_numpy(rng.uniform(0, 3, batch).astype(np.float32)).to(cuda_dev)
+    before = tops.launch_counts["sumtree_update"]
+    got = tops.sumtree_update(ts, tt.clone(), idx, val)
+    assert tops.launch_counts["sumtree_update"] == before + -(-batch // kupdate.CHUNK)
+    again = tops.sumtree_update(ts, tt.clone(), idx, val)
+    want = tst.update(ts, tt.clone(), idx, val)
+    torch.cuda.synchronize()
+    assert parity.tree_mismatch(ts, got, want) == []
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def _mixed_misaligned(dev, g, n):
+    """Rows of 1, 4, 12, 16 and 1,024 bytes, and views that start 4, 2 and 1
+    bytes into their buffers (a 16-byte row 4 bytes off its alignment)."""
+    return {**TABLES["mixed"](dev, g, n), **_unaligned(dev, g, n)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["mixed+misaligned", "16 leaves"])
+def test_cuda_sample_gather_leaf_tables(cuda_dev, table):
+    """The fused kernel on leaf tables of every vector width, one launch:
+    indices and priorities those of the split descent on the same u, rows
+    byte for byte (each leaf's row index clamped into its own rows)."""
+    ts, tt, _ = mk(3000, 128, 11, cuda_dev)
+    g = torch.Generator(device=cuda_dev).manual_seed(5)
+    storage = (_mixed_misaligned if table == "mixed+misaligned" else TABLES[table])(
+        cuda_dev, g, 3000)
+    u = torch.cat([torch.full((4,), 1.0 - 1e-7, device=cuda_dev),
+                   torch.rand((508,), generator=g, device=cuda_dev)])
+    before = tops.launch_counts["sample_gather"]
+    fi, fp, items = tops.sumtree_sample_gather(ts, tt, u, storage)
+    si, sp = tops.sumtree_sample(ts, tt, u)
+    torch.cuda.synchronize()
+    assert tops.launch_counts["sample_gather"] == before + 1
+    assert torch.equal(fi, si) and torch.equal(fp, sp)
+    for k, buf in storage.items():
+        assert same_bytes(items[k], buf[si.clamp(0, buf.shape[0] - 1)]), k
 
 
 FLASH_CASES = [

@@ -3,14 +3,18 @@
 
     python3 tools/replay_mutants.py
 
-For each mutant below, copies ``src/repro_torch`` and
-``tests/test_torch_kernels_cuda.py`` into ``build/mutants/<name>/``,
-applies one edit to the descent (``csrc/descend.cuh``, which the sample
-and fused sample+gather kernels share) or to the gather
-(``csrc/gather.cu``) there, builds the kernels from the copy and runs the
-replay cases of the CUDA test file (every case but the flash ones: the
-sample under ``parity.sample_ties``, the gathers and the fused kernel bit
-for bit, the padded-tail cascade, the split replay's launches).  A mutant
+For each mutant below, copies ``src/repro_torch``,
+``tests/test_torch_kernels_cuda.py`` and ``tests/test_torch_update_sm90.py``
+into ``build/mutants/<name>/``, applies one edit to the descent
+(``csrc/descend.cuh``, which the sample and fused sample+gather kernels
+share), the gather (``csrc/gather.cu``), the fused kernel's copy
+(``csrc/sample_gather.cu``) or the update (``csrc/sumtree_update.cu``)
+there, builds the kernels from the copy and runs the replay cases of the
+two CUDA test files (every case but the flash ones: the sample under
+``parity.sample_ties``, the gathers and the fused kernel bit for bit on
+every leaf table, the padded-tail cascade, the split replay's launches,
+the update against the plain version and bit for bit against its numpy
+emulation and against a second call).  A mutant
 must fail at least one case; the script prints how many each fails and
 exits non-zero if one survives, if an edit no longer applies, or if the
 unmutated kernels fail.  The tests run with PyTorch's expandable segments,
@@ -29,7 +33,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path("src/repro_torch/kernels/csrc")
-TEST = Path("tests/test_torch_kernels_cuda.py")
+TESTS = (Path("tests/test_torch_kernels_cuda.py"), Path("tests/test_torch_update_sm90.py"))
 
 # name → (source file in csrc, text in it, its replacement)
 MUTANTS = {
@@ -54,6 +58,27 @@ MUTANTS = {
                        "const long long rb = tab.row_bytes[j + 1];"),
     # the gather: indices not clamped into the leaf's rows
     "no-clamp": ("gather.cu", "r = r < 0 ? 0 : (r >= n ? n - 1 : r);", ""),
+    # the fused copy: a chunk's offset in its row taken from the previous
+    # leaf's first chunk
+    "fused-previous-prefix": (
+        "sample_gather.cu",
+        "const long long at = (long long)(c - leaves.first[j]) << leaves.shift[j];",
+        "const long long at = (long long)(c - leaves.first[j > 0 ? j - 1 : 0]) << leaves.shift[j];"),
+    # the update: the first writer of each leaf survives
+    "first-writer": ("sumtree_update.cu",
+                     "const bool survivor = valid && (t + 1 == n || next != leaf);",
+                     "const bool survivor = valid && (t == 0 || prev != leaf);"),
+    # the update: each run's sum reaches one entry before the run
+    "run-start-one-off": ("sumtree_update.cu", "if (lane - d >= start) v = o + v;",
+                          "if (lane - d >= start - 1) v = o + v;"),
+    # the update: the root (level 0) never written
+    "no-root": ("sumtree_update.cu", "if (end[i]) tree[lv.off[level] + anc[i]] = anc_old[i] + s[i];",
+                "if (end[i] && level > 0) tree[lv.off[level] + anc[i]] = anc_old[i] + s[i];"),
+    # the update: the old leaf read after the new value is stored (delta 0)
+    "old-after-store": ("sumtree_update.cu",
+                        "old = tree[leaf_at];\n        v = vals[key & (kChunk - 1)];",
+                        "v = vals[key & (kChunk - 1)];\n        tree[leaf_at] = v;\n"
+                        "        old = tree[leaf_at];"),
 }
 
 
@@ -64,7 +89,8 @@ def run(name: str, src: str, old: str, new: str) -> tuple[bool, int, str]:
     shutil.copytree(ROOT / "src" / "repro_torch", work / "src" / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     (work / "tests").mkdir(parents=True)
-    shutil.copy(ROOT / TEST, work / TEST)
+    for test in TESTS:
+        shutil.copy(ROOT / test, work / test)
     shutil.copy(ROOT / "pyproject.toml", work / "pyproject.toml")
     if old:
         path = work / CSRC / src
@@ -76,7 +102,7 @@ def run(name: str, src: str, old: str, new: str) -> tuple[bool, int, str]:
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "--noconftest", "-p", "no:cacheprovider",
-         "-m", "cuda", "-k", "not flash", str(TEST)],
+         "-m", "cuda", "-k", "not flash", *map(str, TESTS)],
         cwd=work, env=env, capture_output=True, text=True, timeout=900)
     summary = (proc.stdout.strip().splitlines() or ["(no output)"])[-1]
     failed = sum(int(n) for n in re.findall(r"(\d+) (?:failed|error)", summary))
