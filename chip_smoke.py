@@ -119,7 +119,34 @@ failure and prints no result):
                 bounds, their plain versions and one SDPA backward call that
                 computes all three gradients, with the TFLOP/s reached on the
                 work the bounds count (3 and 4 products a pair) and on the
-                products the kernels do (the hi/lo splits: 4 and 7).
+                products the kernels do (the hi/lo splits: 4 and 7);
+ 15. restart  — tests/test_system.py's checkpoint restart on the card:
+                CartPole x 4, DQN, capacity 1,024 K=8, batch 32, 30
+                iterations; the agent's state saved, clobbered with NaN and
+                restored bit for bit (parameters, target, Adam count and
+                moments, step), and one more step with a finite loss;
+ 16. async    — AsyncExecutor on CartPole with the settings of
+                tests/test_async_executor.py: (a) publish interval 1 against
+                FusedExecutor over 40 iterations from one seed, every metric
+                and every state tensor bit for bit; (b) publish interval 4
+                over 12 iterations, the ages [1, 2, 3, 0] x 3 and the acting
+                copy byte-identical between publishes; (c) publish interval
+                4 for 1,400 iterations at the main path's settings: return
+                above 30, one descent and one gather launch per learner
+                call, no host sync in a step, a profiler window;
+ 17. actor-critic — DDPG, TD3 and SAC on Pendulum x 8 at the settings of
+                benchmarks/fig10_scalability.py (hidden (256, 256), capacity
+                50,000 K=128, batch 64, warmup 64, epsilon 0.1), 600
+                iterations each: finite losses and priorities, actions in
+                [-2, 2], one descent and one gather launch per learner call,
+                no host sync in a step; then the descent, the gathers and
+                the fused kernel against their plain versions on the run's
+                own tree and 12/4/4/12/4-byte rows; one learn step on the
+                card against the same step on the CPU from the same state,
+                batch and noise (rtol 1e-4, atol 1e-5 on the loss, |TD| and
+                every parameter and target tensor); the mean return and
+                iterations per second (not gated) and a profiler window;
+                then the sampling chain on Pendulum's five leaves.
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration; phase
@@ -313,6 +340,17 @@ def replay_storage(torch, dev, gen, capacity: int, token: bool = False) -> dict:
     }
 
 
+def pendulum_storage(torch, dev, gen, capacity: int) -> dict:
+    """Pendulum's five transition leaves: rows of 12, 4, 4, 12 and 4 bytes."""
+    return {
+        "obs": torch.randn((capacity, 3), generator=gen, device=dev),
+        "action": torch.rand((capacity, 1), generator=gen, device=dev) * 4 - 2,
+        "reward": -16 * torch.rand((capacity,), generator=gen, device=dev),
+        "next_obs": torch.randn((capacity, 3), generator=gen, device=dev),
+        "done": (torch.rand((capacity,), generator=gen, device=dev) < 0.005).float(),
+    }
+
+
 def nonfinite_storage(torch, dev, gen, capacity: int, drawn) -> dict:
     """f32 rows with inf, -inf and NaN in rows that are not drawn and in one
     that is (``drawn[0]``), and an int32 leaf of 2^24 + 1 and above (which
@@ -369,7 +407,7 @@ CHAIN_ARMS = ("sample + one-leaf gathers", "sample + gather_items", "fused sampl
 
 
 def sampling_chain(torch, dev, gen, capacity: int, batch: int, token: bool = False,
-                   names=CHAIN_ARMS) -> dict:
+                   names=CHAIN_ARMS, storage=None) -> dict:
     """A learner call's sampling, timed as one unit (``device_ms`` and
     ``call_ms``) in four arms, in turns (each twice, in order and then in
     reverse; the mean of the two): the descent and one one-leaf gather
@@ -377,12 +415,14 @@ def sampling_chain(torch, dev, gen, capacity: int, batch: int, token: bool = Fal
     the descent and one ``gather_items``; the fused kernel; and the library
     yardstick, ``torch.searchsorted`` on the leaves' CDF (built outside the
     timed call, its last entry inf so every draw lands on a leaf) and one
-    ``index_select`` per leaf.  ``names`` picks some of the arms."""
+    ``index_select`` per leaf.  ``names`` picks some of the arms;
+    ``storage`` replaces CartPole's (or the token replay's) leaves."""
     from repro_torch.core import sumtree
     from repro_torch.kernels import ops
     spec, tree = replay_tree(torch, dev, gen, capacity, 128)
-    storage = {k: v for k, v in replay_storage(torch, dev, gen, capacity, token).items()
-               if k != "frames"}
+    if storage is None:
+        storage = {k: v for k, v in replay_storage(torch, dev, gen, capacity, token).items()
+                   if k != "frames"}
     leaves = list(storage.values())
     u = torch.rand((batch,), generator=gen, device=dev)
     cdf = torch.cumsum(sumtree.leaves(spec, tree), 0)
@@ -420,17 +460,18 @@ def sampling_chain(torch, dev, gen, capacity: int, batch: int, token: bool = Fal
 
 
 def run_arm(torch, iterations: int, fused: bool, lazy: bool, capacity: int = 20_000,
-            warmup: int = 400, seed: int = 1):
+            warmup: int = 400, seed: int = 1, publish_interval: int = 0):
     """FusedExecutor on CUDA with the settings of tests/test_system.py
-    (CartPole × 8 envs, DQN (4, 256, 256, 2), K=128, batch 64, ε 0.2):
-    ``iterations`` counted iterations after ``init`` → (executor, state,
-    history, seconds, kernel launches of the run, calls of the run: each
-    tree op's and ``learner_calls``).  Three more steps run with every
-    synchronizing CUDA call an error."""
+    (CartPole × 8 envs, DQN (4, 256, 256, 2), K=128, batch 64, ε 0.2), or
+    with ``publish_interval`` > 0 the AsyncExecutor on a parameter copy
+    republished every ``publish_interval`` iterations: ``iterations``
+    counted iterations after ``init`` → (executor, state, history, seconds,
+    kernel launches of the run, calls of the run: each tree op's and
+    ``learner_calls``).  Three more steps run with every synchronizing
+    CUDA call an error."""
     from repro_torch.agents.dqn import DQNConfig, make_dqn
     from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
     from repro_torch.envs.classic import make_vec
-    from repro_torch.kernels import ops
     from repro_torch.quickstart import transition_example
     from repro_torch.runtime.executors import FusedExecutor
     from repro_torch.runtime.loop import LoopConfig
@@ -442,18 +483,37 @@ def run_arm(torch, iterations: int, fused: bool, lazy: bool, capacity: int = 20_
         transition_example(spec_env), device="cuda")
     check(replay.ops.name == "cuda", "the CUDA device did not default to the kernels")
     cfg = LoopConfig(batch_size=64, warmup=warmup, epsilon=0.2, lazy_replay=lazy)
-    ex = FusedExecutor(make_dqn(spec_env, DQNConfig()), replay, env_fn, cfg, n_envs=8)
-    state = ex.init(seed)
+    agent = make_dqn(spec_env, DQNConfig())
+    if publish_interval:
+        # lazily: tools/replay_ab.py also runs this on older packages, which lack it
+        from repro_torch.runtime.executors import AsyncExecutor
+        ex = AsyncExecutor(agent, replay, env_fn, cfg, n_envs=8,
+                           publish_interval=publish_interval)
+    else:
+        ex = FusedExecutor(agent, replay, env_fn, cfg, n_envs=8)
+    return (ex, *counted_run(torch, ex, ex.init(seed), iterations,
+                             f"fused={fused}, lazy={lazy}, publish_interval={publish_interval}"))
+
+
+def counted_run(torch, ex, state, iterations: int, what: str):
+    """``iterations`` iterations of ``ex`` from ``state`` with the kernels'
+    launch counts set to 0 just before and read just after → (state,
+    history, seconds, launches, calls: each tree op's and
+    ``learner_calls``); then three steps with every synchronizing CUDA
+    call an error."""
+    from repro_torch.kernels import ops
+
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    before = dict(replay.ops.counts)
+    before = dict(ex.replay.ops.counts)
+    learned = state.learn_steps
     t0 = time.perf_counter()
     state, hist = ex.run(state, iterations)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = dict(ops.launch_counts)
-    calls = {k: v - before.get(k, 0) for k, v in replay.ops.counts.items()}
-    calls["learner_calls"] = state.learn_steps
+    calls = {k: v - before.get(k, 0) for k, v in ex.replay.ops.counts.items()}
+    calls["learner_calls"] = state.learn_steps - learned
     # the step must never wait on the device: a few more steps with
     # every synchronizing CUDA call turned into an error
     torch.cuda.set_sync_debug_mode("error")
@@ -461,10 +521,10 @@ def run_arm(torch, iterations: int, fused: bool, lazy: bool, capacity: int = 20_
         for _ in range(3):
             state, _ = ex.step(state)
     except RuntimeError as e:
-        fail(f"a loop step (fused={fused}, lazy={lazy}) synchronized: {e}")
+        fail(f"a loop step ({what}) synchronized: {e}")
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    return ex, state, hist, secs, counts, calls
+    return state, hist, secs, counts, calls
 
 
 def profile_loop(torch, ex, state, iterations: int = 20):
@@ -844,6 +904,7 @@ def train_phases(torch, dev, card: str) -> list:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.agents import token_dqn
+    from repro_torch.agents.base import state_tensors
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.core import sumtree
@@ -1034,9 +1095,9 @@ def train_phases(torch, dev, card: str) -> list:
         t0 = time.perf_counter()
         fresh = token_dqn.init_train_state(res["cfg"], res["tcfg"],
                                            torch.Generator(device=dev).manual_seed(SEED + 99))
-        got = mgr.restore(6, token_dqn.state_tensors(fresh))
+        got = mgr.restore(6, state_tensors(fresh))
         restore_s = time.perf_counter() - t0
-        saved = token_dqn.state_tensors(state)
+        saved = state_tensors(state)
         same = sum(bool(torch.equal(t, saved[k])) for k, t in got.items())
         check(same == len(saved) == len(got), f"{len(got) - same} of {len(got)} tensors did not "
               f"restore bit for bit")
@@ -1191,6 +1252,290 @@ def train_phases(torch, dev, card: str) -> list:
                                 "at_32x4096_ms": times[earlier][4096]["ms"]}
         entries.append(entry)
     return entries, train_counts
+
+
+# -- phases 15-17: the restart, the async loop and the actor-critics ---------
+
+# one actor-critic learn step on the card against the same step on the CPU
+LEARN_RTOL, LEARN_ATOL = 1e-4, 1e-5
+PENDULUM_ITERS = 600
+ASYNC_ITERS = 1400
+
+
+def differing(torch, a: dict, b: dict) -> list:
+    """Keys of ``a`` whose tensor differs from ``b``'s in any bit."""
+    return [k for k in a if not same_bytes(torch, a[k].reshape(-1), b[k].reshape(-1))
+            or a[k].shape != b[k].shape]
+
+
+def restart_phase(torch, dev, card: str) -> dict:
+    """Phase 15: tests/test_system.py's checkpoint restart on the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.agents.base import state_tensors
+    from repro_torch.agents.dqn import DQNConfig, make_dqn
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.kernels import ops
+    from repro_torch.quickstart import transition_example
+    from repro_torch.runtime import loop
+
+    spec, v_reset, v_step = make_vec("cartpole", 4)
+    agent = make_dqn(spec, DQNConfig())
+    replay = PrioritizedReplay(ReplayConfig(capacity=1024, fanout=8),
+                               transition_example(spec), device="cuda")
+    cfg = loop.LoopConfig(batch_size=32, warmup=64, epsilon=0.2)
+    step = loop.make_step(agent, replay, v_step, cfg, 4)
+    st = loop.init_loop_state(agent, replay, v_reset, 2, 4)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for _ in range(30):
+        st, _ = step(st)
+    torch.cuda.synchronize()
+    counts = dict(ops.launch_counts)
+    check(st.learn_steps > 0 and counts.get("sumtree_sample") == counts.get("gather")
+          == st.learn_steps, f"restart run: {st.learn_steps} learner calls, launches {counts}")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    try:
+        mgr = CheckpointManager(ckpt, keep=2)
+        tensors = state_tensors(st.agent)
+        saved = {k: t.detach().clone() for k, t in tensors.items()}
+        mgr.save(30, tensors)
+        with torch.no_grad():       # clobber every tensor of the state in place
+            for t in tensors.values():
+                t.fill_(float("nan") if t.is_floating_point() else 7)
+        got_step, restored = mgr.restore_latest(state_tensors(st.agent))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    kinds = {k.split("/")[0] + ("/" + k.split("/")[1] if k.startswith("opt/") else "")
+             for k in saved}
+    bad = differing(torch, restored, saved)
+    check(got_step == 30 and sorted(restored) == sorted(saved) and not bad
+          and kinds == {"params", "target", "opt/count", "opt/m", "opt/v", "step"}
+          and all(t.device.type == "cuda" for t in restored.values()),
+          f"restart: step {got_step}, {len(bad)} tensors not bit for bit ({bad[:4]}), "
+          f"kinds {sorted(kinds)}")
+    learned = st.learn_steps
+    st, metrics = step(st)
+    loss = float(metrics["loss"])
+    check(math.isfinite(loss) and st.learn_steps > learned,
+          f"the step after the restore: loss {loss}, learner calls {learned} -> {st.learn_steps}")
+    print(f"[restart] CartPole x 4, DQN, capacity 1,024 K=8, batch 32: 30 iterations "
+          f"({learned} learner calls, launches {counts}) on the card; {len(saved)} tensors "
+          f"(params, target, Adam count and moments, step) saved, clobbered with NaN and "
+          f"restored bit for bit; the next step's loss {loss:.6g} | {card}", flush=True)
+    return {"iterations": 30, "learner_calls": learned, "tensors": len(saved),
+            "launches": counts, "loss_after_restore": loss}
+
+
+def async_phase(torch, dev, card: str) -> dict:
+    """Phase 16: AsyncExecutor on CartPole, with the settings of
+    tests/test_async_executor.py."""
+    from repro_torch.agents.base import state_tensors
+    from repro_torch.agents.dqn import DQNConfig, make_dqn
+    from repro_torch.core import sumtree
+    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.quickstart import transition_example
+    from repro_torch.runtime.executors import AsyncExecutor, FusedExecutor
+    from repro_torch.runtime.loop import LoopConfig
+
+    env_fn = lambda n: make_vec("cartpole", n)  # noqa: E731
+    spec, _, _ = env_fn(1)
+    agent = make_dqn(spec, DQNConfig())
+
+    def mk_replay():
+        return PrioritizedReplay(ReplayConfig(capacity=1024, fanout=8),
+                                 transition_example(spec), device="cuda")
+
+    # (a) publish_interval 1 against the fused executor, bit for bit
+    cfg = LoopConfig(batch_size=32, warmup=8, epsilon=0.2)
+    s1, h1 = FusedExecutor(agent, mk_replay(), env_fn, cfg, n_envs=4, scan_chunk=16).train(40, 7)
+    s2, h2 = AsyncExecutor(agent, mk_replay(), env_fn, cfg, n_envs=4, publish_interval=1,
+                           scan_chunk=16).train(40, 7)
+    bad_metrics = differing(torch, h1, h2)
+    bad_state = differing(torch, state_tensors(s1.agent), state_tensors(s2.agent))
+    copy = {f"params/{n}": p for n, p in s2.actor_params.named_parameters()}
+    check(not bad_metrics and not bad_state and int(h1["learn_steps"][-1]) > 0
+          and s2.params_age == 0
+          and not differing(torch, copy, state_tensors(s2.agent)),
+          f"async at publish_interval 1 is not the fused run bit for bit: metrics "
+          f"{bad_metrics}, state {bad_state[:4]}, age {s2.params_age}")
+    # (b) publish_interval 4: ages and a frozen copy between publishes
+    ex = AsyncExecutor(agent, mk_replay(), env_fn, LoopConfig(batch_size=32, warmup=0,
+                       epsilon=0.2), n_envs=4, publish_interval=4, scan_chunk=1)
+    state = ex.init(3)
+    ages, frozen = [], []
+    prev = [p.clone() for p in state.actor_params.parameters()]
+    for _ in range(12):
+        state, _ = ex.run_chunk(state)
+        now = list(state.actor_params.parameters())
+        ages.append(state.params_age)
+        frozen.append(all(same_bytes(torch, a, b) for a, b in zip(prev, now)))
+        prev = [p.clone() for p in now]
+    check(ages == [1, 2, 3, 0] * 3 and frozen == [age != 0 for age in ages],
+          f"publish_interval 4: ages {ages}, copy unchanged {frozen}")
+    print(f"[async] (a) publish_interval 1 vs FusedExecutor, 40 iterations from seed 7: "
+          f"{len(h1)} metrics and {len(state_tensors(s1.agent))} state tensors bit for bit, "
+          f"the copy synced at age 0; (b) publish_interval 4, 12 iterations: ages {ages}, the "
+          f"copy byte-identical between publishes | {card}", flush=True)
+    del s1, s2, ex, state
+    # (c) publish_interval 4 at the main path's settings
+    ex, st, hist, secs, counts, calls = run_arm(torch, ASYNC_ITERS, fused=False, lazy=True,
+                                                publish_interval=4)
+    final = float(hist["mean_episode_return"][-1])
+    check(final > 30.0, f"async publish_interval 4: return {final} does not beat 30")
+    check(counts.get("sumtree_sample", 0) == counts.get("gather", 0) == calls["learner_calls"] > 0,
+          f"async arm: launches {counts} for {calls['learner_calls']} learner calls")
+    check(bool(torch.isfinite(hist["loss"]).all()), "non-finite loss on the async arm")
+    check(sumtree.check_invariant(ex.replay.spec, ex.replay.flush(st.replay).tree),
+          "tree invariant broken after the async arm")
+    rate = {"iterations": ASYNC_ITERS, "seconds": secs, "env_steps_per_s": st.env_steps / secs,
+            "learner_calls_per_s": calls["learner_calls"] / secs,
+            "wall_us_per_iteration": secs / ASYNC_ITERS * 1e6, "final_return": final,
+            "launches": counts}
+    print(f"[async arm] publish_interval 4, {ASYNC_ITERS} iterations in {secs:.2f} s: "
+          f"{rate['wall_us_per_iteration']:,.0f} us an iteration, {rate['env_steps_per_s']:,.1f} "
+          f"env-steps/s, final return {final:.1f}, launches {counts} | {card}", flush=True)
+    _, rate["profile"] = profile_loop(torch, ex, st)
+    print(profile_line("async arm", rate["profile"]), flush=True)
+    print(f"[async rate] {json.dumps(rate)}", flush=True)
+    return rate
+
+
+def copy_state(torch, agent, state, device):
+    """A copy of an agent's state on ``device``: a fresh ``init`` there
+    with every tensor of ``state`` copied in (the learn generators
+    excepted)."""
+    from repro_torch.agents.base import state_tensors
+    fresh = agent.init(torch.Generator(device=device).manual_seed(0))
+    skip = {f"extra/{i}" for i, x in enumerate(fresh.extra) if isinstance(x, torch.Generator)}
+    src = state_tensors(state)
+    with torch.no_grad():
+        for k, t in state_tensors(fresh).items():
+            if k not in skip:
+                t.copy_(src[k])
+    return fresh
+
+
+def actor_critic_phase(torch, dev, card: str, iterations: int = PENDULUM_ITERS) -> dict:
+    """Phase 17: DDPG, TD3 and SAC on Pendulum at the settings of
+    benchmarks/fig10_scalability.py with 8 envs."""
+    from repro_torch.agents import ddpg, sac, td3
+    from repro_torch.agents.base import state_tensors
+    from repro_torch.core import sumtree
+    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.kernels import ops, parity
+    from repro_torch.quickstart import transition_example
+    from repro_torch.runtime.executors import FusedExecutor
+    from repro_torch.runtime.loop import LoopConfig
+
+    makers = {"ddpg": lambda s: ddpg.make_ddpg(s, ddpg.DDPGConfig()),
+              "td3": lambda s: td3.make_td3(s, td3.TD3Config()),
+              "sac": lambda s: sac.make_sac(s, sac.SACConfig())}
+    env_fn = lambda n: make_vec("pendulum", n)  # noqa: E731
+    spec, _, _ = env_fn(1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    out = {}
+    for name, make in makers.items():
+        agent = make(spec)
+        replay = PrioritizedReplay(ReplayConfig(capacity=50_000, fanout=128),
+                                   transition_example(spec), device="cuda")
+        cfg = LoopConfig(batch_size=64, warmup=64, epsilon=0.1)
+        # one chunk an iteration: the history keeps every iteration's loss
+        ex = FusedExecutor(agent, replay, env_fn, cfg, n_envs=8, scan_chunk=1)
+        st, hist, secs, counts, calls = counted_run(torch, ex, ex.init(SEED), iterations, name)
+        learner_calls = calls["learner_calls"]
+        check(counts.get("sumtree_sample", 0) == counts.get("gather", 0) == learner_calls > 0
+              and not counts.get("sample_gather") and not counts.get("sumtree_update"),
+              f"{name}: launches {counts} for {learner_calls} learner calls")
+        check(bool(torch.isfinite(hist["loss"]).all()), f"{name}: a non-finite loss")
+        rst = replay.flush(st.replay)
+        check(bool(torch.isfinite(rst.tree).all()) and bool(torch.isfinite(rst.max_priority))
+              and sumtree.check_invariant(replay.spec, rst.tree),
+              f"{name}: the priorities (|TD|) are not finite or the tree is broken")
+        acts = rst.storage["action"][:rst.count]
+        check(acts.shape == (rst.count, 1) and acts.dtype == torch.float32
+              and bool((acts.abs() <= 2.0).all()),
+              f"{name}: stored actions {tuple(acts.shape)} {acts.dtype} outside [-2, 2]")
+        # the replay kernels on the run's own tree and 12/4/4/12/4-byte rows
+        rows = {k: tuple(v.shape[1:]) for k, v in rst.storage.items()}
+        for draws in (64, 65_536):
+            u = torch.rand((draws,), generator=gen, device=dev)
+            ki, kp = ops.sumtree_sample(replay.spec, rst.tree, u)
+            pi, pp = sumtree.sample(replay.spec, rst.tree, u)
+            fi, fp, fused = ops.sumtree_sample_gather(replay.spec, rst.tree, u, rst.storage)
+            items = ops.gather_items(rst.storage, ki)
+            torch.cuda.synchronize()
+            for which, idx in (("sumtree_sample", ki), ("sample_gather", fi)):
+                rep = parity.sample_ties(replay.spec, rst.tree, u, idx, pi)
+                check(rep.ok, f"{name}: {which} on the run's tree, {draws} draws: {rep}")
+            agree = ki == pi
+            torch.testing.assert_close(kp[agree], pp[agree], rtol=1e-5, atol=0)
+            check(torch.equal(fi, ki) and torch.equal(fp, kp),
+                  f"{name}: sample_gather's indices differ from the descent's")
+            for key, buf in rst.storage.items():
+                check(same_bytes(torch, ops.prioritized_gather(buf, ki), buf[ki])
+                      and same_bytes(torch, items[key], buf[ki])
+                      and same_bytes(torch, fused[key], buf[ki]),
+                      f"{name}: the run's {key} rows {tuple(buf.shape)} through the gathers")
+        # one learn step on the card against the same step on the CPU
+        _, batch, is_w = replay.sample(rst, gen, cfg.batch_size)
+        cpu_gen = torch.Generator().manual_seed(SEED + 18)
+        noise = {"ddpg": None, "td3": torch.randn((64, 1), generator=cpu_gen),
+                 "sac": tuple(torch.randn((64, 1), generator=cpu_gen) for _ in range(2))}[name]
+        results = []            # the card's, then the CPU's
+        for where in (dev, torch.device("cpu")):
+            kw = {} if noise is None else {"noise": (
+                noise.to(where) if name == "td3" else tuple(x.to(where) for x in noise))}
+            s_copy = copy_state(torch, agent, st.agent, where)
+            s_copy, m, td = agent.learn(s_copy, {k: v.to(where) for k, v in batch.items()},
+                                        is_w.to(where), **kw)
+            results.append((s_copy, m, td))
+        (cs, cm, ctd), (hs, hm, htd) = results
+        # every tensor the step writes (params, target, Adam count and moments,
+        # step, SAC's log_alpha and its Adam state); not the generators' states
+        hts = state_tensors(hs)
+        pairs = [("loss", cm["loss"], hm["loss"]), ("|td|", ctd, htd)] + [
+            (k, t, hts[k]) for k, t in state_tensors(cs).items() if t.dtype != torch.uint8]
+        worst = {}
+        for key, a, b in pairs:
+            a, b = a.detach().cpu(), b.detach()
+            far = ~torch.isclose(a, b, rtol=LEARN_RTOL, atol=LEARN_ATOL)
+            worst[key] = (int(far.sum()), float((a - b).abs().max()))
+        bad = {k: v for k, v in worst.items() if v[0]}
+        check(not bad, f"{name}: a learn step on the card differs from the CPU's beyond rtol "
+              f"{LEARN_RTOL} / atol {LEARN_ATOL}: {bad}")
+        final = float(hist["mean_episode_return"][-1])
+        res = {"iterations": iterations, "seconds": secs, "iterations_per_s": iterations / secs,
+               "wall_us_per_iteration": secs / iterations * 1e6,
+               "env_steps_per_s": st.env_steps / secs, "learner_calls": learner_calls,
+               "mean_return": final, "launches": counts, "rows": rows,
+               "card_vs_cpu_tensors": len(pairs),
+               "card_vs_cpu_max_abs": max(v[1] for v in worst.values()),
+               "card_vs_cpu_grad_norm": [float(cm["grad_norm"]), float(hm["grad_norm"])]}
+        print(f"[actor-critic] {name} on Pendulum x 8 (hidden 256, 256), capacity 50,000 K=128, "
+              f"batch 64: {iterations} iterations in {secs:.2f} s ({res['iterations_per_s']:.2f} "
+              f"iterations/s, {res['wall_us_per_iteration']:,.0f} us each), {learner_calls} "
+              f"learner calls, mean return {final:.1f}; launches {counts}; rows {rows}; kernels "
+              f"vs plain on the run's tree and rows hold; one learn step card vs CPU on loss, "
+              f"|TD| and {len(pairs) - 2} state tensors within rtol "
+              f"{LEARN_RTOL} / atol {LEARN_ATOL} (max |diff| {res['card_vs_cpu_max_abs']:.3g}) "
+              f"| {card}", flush=True)
+        _, res["profile"] = profile_loop(torch, ex, st)
+        print(profile_line(f"{name} on Pendulum", res["profile"]), flush=True)
+        out[name] = res
+        del ex, st, hist, rst, replay, results
+    chain = sampling_chain(torch, dev, gen, 50_000, 64,
+                           storage=pendulum_storage(torch, dev, gen, 50_000))
+    print(f"[sampling chain] Pendulum's 5 leaves (12/4/4/12/4 bytes), 50,000/K=128/B=64: "
+          + "; ".join(f"{n} device {a['device_ms'] * 1e3:.2f} us, call {a['call_ms'] * 1e3:.1f} us"
+                      for n, a in chain["arms"].items()) + f" | {card}", flush=True)
+    print(f"[actor-critic rate] {json.dumps(out)}", flush=True)
+    return {"agents": out, "chain": chain}
 
 
 # -- the phases ----------------------------------------------------------------
@@ -1574,6 +1919,19 @@ def main() -> None:
     for entry in kernels:       # the replay kernels and the forward on the training path
         entry["train_launches"] = train_counts.get(entry["name"], 0)
     kernels += bwd_entries
+
+    # 15-17. the restart, the async loop and the actor-critics; each path's
+    # launches counted from 0
+    restart = restart_phase(torch, dev, card)
+    async_rate = async_phase(torch, dev, card)
+    actor_critic = actor_critic_phase(torch, dev, card)
+    for entry in kernels:
+        entry["restart_launches"] = restart["launches"].get(entry["name"], 0)
+        entry["async_launches"] = async_rate["launches"].get(entry["name"], 0)
+        entry["pendulum_launches"] = {name: r["launches"].get(entry["name"], 0)
+                                      for name, r in actor_critic["agents"].items()}
+        if entry["name"] == "gather":
+            entry["sampling_chain"]["Pendulum 50,000/B=64, 5 leaves"] = actor_critic["chain"]
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

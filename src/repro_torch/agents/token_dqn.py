@@ -62,19 +62,6 @@ def init_train_state(cfg: ModelConfig, tcfg: TokenDQNConfig, gen: torch.Generato
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
-    """Every tensor of the state by name (the checkpoint's keys): the
-    same tensors, not copies."""
-    names = [n for n, _ in state.params.named_parameters()]
-    out = {f"params/{n}": p for n, p in state.params.named_parameters()}
-    out.update({f"target/{n}": p for n, p in state.target.named_parameters()})
-    out["opt/count"] = state.opt.count
-    out.update({f"opt/m/{n}": m for n, m in zip(names, state.opt.m)})
-    out.update({f"opt/v/{n}": v for n, v in zip(names, state.opt.v)})
-    out["step"] = state.step
-    return out
-
-
 def _td_loss(cfg: ModelConfig, tcfg: TokenDQNConfig, params: backbone.Backbone,
              target: backbone.Backbone, mb: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -13,8 +13,8 @@ atomic-rename npz + manifest.
   * keep-last-k GC bounds disk usage; ``extra=`` byte blobs commit inside
     the same rename and read back with ``read_extra``.
 
-What is saved is a flat dict of named tensors (``agents.token_dqn.
-state_tensors`` gives a ``TrainState``'s).  bf16 has no numpy dtype here,
+What is saved is a flat dict of named tensors (``agents.base.
+state_tensors`` gives an ``AgentState``'s or a ``TrainState``'s).  bf16 has no numpy dtype here,
 so a bf16 tensor is stored as its uint16 bit pattern with ``"bfloat16"``
 in the manifest, and restored bit for bit.  Elastic resharding
 (``checkpoint/elastic.py``) is not ported.

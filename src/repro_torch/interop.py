@@ -12,10 +12,12 @@ moments) are transposed.
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.agents.base import AgentState, MLP
 from repro_torch.agents.token_dqn import TrainState
@@ -49,16 +51,42 @@ def mlp_from_numpy(layers: Sequence[dict], device="cpu") -> MLP:
     return net
 
 
-def agent_state_from_numpy(state, device="cpu") -> AgentState:
-    """Reference ``AgentState`` (MLP params/target, ``AdamState`` opt) →
-    the port's."""
-    params = mlp_from_numpy(state.params, device)
-    target = mlp_from_numpy(state.target, device).requires_grad_(False)
-    opt = AdamState(count=_t(state.opt.count, device).to(torch.int32),
-                    m=[_t(x, device) for x in flatten_mlp(state.opt.m)],
-                    v=[_t(x, device) for x in flatten_mlp(state.opt.v)])
-    return AgentState(params=params, target=target, opt=opt,
-                      step=_t(state.step, device).to(torch.int32))
+def _adam_from_numpy(opt, flatten, device) -> AdamState:
+    return AdamState(count=_t(opt.count, device).to(torch.int32),
+                     m=[_t(x, device) for x in flatten(opt.m)],
+                     v=[_t(x, device) for x in flatten(opt.v)])
+
+
+def agent_state_from_numpy(state, device="cpu",
+                           generator_seed: Optional[int] = None) -> AgentState:
+    """Reference ``AgentState`` → the port's.  Its params are an MLP (DQN)
+    or a dict of MLPs (DDPG, TD3, SAC), which becomes an
+    ``nn.ModuleDict`` in sorted key order with the Adam moments in the
+    same order.  SAC's ``extra`` (log-alpha, its ``AdamState``) is carried
+    over.  ``generator_seed`` appends the learn-time ``torch.Generator``
+    that the port's TD3 and SAC keep in ``extra`` (``td3.LEARN_SEED``,
+    ``sac.LEARN_SEED``), which the reference has no counterpart of."""
+    if isinstance(state.params, dict):
+        keys = sorted(state.params)
+
+        def build(tree):
+            return nn.ModuleDict({k: mlp_from_numpy(tree[k], device) for k in keys})
+
+        def flatten(tree):
+            return [x for k in keys for x in flatten_mlp(tree[k])]
+    else:
+        build, flatten = functools.partial(mlp_from_numpy, device=device), flatten_mlp
+    extra = ()
+    if len(state.extra):
+        log_alpha, alpha_opt = state.extra
+        extra = (_t(log_alpha, device).to(torch.float32),
+                 _adam_from_numpy(alpha_opt, lambda x: [x], device))
+    if generator_seed is not None:
+        extra += (torch.Generator(device=device).manual_seed(generator_seed),)
+    return AgentState(params=build(state.params),
+                      target=build(state.target).requires_grad_(False),
+                      opt=_adam_from_numpy(state.opt, flatten, device),
+                      step=_t(state.step, device).to(torch.int32), extra=extra)
 
 
 def replay_state_from_numpy(state, device="cpu") -> ReplayState:

@@ -39,6 +39,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.agents import token_dqn
+from repro_torch.agents.base import state_tensors
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
@@ -151,7 +152,7 @@ def run(args: argparse.Namespace) -> dict:
     rst = replay.init()
 
     mgr = CheckpointManager(args.ckpt_dir, keep=2)
-    start, _ = mgr.restore_latest(token_dqn.state_tensors(state))
+    start, _ = mgr.restore_latest(state_tensors(state))
     if start is not None:
         print(f"resumed from step {start} (fault-tolerant restart)", flush=True)
 
@@ -180,9 +181,9 @@ def run(args: argparse.Namespace) -> dict:
               f"{rec['q_mean']:.4f} reward {rec['reward']:.3f} (optimal "
               f"{optimal():.3f})", flush=True)
         if args.ckpt_every and it and it % args.ckpt_every == 0:
-            mgr.save_async(it, token_dqn.state_tensors(state))
+            mgr.save_async(it, state_tensors(state))
     mgr.wait()
-    mgr.save(args.steps, token_dqn.state_tensors(state))
+    mgr.save(args.steps, state_tensors(state))
     # the last step's priorities reach the interior at this flush
     root_before = float(rst.tree[0])
     rst = replay.flush(rst)

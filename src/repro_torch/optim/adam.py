@@ -22,7 +22,7 @@ fused ``add(alpha=)``, which rounds the product and the sum as one.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -112,13 +112,17 @@ def update(grads: Sequence[torch.Tensor], state: AdamState,
 
 @torch.no_grad()
 def ema_update(target: Sequence[torch.Tensor], online: Sequence[torch.Tensor],
-               tau: float) -> None:
+               tau: float, where: Optional[torch.Tensor] = None) -> None:
     """Polyak target update ``t ← t·(1-τ) + o·τ``, in place on ``target``:
     both products and their sum in f32, rounded once into the target's
-    dtype, as ``repro.optim.adam.ema_update``."""
+    dtype, as ``repro.optim.adam.ema_update``.  With ``where`` (a bool
+    scalar tensor) a target moves only where it is true and otherwise
+    keeps every bit, as the reference's ``jnp.where(cond, ema, t)``."""
     target, online = list(target), list(online)
     for group in _groups(target):
         t = [target[i] for i in group]
         new = torch._foreach_mul([x.float() for x in t], 1 - tau)
         torch._foreach_add_(new, torch._foreach_mul([online[i].float() for i in group], tau))
+        if where is not None:
+            new = [torch.where(where, n, x) for n, x in zip(new, t)]
         torch._foreach_copy_(t, new)

@@ -1,6 +1,6 @@
-"""Executor layer — port of ``repro.runtime.executors`` (the fused
-single-device executor; the sharded and async executors are not ported
-yet).
+"""Executor layer — port of ``repro.runtime.executors``: the fused
+single-device executor and the async executor without a mesh (the
+sharded executor and the mesh paths are not ported yet).
 
 ``FusedExecutor`` runs the composed step (runtime/loop.py) in chunks of
 ``scan_chunk`` iterations: a Python loop takes the place of the
@@ -79,8 +79,9 @@ class Executor:
 class FusedExecutor(Executor):
     """All actors, the buffer and the learners in one process on one
     device (the paper's single-node regime).  Runs on CUDA unless
-    ``device="cpu"``; the replay must live on the same device.
-    ``publish_interval`` (the async double buffer) must be 0."""
+    ``device="cpu"``; the replay must live on the same device."""
+
+    publish_interval = 0   # the synchronous loop; AsyncExecutor sets P ≥ 1
 
     def __init__(
         self,
@@ -90,7 +91,6 @@ class FusedExecutor(Executor):
         cfg: LoopConfig,
         n_envs: int,
         scan_chunk: int = 64,
-        publish_interval: int = 0,
         device: DeviceLike = "cuda",
     ):
         self.device = resolve_device(device)
@@ -106,8 +106,43 @@ class FusedExecutor(Executor):
         self.schedule = RatioSchedule.from_config(cfg, n_envs)
         self.step = make_step(agent, replay, self._v_step, cfg, n_envs,
                               schedule=self.schedule,
-                              publish_interval=publish_interval)
+                              publish_interval=self.publish_interval)
 
     def init(self, seed: int) -> LoopState:
         return init_loop_state(self.agent, self.replay, self._v_reset, seed,
-                               self.n_envs)
+                               self.n_envs, double_buffer=self.publish_interval > 0)
+
+
+class AsyncExecutor(FusedExecutor):
+    """Bounded-staleness backend: decoupled actor and learner parameter
+    clocks.  Actors act on a delayed copy of the online module
+    (``LoopState.actor_params``), republished from the fresh learner
+    params every ``publish_interval`` iterations; learners update the
+    fresh params at every scheduled learn event.
+
+    Without a mesh this is the fused program with the double buffer
+    (``runtime/loop.py::make_step``).  At ``publish_interval=1`` the copy
+    is republished after every iteration and the run is
+    ``FusedExecutor``'s bit for bit from the same seed.  The mesh and its
+    knobs (``max_staleness``, ``mesh``, ``compress_pod_reduce``,
+    ``intra_pod_dtype``, ``overlap_pod_reduce``) are not ported.
+    """
+
+    def __init__(
+        self,
+        agent: Agent,
+        replay: PrioritizedReplay,
+        env_fn: Callable[[int], tuple],
+        cfg: LoopConfig,
+        n_envs: int,
+        publish_interval: int = 1,
+        scan_chunk: int = 64,
+        device: DeviceLike = "cuda",
+    ):
+        if publish_interval < 1:
+            raise ValueError(
+                f"publish_interval={publish_interval}: need ≥ 1 (1 = "
+                "republish every iteration = the synchronous loop)")
+        self.publish_interval = publish_interval
+        super().__init__(agent, replay, env_fn, cfg, n_envs, scan_chunk=scan_chunk,
+                         device=device)

@@ -1,5 +1,6 @@
 """The paper's training loop (Alg. 1) as composable actor/learner programs
-— port of ``repro.runtime.loop`` (synchronous loop only).
+— port of ``repro.runtime.loop``: the synchronous loop, and the async
+loop in which actors act on a delayed parameter copy (no mesh).
 
 One iteration, in the reference's phase order:
 
@@ -20,14 +21,29 @@ decided on the host, and a step reads nothing back from the device (no
 ``.item()``, no ``bool(tensor)``), which keeps the step capturable as a
 CUDA graph later.  The metrics that depend on data (loss, return) stay
 device tensors.
+
+With ``publish_interval=P ≥ 1`` the actors act on
+``LoopState.actor_params``, a copy of the online module made once by
+``init_loop_state(double_buffer=True)``, while the learners keep
+updating ``LoopState.agent``: the paper's actors that never block on the
+learners (§IV-D).  At the end of iteration ``it`` the copy is republished
+iff ``(it + 1) % P == 0`` (the reference's shard stagger is 0 without a
+mesh): the fresh module's tensors are copied into the copy's own tensors
+in place, never rebound, so the copy never aliases the learners' module.
+``params_age`` counts iterations since the last publish; like the
+publish tick it depends only on the iteration count, so both are host
+ints.  ``P = 1`` republishes every iteration and is the synchronous loop
+bit for bit.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch import nn
 
 from repro_torch.agents.base import Agent, AgentState
 from repro_torch.core.replay import PrioritizedReplay, ReplayState
@@ -49,6 +65,9 @@ class LoopState(NamedTuple):
     episode_return: torch.Tensor   # running per-env return accumulator
     last_return: torch.Tensor      # most recently finished episode returns
     learn_steps: int               # cumulative learner update count
+    # async double buffer (None and 0 on the synchronous loop):
+    actor_params: Optional[nn.Module] = None   # delayed acting copy
+    params_age: int = 0            # iterations since the last publish
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,27 +164,42 @@ def make_learner_step(agent: Agent, replay: PrioritizedReplay, cfg: LoopConfig):
 # -- composed step -----------------------------------------------------------
 
 
+@torch.no_grad()
+def publish(held: nn.Module, fresh: nn.Module) -> None:
+    """Copy the fresh module's tensors into the acting copy's, in place."""
+    torch._foreach_copy_(list(held.parameters()), list(fresh.parameters()))
+
+
 def make_step(agent: Agent, replay: PrioritizedReplay, v_step: Callable,
               cfg: LoopConfig, n_envs: int, *,
               schedule: Optional[RatioSchedule] = None,
               publish_interval: int = 0):
     """Compose actor + learner programs into one ``step(state) → (state,
-    metrics)``.  Only the synchronous loop is ported: the async double
-    buffer (``publish_interval > 0``) is refused."""
-    if publish_interval != 0:
-        raise NotImplementedError(
-            "publish_interval > 0 (the async double buffer) is not ported; "
-            "use publish_interval=0")
+    metrics)``.
+
+    ``publish_interval=0`` is the synchronous loop: actors act on the
+    fresh ``state.agent``.  ``publish_interval=P ≥ 1`` is the async loop
+    (module docstring); its state needs
+    ``init_loop_state(double_buffer=True)``."""
+    if publish_interval < 0:
+        raise ValueError(f"publish_interval={publish_interval}: need ≥ 0 "
+                         "(0 = the synchronous loop)")
     schedule = schedule or RatioSchedule.from_config(cfg, n_envs)
     actor_step = make_actor_step(agent, v_step, n_envs)
     learn_fn = make_learner_step(agent, replay, cfg)
 
     def step(state: LoopState) -> Tuple[LoopState, Dict[str, Metric]]:
         gen = state.rng
-        # 1. parallel actors on the fresh learner params
+        if publish_interval and state.actor_params is None:
+            raise ValueError("publish_interval > 0 needs the acting copy: "
+                             "init_loop_state(..., double_buffer=True)")
+        # 1. parallel actors: on the delayed copy when async, on the fresh
+        #    learner params when synchronous
+        acting = (agent.with_acting_params(state.agent, state.actor_params)
+                  if publish_interval else state.agent)
         eps = epsilon_schedule(cfg, state.env_steps)
         env_state, obs_next, ep_ret, last_ret, transitions = actor_step(
-            state.agent, state.env_state, state.obs,
+            acting, state.env_state, state.obs,
             state.episode_return, state.last_return, gen, eps)
 
         # 2. lazy write, phase 1: zero the in-flight slots' leaves
@@ -197,12 +231,21 @@ def make_step(agent: Agent, replay: PrioritizedReplay, v_step: Callable,
         replay_state = replay.insert_commit(replay_state, slots, transitions,
                                             lazy=lazy)
 
+        # 6. async publish, on the host's iteration clock
+        params_age = state.params_age
+        if publish_interval and (it + 1) % publish_interval == 0:
+            publish(state.actor_params, agent.params_for_acting(agent_state))
+            params_age = 0
+        elif publish_interval:
+            params_age += 1
+
         new_state = LoopState(
             agent=agent_state, replay=replay_state, env_state=env_state,
             obs=obs_next, rng=gen,
             env_steps=state.env_steps + schedule.env_steps_per_iter,
             episode_return=ep_ret, last_return=last_ret,
-            learn_steps=learn_steps)
+            learn_steps=learn_steps, actor_params=state.actor_params,
+            params_age=params_age)
         metrics = {
             "loss": loss,
             "mean_episode_return": torch.mean(last_ret),
@@ -217,10 +260,11 @@ def make_step(agent: Agent, replay: PrioritizedReplay, v_step: Callable,
 
 
 def init_loop_state(agent: Agent, replay: PrioritizedReplay, v_reset: Callable,
-                    seed: int, n_envs: int) -> LoopState:
+                    seed: int, n_envs: int, double_buffer: bool = False) -> LoopState:
     """Initial state on the replay's device; one generator seeded with
     ``seed`` draws the env resets, the agent init and then the loop's
-    random numbers."""
+    random numbers.  ``double_buffer`` fills the async acting copy: a
+    deep copy of ``agent.params_for_acting`` at age 0."""
     gen = torch.Generator(device=replay.device)
     gen.manual_seed(seed)
     env_state, obs = v_reset(gen)
@@ -229,7 +273,9 @@ def init_loop_state(agent: Agent, replay: PrioritizedReplay, v_reset: Callable,
     return LoopState(agent=agent_state, replay=replay.init(),
                      env_state=env_state, obs=obs, rng=gen, env_steps=0,
                      episode_return=zeros, last_return=zeros.clone(),
-                     learn_steps=0)
+                     learn_steps=0,
+                     actor_params=(copy.deepcopy(agent.params_for_acting(agent_state))
+                                   .requires_grad_(False) if double_buffer else None))
 
 
 def train(agent: Agent, replay: PrioritizedReplay, v_reset: Callable,

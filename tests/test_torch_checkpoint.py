@@ -12,6 +12,7 @@ import torch
 
 from repro.checkpoint.manager import CheckpointManager as JaxManager
 from repro_torch.agents import token_dqn
+from repro_torch.agents.base import state_tensors
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 
@@ -127,12 +128,12 @@ def test_train_state_restores_in_place(tmp_path):
     a.opt.m[0].fill_(0.5)
     a.step.fill_(3)
     mgr = CheckpointManager(str(tmp_path))
-    mgr.save(3, token_dqn.state_tensors(a))
-    targets = token_dqn.state_tensors(b)
+    mgr.save(3, state_tensors(a))
+    targets = state_tensors(b)
     before = {k: t.data_ptr() for k, t in targets.items()}
     step, got = mgr.restore_latest(targets)
     assert step == 3
-    for k, t in token_dqn.state_tensors(a).items():
+    for k, t in state_tensors(a).items():
         assert torch.equal(got[k], t) and got[k].data_ptr() == before[k]
     assert int(b.step) == 3 and torch.equal(b.opt.m[0], a.opt.m[0])
 

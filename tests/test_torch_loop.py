@@ -32,7 +32,7 @@ from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
 from repro_torch.envs.classic import make_vec
 from repro_torch.quickstart import transition_example
 from repro_torch.runtime import loop
-from repro_torch.runtime.executors import FusedExecutor
+from repro_torch.runtime.executors import AsyncExecutor, FusedExecutor
 from repro_torch.runtime.loop import LoopConfig, RatioSchedule
 
 torch.set_num_threads(2)
@@ -179,12 +179,27 @@ def test_counter_histories_match_reference_executor():
 
 
 def test_executor_refuses_async_and_missing_device():
-    with pytest.raises(NotImplementedError, match="publish_interval"):
-        spec, _, _ = ENV_FN(1)
-        replay = PrioritizedReplay(ReplayConfig(capacity=64, fanout=8),
-                                   transition_example(spec), device="cpu")
-        FusedExecutor(make_dqn(spec, DQNConfig()), replay, ENV_FN, LoopConfig(), 4,
-                      publish_interval=2, device="cpu")
+    """The async knob is validated with the reference's message, an async
+    step refuses a state without the acting copy, and an executor asked
+    for the GPU raises where there is none."""
+    spec, _, v_step = ENV_FN(4)
+    replay = PrioritizedReplay(ReplayConfig(capacity=64, fanout=8),
+                               transition_example(spec), device="cpu")
+    agent = make_dqn(spec, DQNConfig())
+    for p in (0, -1):
+        with pytest.raises(ValueError, match=f"publish_interval={p}: need ≥ 1"):
+            AsyncExecutor(agent, replay, ENV_FN, LoopConfig(), 4, publish_interval=p,
+                          device="cpu")
+    with pytest.raises(ValueError, match="publish_interval=-2: need ≥ 0"):
+        loop.make_step(agent, replay, v_step, LoopConfig(), 4, publish_interval=-2)
+    ex = AsyncExecutor(agent, replay, ENV_FN, LoopConfig(), 4, publish_interval=2,
+                       device="cpu")
+    sync_state = loop.init_loop_state(agent, replay, ex._v_reset, 5, 4)
+    with pytest.raises(ValueError, match="double_buffer=True"):
+        ex.step(sync_state)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            FusedExecutor(agent, replay, ENV_FN, LoopConfig(), 4)
 
 
 def test_full_pipeline_improves_policy():

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from repro_torch.agents import token_dqn
+from repro_torch.agents.base import state_tensors
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import train
@@ -56,8 +57,8 @@ def test_trains_checkpoints_and_resumes(tmp_path, monkeypatch, capsys):
     assert CheckpointManager(str(tmp_path)).all_steps() == [2, 4]
     # the checkpoint of step 4 is the final state, bit for bit
     fresh = token_dqn.init_train_state(res["cfg"], res["tcfg"], torch.Generator().manual_seed(9))
-    got = CheckpointManager(str(tmp_path)).restore(4, token_dqn.state_tensors(fresh))
-    for k, t in token_dqn.state_tensors(state).items():
+    got = CheckpointManager(str(tmp_path)).restore(4, state_tensors(fresh))
+    for k, t in state_tensors(state).items():
         assert torch.equal(got[k], t), k
     capsys.readouterr()
 

@@ -14,7 +14,9 @@ the mask included) at 50,000/K=128/B=64 (CartPole's five leaves),
 10^6/K=128/B=512 and 8,192/K=128/B=8 (the token replay's four (256,)
 leaves), and a learner call's sampling chain
 (``chip_smoke.sampling_chain``) at the first and the last.  Then 100
-iterations of the fused and the eager CartPole arms
+iterations of the fused and the eager CartPole arms, of the main path
+(split sampling, lazy) and of the async arm (the main path through
+``AsyncExecutor`` at publish interval 4, where the package has it)
 (``chip_smoke.run_arm``) and ``chip_smoke.profile_loop``'s window of 20
 more: wall, device-busy and device ops per iteration.  The variants:
 
@@ -101,8 +103,12 @@ for label, cap, b, tok in (("50,000/B=64", 50_000, 64, False), ("8,192/B=8", 819
     for name, arm in chain["arms"].items():
         out[f"{{label}} chain: {{name}}"] = arm["device_ms"]
         out[f"{{label}} chain: {{name}} (call)"] = arm["call_ms"]
-for arm, fused, lazy in (("fused", True, True), ("eager", False, False)):
-    ex, st, _, _, _, _ = cs.run_arm(torch, 100, fused=fused, lazy=lazy)
+from repro_torch.runtime import executors
+arms = [("fused", True, True, 0), ("eager", False, False, 0), ("main", False, True, 0)]
+if hasattr(executors, "AsyncExecutor"):
+    arms.append(("async", False, True, 4))
+for arm, fused, lazy, publish in arms:
+    ex, st, _, _, _, _ = cs.run_arm(torch, 100, fused=fused, lazy=lazy, publish_interval=publish)
     _, prof = cs.profile_loop(torch, ex, st)
     for key in ("wall_us_per_iteration", "device_busy_us_per_iteration",
                 "device_ops_per_iteration"):
