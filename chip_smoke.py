@@ -136,7 +136,7 @@ failure and prints no result):
                 call, no host sync in a step, a profiler window;
  17. actor-critic — DDPG, TD3 and SAC on Pendulum x 8 at the settings of
                 benchmarks/fig10_scalability.py (hidden (256, 256), capacity
-                50,000 K=128, batch 64, warmup 64, epsilon 0.1), 600
+                50,000 K=128, batch 64, warmup 64, epsilon 0.1), 300
                 iterations each: finite losses and priorities, actions in
                 [-2, 2], one descent and one gather launch per learner call,
                 no host sync in a step; then the descent, the gathers and
@@ -147,6 +147,32 @@ failure and prints no result):
                 every parameter and target tensor); the mean return and
                 iterations per second (not gated) and a profiler window;
                 then the sampling chain on Pendulum's five leaves.
+
+ 18. sharded — the sharded runtime, each shard a rank of torch.distributed
+                on this card (launch/mesh.py::spawn; the kernels built first):
+                (a) one rank over NCCL, the settings of tests/test_executors.py
+                (4 envs, capacity 1,024 K=8, batch 32, warmup 8, epsilon 0.2):
+                ShardedExecutor on data_mesh(1) and on pod_data_mesh(1, 1)
+                against FusedExecutor, 40 iterations, every metric and state
+                tensor bit for bit, and no host sync in a step; (b) two ranks
+                over gloo: gloo's all_reduce and broadcast on CUDA tensors,
+                pod_data_mesh(2, 1) = data_mesh(2) bit for bit over 40
+                iterations, then phase 4's settings split over 2 shards (4 envs,
+                capacity 10,000 and batch 32 a shard, K=128), 1,400 iterations:
+                return above 30, one descent and one gather launch per learner
+                call on each rank, parameters, target, Adam state and step
+                byte-identical on both ranks, #1 and #2 against their plain
+                versions on each shard's tree and rows, iterations/s and a
+                profiler window on rank 0 (no no-sync gate: gloo stages every
+                collective through the host); (c) four ranks over gloo as 2x2
+                pod x data, the int8-EF cross-pod reduce with bf16 inside a
+                pod, then AsyncExecutor at publish interval 3 and max staleness
+                1, 384 iterations each: finite losses, compress_error_norm > 0
+                once learning starts, the EF buffer's norm moving between
+                chunks, the state byte-identical on the 4 ranks, staggered ages;
+                (d) world 2's learner state restored at world 1 and world 1's
+                at world 2 (checkpoint/elastic.py): bit for bit on every rank,
+                and a learning step with a finite loss after the replay refills.
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration; phase
@@ -1258,7 +1284,9 @@ def train_phases(torch, dev, card: str) -> list:
 
 # one actor-critic learn step on the card against the same step on the CPU
 LEARN_RTOL, LEARN_ATOL = 1e-4, 1e-5
-PENDULUM_ITERS = 600
+# short enough for the script to stay well inside its time limit (the
+# Pendulum returns are reported, not gated)
+PENDULUM_ITERS = 300
 ASYNC_ITERS = 1400
 
 
@@ -1536,6 +1564,371 @@ def actor_critic_phase(torch, dev, card: str, iterations: int = PENDULUM_ITERS) 
                       for n, a in chain["arms"].items()) + f" | {card}", flush=True)
     print(f"[actor-critic rate] {json.dumps(out)}", flush=True)
     return {"agents": out, "chain": chain}
+
+
+# -- phase 18: the sharded runtime, its shards as ranks on the one card -----------
+
+SHARDED_ITERS = 1400       # 18(b): the main path's run, never shortened
+POD_ITERS = 384            # 18(c): each of the 2×2 runs
+
+
+def _cartpole_dqn():
+    from repro_torch.agents.dqn import DQNConfig, make_dqn
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.quickstart import transition_example
+    env_fn = lambda n: make_vec("cartpole", n)  # noqa: E731
+    spec, _, _ = env_fn(1)
+    return env_fn, transition_example(spec), make_dqn(spec, DQNConfig())
+
+
+def _sharded_ex(mesh, capacity, fanout, cfg, n_envs, scan_chunk=64, async_kw=None, **kw):
+    """This rank's ShardedExecutor (or, with ``async_kw``, AsyncExecutor)
+    of DQN (4, 256, 256, 2) on CartPole, its replay shard on the card."""
+    from repro_torch.core.distributed import ShardedPrioritizedReplay, ShardedReplayConfig
+    from repro_torch.runtime.executors import AsyncExecutor, ShardedExecutor
+    env_fn, example, agent = _cartpole_dqn()
+    replay = ShardedPrioritizedReplay(
+        ShardedReplayConfig(capacity_per_shard=capacity, fanout=fanout,
+                            axis_names=mesh.axis_names), example, device="cuda")
+    if async_kw:
+        return AsyncExecutor(agent, replay, env_fn, cfg, n_envs, mesh=mesh,
+                             scan_chunk=scan_chunk, **async_kw, **kw)
+    return ShardedExecutor(agent, replay, env_fn, cfg, n_envs, mesh, scan_chunk=scan_chunk,
+                           **kw)
+
+
+def _replicated_on_every_rank(torch, agent_state) -> list:
+    """Names of the agent state's tensors whose bytes differ from rank 0's
+    (rank 0 broadcasts a copy; each rank compares its own)."""
+    from repro_torch.agents.base import state_tensors
+    from repro_torch.optim.collectives import broadcast_
+    mine = {k: t.detach().clone() for k, t in state_tensors(agent_state).items()}
+    theirs = {k: t.clone() for k, t in mine.items()}
+    broadcast_(list(theirs.values()))
+    return differing(torch, mine, theirs)
+
+
+def _sharded_world1(rank: int) -> dict:
+    """18(a), one rank over NCCL: ShardedExecutor on data_mesh(1) and on
+    pod_data_mesh(1, 1) against FusedExecutor, 40 iterations from seed 7,
+    with the settings of tests/test_executors.py:136-160; then three steps
+    with every synchronizing CUDA call an error."""
+    import torch
+
+    from repro_torch.agents.base import state_tensors
+    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+    from repro_torch.launch.mesh import data_mesh, pod_data_mesh
+    from repro_torch.runtime.executors import FusedExecutor
+    from repro_torch.runtime.loop import LoopConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env_fn, example, agent = _cartpole_dqn()
+    cfg = LoopConfig(batch_size=32, warmup=8, epsilon=0.2)
+    fused = FusedExecutor(agent, PrioritizedReplay(ReplayConfig(capacity=1024, fanout=8),
+                                                   example, device="cuda"),
+                          env_fn, cfg, 4, scan_chunk=16)
+    s1, h1 = fused.train(40, 7)
+    out = {"backend": torch.distributed.get_backend()}
+    for name, mesh in (("data_mesh(1)", data_mesh(1)), ("pod_data_mesh(1, 1)", pod_data_mesh(1, 1))):
+        ex = _sharded_ex(mesh, 1024, 8, cfg, 4, scan_chunk=16)
+        s2, h2 = ex.train(40, 7)
+        out[name] = {"metrics": differing(torch, h1, h2),
+                     "state": differing(torch, state_tensors(s1.agent), state_tensors(s2.agent)),
+                     "n_metrics": len(h2), "n_state": len(state_tensors(s2.agent)),
+                     "learn_steps": s2.learn_steps}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            s2, _ = ex.step(s2)
+        out["sync"] = None
+    except RuntimeError as e:
+        out["sync"] = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out["learn_steps_after"] = s2.learn_steps
+    return out
+
+
+def _sharded_world2(rank: int, ckpt: str) -> dict:
+    """18(b), two ranks over gloo on the one card: the transport check,
+    pod_data_mesh(2, 1) ≡ data_mesh(2), then the main path's settings split
+    over the two shards for 1,400 counted iterations, its kernels against
+    their plain versions on this shard's tree and rows, a profiler window
+    on rank 0, and the learner state saved for 18(d)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.agents.base import state_tensors
+    from repro_torch.checkpoint import elastic
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import sumtree
+    from repro_torch.kernels import ops, parity
+    from repro_torch.launch.mesh import data_mesh, pod_data_mesh
+    from repro_torch.runtime.loop import LoopConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"backend": dist.get_backend()}
+    # gloo takes CUDA tensors for all_reduce and broadcast (it stages them
+    # through host memory itself)
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(x)
+    y = torch.full((4,), float(rank), device="cuda")
+    dist.broadcast(y, src=1)
+    out["transport"] = {"all_reduce": x.tolist(), "broadcast": y.tolist(),
+                        "device": str(x.device)}
+    small = LoopConfig(batch_size=32, warmup=8, epsilon=0.2)
+    runs = {}
+    for name, mesh in (("data_mesh(2)", data_mesh(2)), ("pod_data_mesh(2, 1)", pod_data_mesh(2, 1))):
+        st, hist = _sharded_ex(mesh, 1024, 8, small, 8, scan_chunk=16).train(40, 7)
+        runs[name] = (hist, {k: t.detach().clone() for k, t in state_tensors(st.agent).items()})
+    (ha, sa), (hb, sb) = runs.values()
+    out["2x1"] = {"metrics": differing(torch, ha, hb), "state": differing(torch, sa, sb),
+                  "learn_steps": int(ha["learn_steps"][-1])}
+    # the main path's settings over 2 shards
+    cfg = LoopConfig(batch_size=64, warmup=400, epsilon=0.2)
+    ex = _sharded_ex(data_mesh(2), 10_000, 128, cfg, 8)
+    check(ex.replay.ops.name == "cuda", "the CUDA device did not default to the kernels")
+    st = ex.init(1)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    before = dict(ex.replay.ops.counts)
+    t0 = time.perf_counter()
+    st, hist = ex.run(st, SHARDED_ITERS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out["launches"] = dict(ops.launch_counts)
+    out["calls"] = {k: v - before.get(k, 0) for k, v in ex.replay.ops.counts.items()}
+    out["learner_calls"] = st.learn_steps
+    out.update(seconds=secs, iterations=SHARDED_ITERS,
+               return_=float(hist["mean_episode_return"][-1]),
+               finite=bool(torch.isfinite(hist["loss"]).all()),
+               buffer=int(hist["buffer_size"][-1]))
+    out["not_replicated"] = _replicated_on_every_rank(torch, st.agent)
+    rst = ex.replay.flush(st.replay)
+    out["invariant"] = sumtree.check_invariant(ex.replay.spec, rst.tree)
+    # #1 and #2 against their plain versions on this shard's tree and rows
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19 + rank)
+    reports = []
+    for draws in (32, 65_536):
+        u = torch.rand((draws,), generator=gen, device="cuda")
+        ki, kp = ops.sumtree_sample(ex.replay.spec, rst.tree, u)
+        pi, pp = sumtree.sample(ex.replay.spec, rst.tree, u)
+        items = ops.gather_items(rst.storage, ki)
+        torch.cuda.synchronize()
+        rep = parity.sample_ties(ex.replay.spec, rst.tree, u, ki, pi)
+        agree = ki == pi
+        reports.append({"draws": draws, "ok": rep.ok, "flips": rep.flips,
+                        "allowed": rep.allowed, "report": str(rep),
+                        "pri_err": float((kp[agree] - pp[agree]).abs().max()),
+                        "rows": all(same_bytes(torch, items[k], b[ki]) and
+                                    same_bytes(torch, ops.prioritized_gather(b, ki), b[ki])
+                                    for k, b in rst.storage.items())})
+    out["parity"] = reports
+    out["rows"] = {k: tuple(v.shape[1:]) for k, v in rst.storage.items()}
+    # where the time goes: one profiler window on rank 0, the same 20
+    # iterations unprofiled on rank 1 (the collectives pair them)
+    if rank == 0:
+        st, out["profile"] = profile_loop(torch, ex, st)
+    else:
+        st, _ = ex.run(st, 20)
+    elastic.save_learner(CheckpointManager(ckpt), SHARDED_ITERS + 20, st.agent)
+    if rank == 0:
+        torch.save({k: t.detach().cpu() for k, t in state_tensors(st.agent).items()},
+                   os.path.join(ckpt, "ref.pt"))
+    return out
+
+
+def _sharded_world4(rank: int) -> dict:
+    """18(c), four ranks over gloo as 2×2 (pod, data): the compressed
+    cross-pod reduce with bf16 inside a pod, then AsyncExecutor at publish
+    interval 3 and max staleness 1 on the same mesh, 384 iterations each,
+    chunk by chunk."""
+    import torch
+
+    from repro_torch.launch.mesh import pod_data_mesh
+    from repro_torch.optim.compress import l2_norm
+    from repro_torch.runtime.loop import LoopConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = pod_data_mesh(2, 2)
+    cfg = LoopConfig(batch_size=64, warmup=400, epsilon=0.2)
+    out = {}
+    for name, async_kw in (("sharded", None),
+                           ("async", dict(publish_interval=3, max_staleness=1))):
+        ex = _sharded_ex(mesh, 20_000 // 4, 128, cfg, 8, async_kw=async_kw,
+                         compress_pod_reduce=True, intra_pod_dtype="bf16")
+        st = ex.init(1)
+        chunks, ages = [], []
+        t0 = time.perf_counter()
+        for _ in range(POD_ITERS // ex.scan_chunk):
+            st, m = ex.run_chunk(st)
+            chunks.append({"loss": float(m["loss"]), "err_norm": float(m["compress_error_norm"]),
+                           "ef_norm": float(l2_norm(st.ef_error)), "learns": m["learn_steps"],
+                           "return": float(m["mean_episode_return"])})
+            ages.append(st.params_age)
+        out[name] = {"chunks": chunks, "ages": ages, "seconds": time.perf_counter() - t0,
+                     "not_replicated": _replicated_on_every_rank(torch, st.agent)}
+    return out
+
+
+def _elastic_world(rank: int, ckpt_in: str, ckpt_out) -> dict:
+    """18(d): the learner state written at another world size restored on
+    every rank (rank 0 reads, broadcasts), held bit for bit against the
+    writer's copy; the replay refills and one step learns."""
+    import torch
+
+    from repro_torch.agents.base import state_tensors
+    from repro_torch.checkpoint import elastic
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import data_mesh
+    from repro_torch.runtime.loop import LoopConfig
+
+    ex = _sharded_ex(data_mesh(), 1024, 8, LoopConfig(batch_size=32, warmup=64, epsilon=0.2), 4)
+    st = ex.init(5)
+    step = elastic.restore_learner(CheckpointManager(ckpt_in), st.agent)
+    want = torch.load(os.path.join(ckpt_in, "ref.pt"))
+    got = state_tensors(st.agent)
+    out = {"step": step, "tensors": len(got), "differing": differing(
+        torch, {k: t.detach().cpu() for k, t in got.items()}, want)}
+    while st.learn_steps == 0:
+        st, metrics = ex.step(st)
+    out["loss"] = float(metrics["loss"])
+    if ckpt_out:
+        elastic.save_learner(CheckpointManager(ckpt_out), step + 1, st.agent)
+        if rank == 0:
+            torch.save({k: t.detach().cpu() for k, t in state_tensors(st.agent).items()},
+                       os.path.join(ckpt_out, "ref.pt"))
+    return out
+
+
+def sharded_phase(torch, dev, card: str) -> dict:
+    """Phase 18: the sharded runtime with its shards as ranks of
+    torch.distributed on the one card (launch/mesh.py::spawn); every
+    kernel is built before the first rank starts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh as meshlib
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    res = {}
+    # (a) world 1 over NCCL
+    a = meshlib.spawn(_sharded_world1, 1, backend="nccl", device="cuda:0", timeout_s=600)[0]
+    for name in ("data_mesh(1)", "pod_data_mesh(1, 1)"):
+        r = a[name]
+        check(not r["metrics"] and not r["state"] and r["learn_steps"] > 0,
+              f"18(a) ShardedExecutor({name}) is not FusedExecutor bit for bit: metrics "
+              f"{r['metrics']}, state {r['state'][:4]}, learner calls {r['learn_steps']}")
+    check(a["sync"] is None and a["learn_steps_after"] > a["pod_data_mesh(1, 1)"]["learn_steps"],
+          f"18(a) a sharded step over NCCL synchronized with the host: {a['sync']}")
+    print(f"[sharded a] world 1 over {a['backend']}: ShardedExecutor on data_mesh(1) and on "
+          f"pod_data_mesh(1, 1) against FusedExecutor, 40 iterations from seed 7 (4 envs, "
+          f"capacity 1,024 K=8, batch 32): {a['data_mesh(1)']['n_metrics']} metrics and "
+          f"{a['data_mesh(1)']['n_state']} state tensors bit for bit; three more steps with "
+          f"learning under set_sync_debug_mode('error'): no host sync | {card}", flush=True)
+    res["a"] = a
+    ckpt2 = tempfile.mkdtemp(prefix="chip_smoke_world2_")
+    ckpt1 = tempfile.mkdtemp(prefix="chip_smoke_world1_")
+    try:
+        # (b) world 2 over gloo, both ranks on the one card
+        b = meshlib.spawn(_sharded_world2, 2, ckpt2, backend="gloo", device="cuda:0",
+                          timeout_s=900)
+        t = b[0]["transport"]
+        check(t["all_reduce"] == [3.0] * 4 and t["broadcast"] == [1.0] * 4
+              and t["device"].startswith("cuda"),
+              f"18(b) gloo on CUDA tensors: all_reduce {t['all_reduce']}, broadcast "
+              f"{t['broadcast']}")
+        print(f"[sharded b] transport: gloo all_reduce and broadcast on CUDA tensors "
+              f"({t['device']}), staged through host memory by gloo itself; no pinned "
+              f"host buffers of ours | {card}", flush=True)
+        for r in b:
+            check(not r["2x1"]["metrics"] and not r["2x1"]["state"] and r["2x1"]["learn_steps"] > 0,
+                  f"18(b) pod_data_mesh(2, 1) is not data_mesh(2) bit for bit: {r['2x1']}")
+        for rank, r in enumerate(b):
+            calls = r["learner_calls"]
+            check(r["launches"].get("sumtree_sample", 0) == r["launches"].get("gather", 0)
+                  == calls > 0 and not r["launches"].get("sample_gather")
+                  and not r["launches"].get("sumtree_update"),
+                  f"18(b) rank {rank}: launches {r['launches']} for {calls} learner calls")
+            check(r["finite"] and r["invariant"], f"18(b) rank {rank}: a non-finite loss or a "
+                  "broken tree")
+            check(not r["not_replicated"], f"18(b) rank {rank}: {r['not_replicated'][:4]} "
+                  "differ from rank 0's")
+            for p in r["parity"]:
+                check(p["ok"] and p["rows"], f"18(b) rank {rank}: #1/#2 against their plain "
+                      f"versions on the shard's tree, {p['draws']} draws: {p['report']}, rows "
+                      f"{p['rows']}")
+        ret = b[0]["return_"]
+        check(ret > 30.0, f"18(b) return {ret} does not beat 30")
+        secs = b[0]["seconds"]
+        prof = b[0]["profile"]
+        print(f"[sharded b] world 2 over gloo on cuda:0, 2 shards x 4 envs, capacity 10,000 "
+              f"a shard K=128, batch 32 a shard: {SHARDED_ITERS} iterations in {secs:.2f} s "
+              f"({SHARDED_ITERS / secs:.2f} iterations/s, {secs / SHARDED_ITERS * 1e6:,.0f} us "
+              f"each), return {ret:.1f}, learner calls {b[0]['learner_calls']} a shard, "
+              f"launches {[r['launches'] for r in b]}; parameters, target, Adam state and "
+              f"step byte-identical on both ranks; #1/#2 against their plain versions on each "
+              f"shard's tree ({[[p['flips'] for p in r['parity']] for r in b]} flips, within "
+              f"the rule); pod_data_mesh(2, 1) = data_mesh(2) bit for bit over 40 iterations; "
+              f"no no-sync gate: gloo stages each collective through the host | {card}",
+              flush=True)
+        print(profile_line("sharded world 2, rank 0", prof), flush=True)
+        res["b"] = b
+        # (c) world 4 over gloo as 2×2 pod×data
+        c = meshlib.spawn(_sharded_world4, 4, backend="gloo", device="cuda:0", timeout_s=900)
+        for name in ("sharded", "async"):
+            for rank, r in enumerate(c):
+                chunks = r[name]["chunks"]
+                learning = [ch for ch in chunks if ch["learns"] > 0]
+                check(learning and all(math.isfinite(ch["loss"]) for ch in chunks),
+                      f"18(c) {name} rank {rank}: {chunks}")
+                check(all(ch["err_norm"] > 0 for ch in learning),
+                      f"18(c) {name} rank {rank}: compress_error_norm 0 after learning began")
+                norms = [ch["ef_norm"] for ch in learning]
+                check(all(x != y for x, y in zip(norms, norms[1:])),
+                      f"18(c) {name} rank {rank}: the EF buffer's norm did not change "
+                      f"between chunks: {norms}")
+                check(not r[name]["not_replicated"],
+                      f"18(c) {name} rank {rank}: {r[name]['not_replicated'][:4]} differ")
+            rank0 = c[0][name]
+            print(f"[sharded c] world 4 over gloo, 2x2 pod x data, {name}: int8-EF across "
+                  f"pods, bf16 inside, {POD_ITERS} iterations in {rank0['seconds']:.2f} s; "
+                  f"finite losses; rank 0's compress_error_norm "
+                  f"{[round(ch['err_norm'], 6) for ch in rank0['chunks']]} and EF norm "
+                  f"{[round(ch['ef_norm'], 6) for ch in rank0['chunks']]}, a chunk each; "
+                  f"replicated state byte-identical on the 4 ranks | {card}", flush=True)
+        ages = [r["async"]["ages"][-1] for r in c]
+        check(len(set(ages)) > 1 and all(a < 3 for a in ages),
+              f"18(c) async: the shards' ages {ages} are not staggered under 3")
+        print(f"[sharded c] async at publish interval 3, max staleness 1: the shards' ages "
+              f"at the end {ages} | {card}", flush=True)
+        res["c"] = c
+        # (d) elastic: world 2's learner state at world 1, world 1's at world 2
+        d1 = meshlib.spawn(_elastic_world, 1, ckpt2, ckpt1, backend="nccl", device="cuda:0",
+                           timeout_s=600)
+        d2 = meshlib.spawn(_elastic_world, 2, ckpt1, None, backend="gloo", device="cuda:0",
+                           timeout_s=600)
+        for where, rs, want in (("world 2 -> 1", d1, SHARDED_ITERS + 20),
+                                ("world 1 -> 2", d2, SHARDED_ITERS + 21)):
+            for rank, r in enumerate(rs):
+                check(r["step"] == want and not r["differing"] and math.isfinite(r["loss"]),
+                      f"18(d) {where} rank {rank}: step {r['step']} (want {want}), not bit for "
+                      f"bit {r['differing'][:4]}, loss {r['loss']}")
+        print(f"[sharded d] elastic: world 2's learner state restored at world 1 (NCCL) and "
+              f"world 1's at world 2 (gloo), {d1[0]['tensors']} tensors (parameters, target, "
+              f"Adam count and moments, step) bit for bit on every rank; after the replay "
+              f"refilled, one more step's loss {d1[0]['loss']:.6g} / {d2[0]['loss']:.6g} | {card}",
+              flush=True)
+        res["d"] = {"world1": d1, "world2": d2}
+    finally:
+        shutil.rmtree(ckpt2, ignore_errors=True)
+        shutil.rmtree(ckpt1, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[sharded] phase 18 in {res['seconds']:.1f} s", flush=True)
+    print(f"[sharded rate] {json.dumps({'iterations': SHARDED_ITERS, 'seconds': secs, 'iterations_per_s': SHARDED_ITERS / secs, 'wall_us_per_iteration': secs / SHARDED_ITERS * 1e6, 'return': ret, 'launches': [r['launches'] for r in b], 'profile': prof})}", flush=True)
+    return res
 
 
 # -- the phases ----------------------------------------------------------------
@@ -1925,11 +2318,16 @@ def main() -> None:
     restart = restart_phase(torch, dev, card)
     async_rate = async_phase(torch, dev, card)
     actor_critic = actor_critic_phase(torch, dev, card)
+    # 18. the sharded runtime, its ranks on this card; each rank's launches
+    # counted from 0 over the 1,400 iterations of 18(b)
+    sharded = sharded_phase(torch, dev, card)
     for entry in kernels:
         entry["restart_launches"] = restart["launches"].get(entry["name"], 0)
         entry["async_launches"] = async_rate["launches"].get(entry["name"], 0)
         entry["pendulum_launches"] = {name: r["launches"].get(entry["name"], 0)
                                       for name, r in actor_critic["agents"].items()}
+        entry["sharded_launches_per_rank"] = [r["launches"].get(entry["name"], 0)
+                                              for r in sharded["b"]]
         if entry["name"] == "gather":
             entry["sampling_chain"]["Pendulum 50,000/B=64, 5 leaves"] = actor_critic["chain"]
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)

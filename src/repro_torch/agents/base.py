@@ -112,6 +112,12 @@ def state_tensors(state) -> Dict[str, torch.Tensor]:
     return out
 
 
+def generator_names(state) -> set:
+    """The ``state_tensors`` names that hold a generator's state."""
+    return {name for name, leaf in _named_leaves("extra", getattr(state, "extra", ()))
+            if isinstance(leaf, torch.Generator)}
+
+
 def load_generators(state: AgentState, tensors: Dict[str, torch.Tensor]) -> None:
     """Set each generator of ``state.extra`` from its entry of ``tensors``
     (a ``state_tensors(state)`` dict that a checkpoint was restored

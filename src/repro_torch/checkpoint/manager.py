@@ -16,8 +16,8 @@ atomic-rename npz + manifest.
 What is saved is a flat dict of named tensors (``agents.base.
 state_tensors`` gives an ``AgentState``'s or a ``TrainState``'s).  bf16 has no numpy dtype here,
 so a bf16 tensor is stored as its uint16 bit pattern with ``"bfloat16"``
-in the manifest, and restored bit for bit.  Elastic resharding
-(``checkpoint/elastic.py``) is not ported.
+in the manifest, and restored bit for bit.  ``checkpoint/elastic.py``
+restores a replicated learner state at another world size.
 """
 
 from __future__ import annotations

@@ -27,7 +27,7 @@ Priorities follow PER: stored ``p = (|δ| + ε)^α``; importance weights
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -191,12 +191,21 @@ class PrioritizedReplay:
     # -- sampling (paper Alg. 3 SAMPLE) ---------------------------------------
 
     def sample(self, state: ReplayState, generator: Optional[torch.Generator],
-               batch: int, beta: float = 0.4, u: Optional[torch.Tensor] = None
+               batch: int, beta: float = 0.4, u: Optional[torch.Tensor] = None,
+               global_total: Optional[torch.Tensor] = None,
+               global_count: Optional[torch.Tensor] = None,
+               max_across: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                ) -> Tuple[torch.Tensor, Storage, torch.Tensor]:
         """Prioritized sample of ``batch`` items → (indices, items,
         importance weights).  ``u`` overrides the uniform draws (parity
         tests feed the reference's); else they come from ``generator``.
         The caller must have flushed (``state.pending == 0``).
+
+        A replay shard passes the summed ``global_total`` and
+        ``global_count`` (f32 scalars) so that the weights follow the
+        *global* distribution, and ``max_across`` (a max over the mesh) so
+        that every shard divides by the same global max weight.  Over one
+        shard both give today's numbers bit for bit.
         """
         if u is None:
             u = torch.rand((batch,), generator=generator, device=self.device)
@@ -206,12 +215,18 @@ class PrioritizedReplay:
         else:
             idx, pri = self.ops.sample(self.spec, state.tree, u)
             items = self.ops.gather_items(state.storage, idx)
-        prob = pri / torch.clamp(state.tree[0], min=1e-12)
-        w = (float(max(state.count, 1)) * torch.clamp(prob, min=1e-12)) ** (-beta)
+        tot = state.tree[0] if global_total is None else global_total
+        cnt = (float(max(state.count, 1)) if global_count is None
+               else torch.clamp(global_count, min=1.0))
+        prob = pri / torch.clamp(tot, min=1e-12)
+        w = (cnt * torch.clamp(prob, min=1e-12)) ** (-beta)
         # an fp-tail draw can land on a zero-priority leaf (in-flight or
         # unfilled slot): its weight is 0, not 0**(-β) = inf
         w = torch.where(pri > 0, w, torch.zeros_like(w))
-        w = w / torch.clamp(w.max(), min=1e-12)
+        w_max = w.max()
+        if max_across is not None:
+            w_max = max_across(w_max)
+        w = w / torch.clamp(w_max, min=1e-12)
         return idx, items, w
 
     # -- priority maintenance ---------------------------------------------------

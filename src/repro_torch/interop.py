@@ -51,6 +51,15 @@ def mlp_from_numpy(layers: Sequence[dict], device="cpu") -> MLP:
     return net
 
 
+def param_leaves_from_numpy(tree, device="cpu"):
+    """A params-shaped reference tree (a gradient, an error-feedback
+    buffer) → the list of tensors in ``params.parameters()`` order: a
+    list of layers as ``flatten_mlp``, a dict of them in sorted key order."""
+    layers = ([x for k in sorted(tree) for x in flatten_mlp(tree[k])]
+              if isinstance(tree, dict) else flatten_mlp(tree))
+    return [_t(x, device) for x in layers]
+
+
 def _adam_from_numpy(opt, flatten, device) -> AdamState:
     return AdamState(count=_t(opt.count, device).to(torch.int32),
                      m=[_t(x, device) for x in flatten(opt.m)],

@@ -68,7 +68,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--n-envs", type=int, default=16)
-    ap.add_argument("--mesh", default="host", help="only 'host' is ported (ROADMAP item 21)")
+    ap.add_argument("--mesh", default="host",
+                    help="only 'host' is ported: model sharding over a device mesh is not "
+                         "(ROADMAP item 21)")
     ap.add_argument("--plan", default=None, metavar="BENCH_plan.json",
                     help="not ported (ROADMAP item 22)")
     ap.add_argument("--wall-clock", type=int, default=0, metavar="N",
@@ -86,8 +88,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.exit(2, "--wall-clock: the multi-process gang is not ported to repro_torch "
                    "yet (ROADMAP Queue 1 item 22)\n")
     if args.mesh != "host":
-        ap.exit(2, f"--mesh {args.mesh}: the sharded runtime is not ported to repro_torch "
-                   "yet (ROADMAP Queue 1 item 21)\n")
+        ap.exit(2, f"--mesh {args.mesh}: model sharding over a device mesh is not ported "
+                   "to repro_torch yet; the data-parallel sharded runtime is "
+                   "(runtime/executors.py::ShardedExecutor) (ROADMAP Queue 1 item 21)\n")
     if args.plan:
         ap.exit(2, "--plan: executor_from_plan and the planner are not ported to "
                    "repro_torch yet (ROADMAP Queue 1 item 22)\n")

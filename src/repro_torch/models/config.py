@@ -1,7 +1,7 @@
 """Model configuration — a copy of ``repro.models.config.ModelConfig``
 with every field and property, so the port imports nothing of the JAX
-package.  ``ShardingConfig`` is not copied: one card has no mesh, and
-sharding comes with the torch.distributed slice."""
+package.  ``ShardingConfig`` is not copied: model sharding over a mesh
+is not ported (the data-parallel runtime is: ``runtime/executors.py``)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """The paper's training loop (Alg. 1) as composable actor/learner programs
-— port of ``repro.runtime.loop``: the synchronous loop, and the async
-loop in which actors act on a delayed parameter copy (no mesh).
+— port of ``repro.runtime.loop``: the synchronous loop, the async loop in
+which actors act on a delayed parameter copy, and the same step run by
+each rank of a mesh (``runtime/executors.py::ShardedExecutor``).
 
 One iteration, in the reference's phase order:
 
@@ -27,32 +28,46 @@ With ``publish_interval=P ≥ 1`` the actors act on
 ``init_loop_state(double_buffer=True)``, while the learners keep
 updating ``LoopState.agent``: the paper's actors that never block on the
 learners (§IV-D).  At the end of iteration ``it`` the copy is republished
-iff ``(it + 1) % P == 0`` (the reference's shard stagger is 0 without a
-mesh): the fresh module's tensors are copied into the copy's own tensors
-in place, never rebound, so the copy never aliases the learners' module.
-``params_age`` counts iterations since the last publish; like the
-publish tick it depends only on the iteration count, so both are host
-ints.  ``P = 1`` republishes every iteration and is the synchronous loop
-bit for bit.
+iff ``(it + 1 + d) % P == 0`` on shard ``d`` (0 without a mesh; the
+stagger gives the shards different ages): the fresh module's tensors are
+copied into the copy's own tensors in place, never rebound, so the copy
+never aliases the learners' module.  ``params_age`` counts iterations
+since the last publish and is handed to the learn fn (the sharded reduce
+weights a shard by it); like the publish tick it depends only on the
+iteration count, so both are host ints.  ``P = 1`` republishes every
+iteration and is the synchronous loop bit for bit.
+
+On a mesh each rank runs this step on its own envs and replay shard, with
+``learn_fn`` the sharded learner (``runtime/learner.py``), which reduces
+over the mesh; ``LoopState.ef_error`` carries the error-feedback buffer
+of the compressed cross-pod reduce.  Seeding (``init_loop_state``): shard
+0 draws from the generator seeded with ``seed`` itself, so one shard is
+the fused loop bit for bit; shard ``d > 0`` from ``shard_seed(seed, d)``.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.agents.base import Agent, AgentState
 from repro_torch.core.replay import PrioritizedReplay, ReplayState
+from repro_torch.optim import compress
 
 Metric = Union[torch.Tensor, int, float]
 
 # keys of the metrics dict every composed step returns
 METRIC_KEYS = ("loss", "mean_episode_return", "env_steps", "learn_steps",
-               "buffer_size", "epsilon")
+               "buffer_size", "epsilon", "compress_error_norm")
+
+# keys of the metrics dict every learn fn returns (make_learner_step and
+# runtime/learner.make_sharded_learn)
+LEARN_METRIC_KEYS = ("loss", "compress_error_norm")
 
 
 class LoopState(NamedTuple):
@@ -68,6 +83,10 @@ class LoopState(NamedTuple):
     # async double buffer (None and 0 on the synchronous loop):
     actor_params: Optional[nn.Module] = None   # delayed acting copy
     params_age: int = 0            # iterations since the last publish
+    # error-feedback buffer of the int8 cross-pod reduce (a list of f32
+    # tensors shaped like the params, or with overlap the dict {"ef",
+    # "prev_mean", "prev_partial"} of such lists); None when uncompressed
+    ef_error: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,15 +167,19 @@ def make_actor_step(agent: Agent, v_step: Callable, n_envs: int):
 def make_learner_step(agent: Agent, replay: PrioritizedReplay, cfg: LoopConfig):
     """One parallel-learner call: PER sample → TD update → priority
     write-back (leaf-only with ``cfg.lazy_replay``, riding the next
-    flush).  ``u`` overrides the sample's uniform draws."""
+    flush).  ``u`` overrides the sample's uniform draws.  ``age`` and
+    ``ef`` belong to the learn-fn signature that the sharded learner
+    shares; here they pass through unused, and the error norm is 0.0."""
 
-    def learner_step(agent_state, replay_state, gen, u=None):
+    def learner_step(agent_state, replay_state, gen, u=None, age=None, ef=None):
+        del age  # no cross-shard reduce to weight
         idx, items, is_w = replay.sample(replay_state, gen, cfg.batch_size,
                                          cfg.beta, u=u)
         agent_state, metrics, td = agent.learn(agent_state, items, is_w)
         replay_state = replay.update_priorities(replay_state, idx, td,
                                                 lazy=cfg.lazy_replay)
-        return agent_state, replay_state, {"loss": metrics["loss"]}
+        return (agent_state, replay_state,
+                {"loss": metrics["loss"], "compress_error_norm": 0.0}, ef)
 
     return learner_step
 
@@ -170,12 +193,18 @@ def publish(held: nn.Module, fresh: nn.Module) -> None:
     torch._foreach_copy_(list(held.parameters()), list(fresh.parameters()))
 
 
-def make_step(agent: Agent, replay: PrioritizedReplay, v_step: Callable,
-              cfg: LoopConfig, n_envs: int, *,
-              schedule: Optional[RatioSchedule] = None,
+def make_step(agent: Agent, replay, v_step: Callable, cfg: LoopConfig,
+              n_envs: int, *, schedule: Optional[RatioSchedule] = None,
+              learn_fn: Optional[Callable] = None, shard_id: int = 0,
               publish_interval: int = 0):
     """Compose actor + learner programs into one ``step(state) → (state,
     metrics)``.
+
+    ``n_envs`` is this shard's env count; ``schedule`` carries the global
+    env steps per iteration.  ``learn_fn`` replaces the fused learner
+    (the sharded one reduces over a mesh) and ``shard_id`` staggers the
+    publish tick.  Metrics are this shard's; the sharded executor reduces
+    them over the mesh once a chunk.
 
     ``publish_interval=0`` is the synchronous loop: actors act on the
     fresh ``state.agent``.  ``publish_interval=P ≥ 1`` is the async loop
@@ -186,7 +215,7 @@ def make_step(agent: Agent, replay: PrioritizedReplay, v_step: Callable,
                          "(0 = the synchronous loop)")
     schedule = schedule or RatioSchedule.from_config(cfg, n_envs)
     actor_step = make_actor_step(agent, v_step, n_envs)
-    learn_fn = make_learner_step(agent, replay, cfg)
+    learn_fn = learn_fn or make_learner_step(agent, replay, cfg)
 
     def step(state: LoopState) -> Tuple[LoopState, Dict[str, Metric]]:
         gen = state.rng
@@ -215,25 +244,30 @@ def make_step(agent: Agent, replay: PrioritizedReplay, v_step: Callable,
         it = state.env_steps // schedule.env_steps_per_iter
         can_learn = state.env_steps >= cfg.warmup and it % schedule.period == 0
         agent_state, learn_steps = state.agent, state.learn_steps
+        age = state.params_age if publish_interval else 0
+        ef_error = state.ef_error
         loss = torch.zeros((), device=ep_ret.device)
+        err_norm = 0.0
         if can_learn:
             for i in range(schedule.learns):
                 if lazy and i:
                     # extra learner calls must sample a consistent tree
                     replay_state = replay.flush(replay_state)
-                agent_state, replay_state, lmetrics = learn_fn(
-                    agent_state, replay_state, gen)
+                agent_state, replay_state, lmetrics, ef_error = learn_fn(
+                    agent_state, replay_state, gen, age=age, ef=ef_error)
                 loss = loss + lmetrics["loss"]
+                err_norm = err_norm + lmetrics["compress_error_norm"]
             loss = loss / schedule.learns
+            err_norm = err_norm / schedule.learns
             learn_steps += schedule.learns
 
         # 5. lazy write, phase 2: storage write + P_max restore
         replay_state = replay.insert_commit(replay_state, slots, transitions,
                                             lazy=lazy)
 
-        # 6. async publish, on the host's iteration clock
+        # 6. async publish, on the host's iteration clock, staggered by shard
         params_age = state.params_age
-        if publish_interval and (it + 1) % publish_interval == 0:
+        if publish_interval and (it + 1 + shard_id) % publish_interval == 0:
             publish(state.actor_params, agent.params_for_acting(agent_state))
             params_age = 0
         elif publish_interval:
@@ -245,7 +279,7 @@ def make_step(agent: Agent, replay: PrioritizedReplay, v_step: Callable,
             env_steps=state.env_steps + schedule.env_steps_per_iter,
             episode_return=ep_ret, last_return=last_ret,
             learn_steps=learn_steps, actor_params=state.actor_params,
-            params_age=params_age)
+            params_age=params_age, ef_error=ef_error)
         metrics = {
             "loss": loss,
             "mean_episode_return": torch.mean(last_ret),
@@ -253,29 +287,53 @@ def make_step(agent: Agent, replay: PrioritizedReplay, v_step: Callable,
             "learn_steps": learn_steps,
             "buffer_size": replay_state.count,
             "epsilon": eps,
+            "compress_error_norm": err_norm,
         }
         return new_state, metrics
 
     return step
 
 
-def init_loop_state(agent: Agent, replay: PrioritizedReplay, v_reset: Callable,
-                    seed: int, n_envs: int, double_buffer: bool = False) -> LoopState:
+def shard_seed(seed: int, shard_id: int) -> int:
+    """The generator seed of shard ``shard_id``: ``seed`` itself for shard
+    0 (so one shard is the fused loop), else 64 bits of numpy's
+    ``SeedSequence((seed, shard_id))``."""
+    if shard_id == 0:
+        return seed
+    return int(np.random.SeedSequence((seed, shard_id)).generate_state(1, np.uint64)[0])
+
+
+def init_loop_state(agent: Agent, replay, v_reset: Callable, seed: int, n_envs: int,
+                    double_buffer: bool = False, shard_id: int = 0,
+                    ef_buffer: bool = False, overlap: bool = False) -> LoopState:
     """Initial state on the replay's device; one generator seeded with
-    ``seed`` draws the env resets, the agent init and then the loop's
-    random numbers.  ``double_buffer`` fills the async acting copy: a
-    deep copy of ``agent.params_for_acting`` at age 0."""
+    ``shard_seed(seed, shard_id)`` draws the env resets, the agent init
+    and then the loop's random numbers.  ``double_buffer`` fills the async
+    acting copy: a deep copy of ``agent.params_for_acting`` at age 0.
+    ``ef_buffer`` fills the zero error-feedback buffer of the compressed
+    reduce, shaped like the params (the gradient list of agents with the
+    grads/apply_grads split); ``overlap`` widens it to the overlapped
+    reduce's ``{"ef", "prev_mean", "prev_partial"}``, all zero.  On a mesh
+    the executor then makes the agent state every rank's (a broadcast
+    from rank 0)."""
     gen = torch.Generator(device=replay.device)
-    gen.manual_seed(seed)
+    gen.manual_seed(shard_seed(seed, shard_id))
     env_state, obs = v_reset(gen)
     agent_state = agent.init(gen)
     zeros = torch.zeros((n_envs,), dtype=torch.float32, device=replay.device)
+    ef_error = None
+    if ef_buffer:
+        params = list(agent_state.params.parameters())
+        ef_error = ({k: compress.init_error(params)
+                     for k in ("ef", "prev_mean", "prev_partial")}
+                    if overlap else compress.init_error(params))
     return LoopState(agent=agent_state, replay=replay.init(),
                      env_state=env_state, obs=obs, rng=gen, env_steps=0,
                      episode_return=zeros, last_return=zeros.clone(),
                      learn_steps=0,
                      actor_params=(copy.deepcopy(agent.params_for_acting(agent_state))
-                                   .requires_grad_(False) if double_buffer else None))
+                                   .requires_grad_(False) if double_buffer else None),
+                     ef_error=ef_error)
 
 
 def train(agent: Agent, replay: PrioritizedReplay, v_reset: Callable,

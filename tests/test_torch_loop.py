@@ -144,7 +144,7 @@ def test_one_learner_call_matches_reference():
     treplay = PrioritizedReplay(ReplayConfig(capacity=512, fanout=8),
                                 transition_example(spec), device="cpu")
     u = torch.from_numpy(np.array(jax.random.uniform(key, (32,))))
-    tas2, trs2, tm = loop.make_learner_step(tagent, treplay, LoopConfig(batch_size=32))(
+    tas2, trs2, tm, _ = loop.make_learner_step(tagent, treplay, LoopConfig(batch_size=32))(
         tas, trs, None, u=u)
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
     want = interop.agent_state_from_numpy(jax.device_get(jas2))
