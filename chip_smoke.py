@@ -104,16 +104,16 @@ failure and prints no result):
                 (the loss and the per-sequence |TD| reported beside them);
  13. train    — `python -m repro_torch.launch.train`'s main at InternLM2-1.8B's
                 full width and depth, flash, --seq 256 --batch 8 --n-envs 16
-                --steps 6 --ckpt-every 3: 48 Hopper forward, 24 Hopper dQ and
+                --steps 4 --ckpt-every 2: 48 Hopper forward, 24 Hopper dQ and
                 24 Hopper dK/dV launches per train step (none of the f32
                 forward and backward kernels) and the sample and gather
                 kernels on every step,
                 finite losses, moved parameters, the tree's root changed at the
-                flush after update_priorities, the step-6 checkpoint restored
+                flush after update_priorities, the step-4 checkpoint restored
                 into a fresh state bit for bit, the sample and gather kernels
                 against their plain versions on the run's own tree and token
-                rows, a profiled train step, and a second call with --steps 8
-                that resumes from step 6;
+                rows, a profiled train step, and a second call with --steps 6
+                that resumes from step 4 (6 + 2 steps until PR 20);
  14. bwd times — the Hopper dQ and dK/dV kernels and the f32-FMA pair at
                 (128, 256, 128) and (32, 4096, 128) bf16 causal beside their
                 bounds, their plain versions and one SDPA backward call that
@@ -167,12 +167,32 @@ failure and prints no result):
                 collective through the host); (c) four ranks over gloo as 2x2
                 pod x data, the int8-EF cross-pod reduce with bf16 inside a
                 pod, then AsyncExecutor at publish interval 3 and max staleness
-                1, 384 iterations each: finite losses, compress_error_norm > 0
+                1, 192 iterations each (384 until PR 20): finite losses, compress_error_norm > 0
                 once learning starts, the EF buffer's norm moving between
                 chunks, the state byte-identical on the 4 ranks, staggered ages;
                 (d) world 2's learner state restored at world 1 and world 1's
                 at world 2 (checkpoint/elastic.py): bit for bit on every rank,
                 and a learning step with a finite loss after the replay refills.
+ 19. service — the replay service (src/repro_torch/service) through
+                launch/multiprocess.py::launch_service, each role a process on
+                this card meeting over localhost TCP: (a) 1 server + 2 actors
+                (8 envs, chunks of 8) + 1 learner at the main path's width (DQN
+                (4, 256, 256, 2), replay 20,000 x K=128, batch 64, spi 8, warmup
+                400), 1,400 learn steps: every role on the card, the rate
+                limiter inside its band (|samples - spi (inserts - min)| <=
+                error buffer), eval return above 30, the server's launches one
+                descent (#1) and one gather (#2) a sample and no other kernel,
+                the wall per learn step; (b) 2 shards (10,000 each, round
+                robin) sampled by the fused sample+gather (#3), the learner
+                exiting at 300 learn steps and a fresh one resuming from its
+                checkpoint to 600: two #3 launches a sample and no #1 or #2,
+                RESUMED_FROM 300, the band; (c) in process: ServiceExecutor (1
+                shard, RateLimiter.from_schedule) against FusedExecutor for 200
+                iterations at the main path's settings, every state tensor,
+                metric, the tree and the storage bit for bit, one #1 and one #2
+                launch a learner call; and an ActorServer at granite_8b SMOKE
+                (f32) whose param_source is a ReplayService on the card, swapping
+                to a version put mid-run.
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration; phase
@@ -193,6 +213,7 @@ import io
 import json
 import math
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -1089,15 +1110,15 @@ def train_phases(torch, dev, card: str) -> list:
     # 13. the training path through its entry point, at full width and depth
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
     argv = ["--arch", "internlm2_1_8b", "--attn-impl", "flash", "--seq", "256", "--batch", "8",
-            "--n-envs", "16", "--ckpt-every", "3", "--ckpt-dir", ckpt, "--seed", str(SEED)]
+            "--n-envs", "16", "--ckpt-every", "2", "--ckpt-dir", ckpt, "--seed", str(SEED)]
     try:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        res = train.main(argv + ["--steps", "6"])
+        res = train.main(argv + ["--steps", "4"])
         train_counts = dict(ops.launch_counts)
         hist, state = res["history"], res["state"]
         steps = len(hist)
-        check(steps == 6 and res["start"] is None, f"{steps} steps, start {res['start']}")
+        check(steps == 4 and res["start"] is None, f"{steps} steps, start {res['start']}")
         want = {fa.SM90_NAME: 2 * layers * steps, fa.NAME: None,
                 fa.DQ_SM90_NAME: layers * steps, fa.DKV_SM90_NAME: layers * steps,
                 fa.DQ_NAME: None, fa.DKV_NAME: None}
@@ -1117,11 +1138,11 @@ def train_phases(torch, dev, card: str) -> list:
               f"({res['root_before_flush']})")
         # the checkpoint of the last step restores into a fresh state bit for bit
         mgr = CheckpointManager(ckpt, keep=2)
-        check(mgr.all_steps() == [3, 6], f"checkpoints {mgr.all_steps()}, expected [3, 6]")
+        check(mgr.all_steps() == [2, 4], f"checkpoints {mgr.all_steps()}, expected [2, 4]")
         t0 = time.perf_counter()
         fresh = token_dqn.init_train_state(res["cfg"], res["tcfg"],
                                            torch.Generator(device=dev).manual_seed(SEED + 99))
-        got = mgr.restore(6, state_tensors(fresh))
+        got = mgr.restore(4, state_tensors(fresh))
         restore_s = time.perf_counter() - t0
         saved = state_tensors(state)
         same = sum(bool(torch.equal(t, saved[k])) for k, t in got.items())
@@ -1166,16 +1187,16 @@ def train_phases(torch, dev, card: str) -> list:
         del res, state, replay, rst, items, w, idx, prof
         gc.collect()
         torch.cuda.empty_cache()
-        shutil.rmtree(os.path.join(ckpt, "step_3"))   # the card's machine has ~75 GB of disk
-        # a second call resumes from step 6
+        shutil.rmtree(os.path.join(ckpt, "step_2"))   # the card's machine has ~75 GB of disk
+        # a second call resumes from step 4
         printed = io.StringIO()
         ops.reset_launch_counts()
         with contextlib.redirect_stdout(printed):
-            res2 = train.main(argv + ["--steps", "8"])
+            res2 = train.main(argv + ["--steps", "6"])
         resume_counts = dict(ops.launch_counts)
         print(printed.getvalue(), end="", flush=True)
-        check("resumed from step 6" in printed.getvalue() and res2["start"] == 6
-              and len(res2["history"]) == 2, f"the second call did not resume from step 6: "
+        check("resumed from step 4" in printed.getvalue() and res2["start"] == 4
+              and len(res2["history"]) == 2, f"the second call did not resume from step 4: "
               f"start {res2['start']}, {len(res2['history'])} steps")
         check(resume_counts.get(fa.DQ_SM90_NAME) == 2 * layers,
               f"resumed run launches {resume_counts}")
@@ -1569,7 +1590,7 @@ def actor_critic_phase(torch, dev, card: str, iterations: int = PENDULUM_ITERS) 
 # -- phase 18: the sharded runtime, its shards as ranks on the one card -----------
 
 SHARDED_ITERS = 1400       # 18(b): the main path's run, never shortened
-POD_ITERS = 384            # 18(c): each of the 2×2 runs
+POD_ITERS = 192            # 18(c): each of the 2×2 runs (384 until PR 20)
 
 
 def _cartpole_dqn():
@@ -1742,7 +1763,7 @@ def _sharded_world2(rank: int, ckpt: str) -> dict:
 def _sharded_world4(rank: int) -> dict:
     """18(c), four ranks over gloo as 2×2 (pod, data): the compressed
     cross-pod reduce with bf16 inside a pod, then AsyncExecutor at publish
-    interval 3 and max staleness 1 on the same mesh, 384 iterations each,
+    interval 3 and max staleness 1 on the same mesh, 192 iterations each,
     chunk by chunk."""
     import torch
 
@@ -1928,6 +1949,214 @@ def sharded_phase(torch, dev, card: str) -> dict:
     res["seconds"] = time.perf_counter() - t_phase
     print(f"[sharded] phase 18 in {res['seconds']:.1f} s", flush=True)
     print(f"[sharded rate] {json.dumps({'iterations': SHARDED_ITERS, 'seconds': secs, 'iterations_per_s': SHARDED_ITERS / secs, 'wall_us_per_iteration': secs / SHARDED_ITERS * 1e6, 'return': ret, 'launches': [r['launches'] for r in b], 'profile': prof})}", flush=True)
+    return res
+
+
+# -- phase 19: the replay service, its roles as processes on the one card ------
+
+SERVICE_LEARN_STEPS = 1400     # 19(a): the reference's run length, never shortened
+SERVICE_RESTART_STEPS = 600    # 19(b): the 2-shard fused gang, restarted at 300
+SERVICE_EXEC_ITERS = 200       # 19(c): ServiceExecutor against FusedExecutor
+SERVICE_GANG = dict(n_actors=2, samples_per_insert=8.0, batch_size=64, warmup=400,
+                    n_envs=8, actor_chunk=8, epsilon=0.2, seed=1, device="cuda")
+
+
+def spi_band(kv: dict) -> tuple:
+    """(debt, error buffer) of a server's result: the band theorem
+    |realized − spi| ≤ error_buffer / (inserts − min) in its exact form
+    |samples − spi·(inserts − min)| ≤ error_buffer."""
+    past = int(kv["INSERTS"]) - int(kv["MIN_SIZE_TO_SAMPLE"])
+    return int(kv["SAMPLES"]) - float(kv["CONFIGURED_SPI"]) * past, float(kv["ERROR_BUFFER"])
+
+
+def service_launches(kv: dict) -> dict:
+    """The server's kernel launches, by kernel name."""
+    return {name: int(kv[f"LAUNCH_{name.upper()}"])
+            for name in ("sumtree_sample", "gather", "sample_gather", "sumtree_update")}
+
+
+def service_phase(torch, dev, card: str) -> dict:
+    """Phase 19: the replay service (src/repro_torch/service) through
+    launch/multiprocess.py::launch_service, server, actors and learner
+    each a process on this card and meeting over localhost TCP; then
+    ServiceExecutor against FusedExecutor and an ActorServer fed by the
+    service's params channel, in process."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.agents.base import state_tensors
+    from repro_torch.agents.dqn import DQNConfig, make_dqn
+    from repro_torch.configs import get_config
+    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import multiprocess as mp
+    from repro_torch.models import backbone
+    from repro_torch.quickstart import transition_example
+    from repro_torch.runtime.executors import FusedExecutor
+    from repro_torch.runtime.loop import LoopConfig
+    from repro_torch.serve import ActorServeConfig, ActorServer
+    from repro_torch.service import ReplayService, ReplayServiceConfig, ServiceExecutor
+    from repro_torch.service.client import as_numpy
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    res = {}
+    # (a) the 1-shard gang at the main path's width: #1 and #2 once a sample
+    t0 = time.perf_counter()
+    a = mp.launch_service(learn_steps=SERVICE_LEARN_STEPS, capacity_per_shard=20_000,
+                          timeout_s=420.0, **SERVICE_GANG)
+    secs = time.perf_counter() - t0
+    server, learner = a["server"], a["learner"]
+    debt, eb = spi_band(server)
+    launches = service_launches(server)
+    calls = int(server["SAMPLE_CALLS"])
+    check(server["DEVICE"].startswith("cuda") and server["TREE_BACKEND"] == "cuda"
+          and learner["DEVICE"].startswith("cuda")
+          and all(a[f"actor-{i}"]["DEVICE"].startswith("cuda") for i in range(2)),
+          f"19(a) a role did not run on the card: {server['DEVICE']}, {learner['DEVICE']}")
+    check(abs(debt) <= eb, f"19(a) the rate limiter left its band: debt {debt}, error buffer {eb} "
+          f"(realized spi {server['REALIZED_SPI']}, tolerance {server['SPI_TOLERANCE']})")
+    check(int(learner["LEARN_STEPS"]) == calls == SERVICE_LEARN_STEPS,
+          f"19(a) {learner['LEARN_STEPS']} learn steps, {calls} samples")
+    check(launches["sumtree_sample"] == launches["gather"] == calls
+          and not launches["sample_gather"] and not launches["sumtree_update"],
+          f"19(a) server launches {launches} for {calls} samples: want one descent and one "
+          "gather a sample, no fused or update kernel")
+    ret = float(learner["EVAL_RETURN"])
+    check(ret > 30.0, f"19(a) the gang's eval return {ret} does not beat 30")
+    wall_ms = float(learner["WALL_PER_LEARN_MS"])
+    split = {k: float(learner[f"{k.upper()}_MS_PER_LEARN"]) for k in ("sample", "learn", "update")}
+    print(f"[service a] 1 server + 2 actors (8 envs, chunks of 8) + 1 learner, each a process on "
+          f"{server['DEVICE']}, over localhost TCP: DQN (4, 256, 256, 2), replay 20,000 x K=128, "
+          f"batch 64, spi 8, warmup 400: {calls} learn steps, eval return {ret:.1f}, realized spi "
+          f"{float(server['REALIZED_SPI']):.4f} (tolerance {float(server['SPI_TOLERANCE']):.4f}), "
+          f"{server['INSERTS']} inserts in {server['APPENDS']} appends; wall {wall_ms:.2f} ms a "
+          f"learn step (the sample round trip {split['sample']:.2f}, the learn call to its TD "
+          f"on the host {split['learn']:.2f}, the write-back {split['update']:.2f}; "
+          f"{float(learner['LEARN_WALL_S']):.2f} s of learning, the gang "
+          f"{secs:.1f} s with its start); server launches {launches}; "
+          f"{int(server['SAMPLE_HOST_COPIES']) / calls:.0f} device-to-host copies a sample (five "
+          f"leaves and the weights) | {card}", flush=True)
+    res["a"] = {"seconds": secs, "wall_ms_per_learn": wall_ms, "ms_per_learn": split, "learn_s":
+                float(learner["LEARN_WALL_S"]), "return": ret, "launches": launches,
+                "samples": calls, "realized_spi": float(server["REALIZED_SPI"]),
+                "spi_tolerance": float(server["SPI_TOLERANCE"]),
+                "inserts": int(server["INSERTS"]), "appends": int(server["APPENDS"]),
+                "host_copies_per_sample": int(server["SAMPLE_HOST_COPIES"]) / calls}
+    # (b) 2 shards, each sampled by #3, and the learner restart drill
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    try:
+        t0 = time.perf_counter()
+        b = mp.launch_service(n_shards=2, fused_sample_gather=True, router="round_robin",
+                              learn_steps=SERVICE_RESTART_STEPS, capacity_per_shard=10_000,
+                              ckpt_dir=ckpt, ckpt_every=100,
+                              restart_learner_after=SERVICE_RESTART_STEPS // 2,
+                              timeout_s=420.0, **SERVICE_GANG)
+        secs_b = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    server, first, learner = b["server"], b["learner-0"], b["learner"]
+    debt, eb = spi_band(server)
+    launches_b = service_launches(server)
+    calls = int(server["SAMPLE_CALLS"])
+    half = SERVICE_RESTART_STEPS // 2
+    check(first.get("EXITED_EARLY") == "1" and int(first["LEARN_STEPS"]) == half
+          and int(learner["RESUMED_FROM"]) == half
+          and int(learner["LEARN_STEPS"]) == SERVICE_RESTART_STEPS == calls,
+          f"19(b) the learner restart: first {first}, resumed {learner.get('RESUMED_FROM')}, "
+          f"{learner.get('LEARN_STEPS')} learn steps, {calls} samples")
+    check(abs(debt) <= eb, f"19(b) the rate limiter left its band: debt {debt}, error buffer {eb}")
+    check(launches_b["sample_gather"] == 2 * calls and not launches_b["sumtree_sample"]
+          and not launches_b["gather"] and not launches_b["sumtree_update"],
+          f"19(b) server launches {launches_b} for {calls} samples of 2 shards: want two fused "
+          "launches a sample and no other kernel")
+    counts = [int(c) for c in server["PER_SHARD_COUNT"].split(",")]
+    check(len(counts) == 2 and min(counts) > 0, f"19(b) shard counts {counts}")
+    print(f"[service b] 2 shards (10,000 each, round robin), fused sample+gather, learner "
+          f"restarted at {half}: resumed from {learner['RESUMED_FROM']}, {calls} learn steps in "
+          f"all, eval return {float(learner['EVAL_RETURN']):.1f}, realized spi "
+          f"{float(server['REALIZED_SPI']):.4f} (tolerance {float(server['SPI_TOLERANCE']):.4f}), "
+          f"shard counts {counts}; server launches {launches_b}; wall "
+          f"{float(learner['WALL_PER_LEARN_MS']):.2f} ms a learn step after the restart; the gang "
+          f"{secs_b:.1f} s | {card}", flush=True)
+    res["b"] = {"seconds": secs_b, "launches": launches_b, "samples": calls,
+                "wall_ms_per_learn": float(learner["WALL_PER_LEARN_MS"]),
+                "return": float(learner["EVAL_RETURN"]), "counts": counts}
+    # (c) in process: ServiceExecutor ≡ FusedExecutor bit for bit on the card
+    env_fn = lambda n: make_vec("cartpole", n)  # noqa: E731
+    spec_env, _, _ = env_fn(1)
+    example = transition_example(spec_env)
+    agent = make_dqn(spec_env, DQNConfig())
+    cfg = LoopConfig(batch_size=64, warmup=400, epsilon=0.2)
+    fused = FusedExecutor(agent, PrioritizedReplay(ReplayConfig(capacity=20_000, fanout=128),
+                                                   example, device="cuda"), env_fn, cfg, 8)
+    fs, fh = fused.train(SERVICE_EXEC_ITERS, SEED + 3)
+    svc = ReplayService(ReplayServiceConfig(capacity_per_shard=20_000, fanout=128), example,
+                        device="cuda")
+    ex = ServiceExecutor(agent, svc, env_fn, cfg, 8)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ss, sh = ex.train(SERVICE_EXEC_ITERS, SEED + 3)
+    torch.cuda.synchronize()
+    exec_launches = dict(ops.launch_counts)
+    diff_state = differing(torch, state_tensors(fs.agent), state_tensors(ss.agent))
+    diff_hist = differing(torch, fh, sh)
+    diff_replay = differing(torch, {"tree": fs.replay.tree, **fs.replay.storage},
+                            {"tree": ss.replay[0].tree, **ss.replay[0].storage})
+    check(not diff_state and not diff_hist and not diff_replay and ss.learn_steps == fs.learn_steps > 0
+          and torch.equal(ss.obs, fs.obs),
+          f"19(c) ServiceExecutor is not FusedExecutor bit for bit: state {diff_state[:4]}, "
+          f"history {diff_hist}, replay {diff_replay}, learner calls {ss.learn_steps} vs "
+          f"{fs.learn_steps}")
+    check(svc.replay.ops.name == "cuda" and exec_launches.get("sumtree_sample") ==
+          exec_launches.get("gather") == ss.learn_steps,
+          f"19(c) ServiceExecutor launches {exec_launches} for {ss.learn_steps} learner calls")
+    print(f"[service c] ServiceExecutor (1 shard, RateLimiter.from_schedule) against "
+          f"FusedExecutor on the card, {SERVICE_EXEC_ITERS} iterations at the main path's "
+          f"settings from one seed: {len(state_tensors(ss.agent))} state tensors, "
+          f"{len(sh)} metrics, the tree and the storage bit for bit; {ss.learn_steps} learner "
+          f"calls, launches {exec_launches} | {card}", flush=True)
+    res["c"] = {"launches": exec_launches, "learner_calls": ss.learn_steps}
+    del fused, fs, fh, ex, ss, sh, svc
+    # an ActorServer whose param_source is a ReplayService: a version put mid-run
+    s_cfg = get_config("granite_8b", smoke=True)
+    model = backbone.init_params(s_cfg, torch.Generator(device=dev).manual_seed(SEED + 5))
+    fresh = backbone.init_params(s_cfg, torch.Generator(device=dev).manual_seed(SEED + 6))
+    psvc = ReplayService(ReplayServiceConfig(capacity_per_shard=8),
+                         {"obs": torch.zeros((2,))}, device="cuda")
+    s_server = ActorServer(s_cfg, model, ActorServeConfig(slots=2, max_len=16, buckets=(8,),
+                                                          max_new_tokens=4, idle_wait_s=0.005),
+                           params_version=0, param_source=psvc, device=dev)
+    rng = np.random.RandomState(SEED + 7)
+    try:
+        s_server.start()
+        for h in [s_server.submit(rng.randint(0, s_cfg.vocab_size, size=5)) for _ in range(3)]:
+            h.result(timeout=300)
+        psvc.put_params(pickle.dumps(as_numpy(fresh)))
+        done = [h.result(timeout=300) for h in
+                [s_server.submit(rng.randint(0, s_cfg.vocab_size, size=5)) for _ in range(3)]]
+    finally:
+        s_server.stop()
+        psvc.stop()
+    st = s_server.stats()
+    live, version, _ = s_server.params.swap_if_staged()
+    same = all(torch.equal(x, y) for x, y in zip(live.state_dict().values(),
+                                                  fresh.state_dict().values()))
+    check(st["params_version"] == 1 and st["param_swaps"] == 1 and same
+          and live is not model and any(c.params_version == 1 for c in done)
+          and next(live.parameters()).device.type == "cuda",
+          f"19(c) the ActorServer did not swap to the service's version: {st['swap_log']}, "
+          f"versions {[c.params_version for c in done]}, params equal {same}")
+    print(f"[service c] ActorServer ({s_cfg.name}, f32, on {dev}) with a ReplayService as "
+          f"param_source: version 1 put mid-run, swapped at step {st['swap_log']}, "
+          f"{st['completed']} requests completed, the live model's "
+          f"{len(live.state_dict())} tensors equal to the published | {card}", flush=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[service] phase 19 in {res['seconds']:.1f} s", flush=True)
+    print(f"[service rate] {json.dumps({k: res[k] for k in ('a', 'b', 'c')})}", flush=True)
     return res
 
 
@@ -2321,6 +2550,9 @@ def main() -> None:
     # 18. the sharded runtime, its ranks on this card; each rank's launches
     # counted from 0 over the 1,400 iterations of 18(b)
     sharded = sharded_phase(torch, dev, card)
+    # 19. the replay service: its roles as processes on this card, the server's
+    # launches counted from its start; then in process
+    service = service_phase(torch, dev, card)
     for entry in kernels:
         entry["restart_launches"] = restart["launches"].get(entry["name"], 0)
         entry["async_launches"] = async_rate["launches"].get(entry["name"], 0)
@@ -2328,6 +2560,9 @@ def main() -> None:
                                       for name, r in actor_critic["agents"].items()}
         entry["sharded_launches_per_rank"] = [r["launches"].get(entry["name"], 0)
                                               for r in sharded["b"]]
+        entry["service_launches"] = {"1-shard gang": service["a"]["launches"].get(entry["name"], 0),
+                                     "2-shard fused gang": service["b"]["launches"].get(entry["name"], 0),
+                                     "ServiceExecutor": service["c"]["launches"].get(entry["name"], 0)}
         if entry["name"] == "gather":
             entry["sampling_chain"]["Pendulum 50,000/B=64, 5 leaves"] = actor_critic["chain"]
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,7 +1,9 @@
 """The paper's training loop (Alg. 1) as composable actor/learner programs
 — port of ``repro.runtime.loop``: the synchronous loop, the async loop in
-which actors act on a delayed parameter copy, and the same step run by
-each rank of a mesh (``runtime/executors.py::ShardedExecutor``).
+which actors act on a delayed parameter copy, the same step run by each
+rank of a mesh (``runtime/executors.py::ShardedExecutor``), and the split
+actor and learner programs that meet at the replay service
+(``service/``).
 
 One iteration, in the reference's phase order:
 
@@ -161,7 +163,70 @@ def make_actor_step(agent: Agent, v_step: Callable, n_envs: int):
     return actor_step
 
 
+# -- actor-side program (service boundary, DESIGN.md §11) --------------------
+
+
+class ActorSlice(NamedTuple):
+    """The actor-side state of the decoupled runtime: everything an actor
+    process owns when the replay buffer lives behind a service — env state
+    and the episode-return bookkeeping.  The agent params arrive through
+    the service's params channel; the replay state never enters the
+    actor's process."""
+
+    env_state: object
+    obs: torch.Tensor
+    episode_return: torch.Tensor
+    last_return: torch.Tensor
+
+
+def init_actor_slice(v_reset: Callable, gen: torch.Generator, n_envs: int) -> ActorSlice:
+    """Fresh envs from ``gen`` (the reference folds the actor's id into
+    its key; here the caller seeds each actor's generator apart), on the
+    generator's device."""
+    env_state, obs = v_reset(gen)
+    zeros = torch.zeros((n_envs,), dtype=torch.float32, device=obs.device)
+    return ActorSlice(env_state=env_state, obs=obs, episode_return=zeros,
+                      last_return=zeros.clone())
+
+
+def make_actor_program(agent: Agent, v_step: Callable, cfg: LoopConfig, n_envs: int):
+    """The actor side of the split runtime: (acting params, env slice,
+    generator, global env-step clock) → a transition batch, with no replay
+    state and no learner.  The ε-schedule is computed from the host-int
+    ``env_steps`` clock (the service reports its global inserts), so the
+    fleet's exploration decays as one actor's would.
+
+    Returns ``program(agent_state, slice, gen, env_steps) → (slice',
+    transitions)``; the caller owns the generator and the append."""
+    actor_step = make_actor_step(agent, v_step, n_envs)
+
+    def program(agent_state, sl: ActorSlice, gen: torch.Generator, env_steps: int):
+        eps = epsilon_schedule(cfg, env_steps)
+        env_state, obs, ep_ret, last_ret, transitions = actor_step(
+            agent_state, sl.env_state, sl.obs, sl.episode_return, sl.last_return,
+            gen, eps)
+        return ActorSlice(env_state, obs, ep_ret, last_ret), transitions
+
+    return program
+
+
 # -- learner program ---------------------------------------------------------
+
+
+def make_learner_program(agent: Agent):
+    """The learner side of the split runtime (DESIGN.md §11): learn on a
+    batch handed over the service boundary and return the TD errors that
+    the service writes back as priorities.  Sample and priority update
+    live behind the service; ``make_learner_step`` below is this program
+    composed with an in-process replay.
+
+    Returns ``program(agent_state, items, weights) → (agent_state,
+    metrics, |td|)``."""
+
+    def program(agent_state, items, weights):
+        return agent.learn(agent_state, items, weights)
+
+    return program
 
 
 def make_learner_step(agent: Agent, replay: PrioritizedReplay, cfg: LoopConfig):

@@ -2,11 +2,11 @@
 (DESIGN.md §13): a request queue feeding prompt-length padding buckets,
 a scheduler that admits requests into free decode slots each serve step
 (continuous batching over per-slot KV caches), and double-buffered
-parameter publication."""
+parameter publication, fed by the replay service's params channel."""
 
 from repro_torch.serve.buckets import BucketSpec
 from repro_torch.serve.engine import DecodeEngine, DecodeState, SUPPORTED_FAMILIES
-from repro_torch.serve.params import ParamDoubleBuffer
+from repro_torch.serve.params import ParamDoubleBuffer, ServiceParamChannel
 from repro_torch.serve.scheduler import Completion, Request, Scheduler
 from repro_torch.serve.server import ActorServeConfig, ActorServer, ServeHandle
 
@@ -21,5 +21,6 @@ __all__ = [
     "Request",
     "Scheduler",
     "ServeHandle",
+    "ServiceParamChannel",
     "SUPPORTED_FAMILIES",
 ]

@@ -9,8 +9,11 @@ batching scheduler over the batched decode engine.  Parameter hot-swap
 rides the §13 double buffer: ``publish()`` stages a new model from any
 thread, and the loop promotes it exactly once per step boundary, so a
 training learner can retarget the policy under live traffic without
-ever mixing versions inside one batch step.  The replay-service param
-channel (``param_source``) waits for the port of ``service/``.
+ever mixing versions inside one batch step.  With ``param_source`` (a
+``ReplayService`` or a ``ReplayClient``) the loop also polls the replay
+service's params channel at each step boundary and stages what it finds
+(``serve/params.py::ServiceParamChannel``): a copy of the model holding
+the published ``state_dict``.
 
 The serve thread selects the server's CUDA device first: PyTorch's
 current device is set per thread.
@@ -37,7 +40,7 @@ from repro_torch.device import DeviceLike
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.buckets import BucketSpec
 from repro_torch.serve.engine import DecodeEngine
-from repro_torch.serve.params import ParamDoubleBuffer
+from repro_torch.serve.params import ParamDoubleBuffer, ServiceParamChannel, module_loader
 from repro_torch.serve.scheduler import Completion, Scheduler
 
 Pytree = Any
@@ -85,10 +88,6 @@ class ActorServer:
                  serve_cfg: ActorServeConfig = ActorServeConfig(), *,
                  params_version: int = 1, param_source: Any = None,
                  device: DeviceLike = "cuda"):
-        if param_source is not None:
-            raise NotImplementedError(
-                "param_source (the replay service's params channel) is not "
-                "ported yet: it comes with the port of service/; use publish()")
         self.cfg = cfg
         self.serve_cfg = serve_cfg
         self.engine = DecodeEngine(
@@ -97,6 +96,9 @@ class ActorServer:
         self.device = self.engine.device
         self.scheduler = Scheduler(self.engine)
         self.params = ParamDoubleBuffer(params, version=params_version)
+        self.channel = (ServiceParamChannel(param_source, self.params,
+                                            load=module_loader(params))
+                        if param_source is not None else None)
         self._cond = threading.Condition()
         self._inbox: deque = deque()      # (prompt, max_new, handle, t)
         self._handles: Dict[int, ServeHandle] = {}
@@ -133,14 +135,16 @@ class ActorServer:
     # -- serve loop -----------------------------------------------------------
 
     def serve_step(self) -> List[Completion]:
-        """One step boundary: drain the inbox, promote any staged
-        params, then run one scheduler window."""
+        """One step boundary: drain the inbox, poll the param channel,
+        promote any staged params, then run one scheduler window."""
         with self._cond:
             while self._inbox:
                 prompt, budget, handle, t = self._inbox.popleft()
                 rid = self.scheduler.submit(prompt, budget, enqueued_at=t)
                 handle.rid = rid
                 self._handles[rid] = handle
+        if self.channel is not None:
+            self.channel.poll()
         params, version, swapped = self.params.swap_if_staged()
         if swapped:
             self._swap_log.append((self.scheduler.step_count + 1, version))
@@ -178,6 +182,8 @@ class ActorServer:
             with self._cond:
                 idle = not self._inbox and not self.scheduler.busy
                 if idle and not self._stop.is_set():
+                    # periodic wake even when idle: the param channel
+                    # only advances when polled
                     self._cond.wait(self.serve_cfg.idle_wait_s)
 
     def start(self) -> "ActorServer":

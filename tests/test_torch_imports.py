@@ -9,6 +9,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -91,3 +92,25 @@ def test_quickstart_runs_on_cpu_when_asked(capsys):
     # warmup 500: iterations 63..69 learn, 8 learner calls each
     assert state.env_steps == 560 and state.learn_steps == 7 * 8
     assert "tree backend cuda" in capsys.readouterr().out
+
+
+def test_service_roles_need_cuda_unless_cpu_requested(monkeypatch):
+    """Each replay-service role, the gang launcher and the service itself
+    raise without a GPU unless asked for the CPU; the gang modes of the
+    wall-clock launcher (not ported) exit 2."""
+    from repro_torch.launch import multiprocess as mp
+    from repro_torch.service import ReplayService, ReplayServiceConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for role in mp.SERVICE_ROLES:
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            mp.main(["--mode", role, "--serve-port", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mp.launch_service(n_actors=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplayService(ReplayServiceConfig(capacity_per_shard=8),
+                      {"obs": np.zeros((2,), np.float32)})
+    for mode in mp.GANG_MODES:
+        with pytest.raises(SystemExit) as e:
+            mp.main(["--mode", mode])
+        assert e.value.code == 2

@@ -261,9 +261,34 @@ def test_background_server_serves_and_stops(smoke):
 
 
 def test_param_source_waits_for_service_port(smoke):
+    """The params channel of the ported replay service feeds the server: a
+    source without ``get_params`` is refused, and a ``ReplayService``'s
+    published state_dict is staged at the next step boundary, as a copy of
+    the model holding those tensors."""
+    import pickle
+
+    from repro_torch.service import ReplayService, ReplayServiceConfig
+    from repro_torch.service.client import as_numpy
+
     _, tcfg, _, model = smoke
-    with pytest.raises(NotImplementedError, match="service"):
+    with pytest.raises(TypeError, match="get_params"):
         ActorServer(tcfg, model, param_source=object(), device="cpu")
+    svc = ReplayService(ReplayServiceConfig(capacity_per_shard=8),
+                        {"obs": np.zeros((2,), np.float32)}, device="cpu")
+    server = ActorServer(tcfg, model, ActorServeConfig(slots=SLOTS, max_len=MAX_LEN,
+                                                       buckets=BUCKETS, max_new_tokens=2),
+                         params_version=0, param_source=svc, device="cpu")
+    server.serve_step()
+    assert server.stats()["param_swaps"] == 0
+    scaled = {k: 2 * v for k, v in as_numpy(model).items()}
+    svc.put_params(pickle.dumps(scaled))
+    server.serve_step()
+    stats = server.stats()
+    assert stats["params_version"] == 1 and stats["param_swaps"] == 1
+    live, _, _ = server.params.swap_if_staged()
+    assert live is not model
+    for k, t in live.state_dict().items():
+        np.testing.assert_array_equal(t.numpy(), scaled[k])
 
 
 # -- the entry point ---------------------------------------------------------------
