@@ -39,7 +39,7 @@ failure and prints no result):
                 have launched, one gather launch for each descent (every
                 storage leaf in one launch), and a step must not synchronize
                 with the host (checked under torch.cuda.set_sync_debug_mode);
-  5. arms     — 200 iterations each of the fused sample+gather arm and the
+  5. arms     — 100 iterations each of the fused sample+gather arm and the
                 eager-replay arm, which launch the other two kernels: one
                 fused launch a learner call, one update launch a learner
                 call and two an iteration (the insert's two phases), each
@@ -104,7 +104,7 @@ failure and prints no result):
                 (the loss and the per-sequence |TD| reported beside them);
  13. train    — `python -m repro_torch.launch.train`'s main at InternLM2-1.8B's
                 full width and depth, flash, --seq 256 --batch 8 --n-envs 16
-                --steps 4 --ckpt-every 2: 48 Hopper forward, 24 Hopper dQ and
+                --steps 3 --ckpt-every 2: 48 Hopper forward, 24 Hopper dQ and
                 24 Hopper dK/dV launches per train step (none of the f32
                 forward and backward kernels) and the sample and gather
                 kernels on every step,
@@ -112,8 +112,8 @@ failure and prints no result):
                 flush after update_priorities, the step-4 checkpoint restored
                 into a fresh state bit for bit, the sample and gather kernels
                 against their plain versions on the run's own tree and token
-                rows, a profiled train step, and a second call with --steps 6
-                that resumes from step 4 (6 + 2 steps until PR 20);
+                rows, a profiled train step, and a second call with --steps 4
+                that resumes from step 3;
  14. bwd times — the Hopper dQ and dK/dV kernels and the f32-FMA pair at
                 (128, 256, 128) and (32, 4096, 128) bf16 causal beside their
                 bounds, their plain versions and one SDPA backward call that
@@ -131,7 +131,7 @@ failure and prints no result):
                 and every state tensor bit for bit; (b) publish interval 4
                 over 12 iterations, the ages [1, 2, 3, 0] x 3 and the acting
                 copy byte-identical between publishes; (c) publish interval
-                4 for 1,400 iterations at the main path's settings: return
+                4 for 700 iterations at the main path's settings: return
                 above 30, one descent and one gather launch per learner
                 call, no host sync in a step, a profiler window;
  17. actor-critic — DDPG, TD3 and SAC on Pendulum x 8 at the settings of
@@ -158,7 +158,7 @@ failure and prints no result):
                 over gloo: gloo's all_reduce and broadcast on CUDA tensors,
                 pod_data_mesh(2, 1) = data_mesh(2) bit for bit over 40
                 iterations, then phase 4's settings split over 2 shards (4 envs,
-                capacity 10,000 and batch 32 a shard, K=128), 1,400 iterations:
+                capacity 10,000 and batch 32 a shard, K=128), 700 iterations:
                 return above 30, one descent and one gather launch per learner
                 call on each rank, parameters, target, Adam state and step
                 byte-identical on both ranks, #1 and #2 against their plain
@@ -193,6 +193,33 @@ failure and prints no result):
                 launch a learner call; and an ActorServer at granite_8b SMOKE
                 (f32) whose param_source is a ReplayService on the card, swapping
                 to a version put mid-run.
+ 20. dse      — the paper's design-space exploration and the wall-clock gang
+                (runtime/dse.py, runtime/planner.py, executor_from_plan,
+                launch/multiprocess.py's gang): (a) the lane curves of
+                benchmarks/fig12_dse.py on the card (10 act+env steps of 1, 2,
+                4, 8 CartPole envs; 10 DQN learn calls at batch 32 x lanes),
+                Eq. 5 at a budget of 8 lanes and update interval 1 and 4, the
+                planner's plan from those curves built by executor_from_plan on
+                the card at the main path's width (DQN (4, 256, 256, 2), replay
+                20,000 x K=128, batch 64, warmup 64) and run 200 iterations:
+                one descent and one gather launch a learner call, no host sync
+                in a step, the realized env-steps/s beside the predicted; then
+                (b), (d) and (e) with their processes started together, and (c)
+                alone: (b) --mode fused, one process through the tcp:// handshake, against
+                FusedExecutor in this process, 30 iterations: loss, return, env
+                steps and the parameter checksum bit for bit; (c) --mode bench,
+                2 ranks over gloo on the card as a data mesh of 2, plain and
+                with the host publish every 3 iterations: STEPS_PER_S and
+                REL_SPREAD (recorded, not gated), one descent and one gather
+                launch a learner call on each rank; (d) --mode equiv, 2
+                processes: shift error 0.0 and telescoping error < 1e-6; (e)
+                launch.train --arch granite_8b --smoke --attn-impl flash --seq
+                128 --wall-clock 2, 3 steps: both workers' parameters equal
+                after the last average, the f32 flash kernels (#5b, #6b, #7b)
+                launched as the code predicts on each worker, none of the
+                Hopper ones; then those three kernels' times at the trainer's
+                shape (32, 128, 16) f32 causal beside their plain versions,
+                SDPA and their bounds.
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration; phase
@@ -209,6 +236,7 @@ the ``{"kernels": [...]}`` record.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -218,9 +246,11 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
@@ -258,6 +288,12 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def clock(phase: str) -> None:
+    """Where the script's time goes: the seconds since it was imported, as
+    a phase begins."""
+    print(f"[clock] phase {phase} starts at {time.perf_counter() - T_START:.1f} s", flush=True)
 
 
 # -- timing and bounds ---------------------------------------------------------
@@ -694,6 +730,7 @@ def flash_phases(torch, dev, card: str) -> list:
           f"{max(f32e['lse_max_rel'], sm90e['lse_max_rel']):.3g}", flush=True)
     torch.cuda.empty_cache()
 
+    clock("8 (serve)")
     # 8. the serve path: Granite-8B at full width and depth through ActorServer
     cfg = dataclasses.replace(get_config("granite_8b"), attn_impl="flash")
     check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff,
@@ -838,6 +875,7 @@ def flash_phases(torch, dev, card: str) -> list:
     del server, nserver, eng, state, slot_cache, params
     torch.cuda.empty_cache()
 
+    clock("9 (solo)")
     # 9. continuous batching against solo greedy decodes, f32, TF32 off
     c_cfg = dataclasses.replace(get_config("granite_8b", smoke=True), attn_impl="flash")
     check(c_cfg.dtype == "float32" and not torch.backends.cuda.matmul.allow_tf32,
@@ -873,6 +911,7 @@ def flash_phases(torch, dev, card: str) -> list:
           f"prefill): continuous = solo greedy, {len(departures)} near-tie departures",
           flush=True)
 
+    clock("10 (flash times)")
     # 10. the forward kernels' times beside their bounds, their plain version
     # and SDPA
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1029,6 +1068,7 @@ def train_phases(torch, dev, card: str) -> list:
           f"atol 2e-5 + rtol 1e-3); FlashAttention's gradients vs autograd through the plain "
           f"forward, 3 masks at (3, 200, 64) f32: max |err| {fn_err:.3g}", flush=True)
 
+    clock("12 (grad gate)")
     # 12. the gradient gate at full width: flash bf16 and naive bf16 against
     # the same weights in f32 (naive, TF32 off), one TD loss and its
     # gradients on each of GATE_BATCHES seeded batches.  Held to <= 1.1x
@@ -1107,6 +1147,7 @@ def train_phases(torch, dev, card: str) -> list:
     gc.collect()
     torch.cuda.empty_cache()
 
+    clock("13 (train)")
     # 13. the training path through its entry point, at full width and depth
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
     argv = ["--arch", "internlm2_1_8b", "--attn-impl", "flash", "--seq", "256", "--batch", "8",
@@ -1114,11 +1155,11 @@ def train_phases(torch, dev, card: str) -> list:
     try:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        res = train.main(argv + ["--steps", "4"])
+        res = train.main(argv + ["--steps", "3"])
         train_counts = dict(ops.launch_counts)
         hist, state = res["history"], res["state"]
         steps = len(hist)
-        check(steps == 4 and res["start"] is None, f"{steps} steps, start {res['start']}")
+        check(steps == 3 and res["start"] is None, f"{steps} steps, start {res['start']}")
         want = {fa.SM90_NAME: 2 * layers * steps, fa.NAME: None,
                 fa.DQ_SM90_NAME: layers * steps, fa.DKV_SM90_NAME: layers * steps,
                 fa.DQ_NAME: None, fa.DKV_NAME: None}
@@ -1138,11 +1179,11 @@ def train_phases(torch, dev, card: str) -> list:
               f"({res['root_before_flush']})")
         # the checkpoint of the last step restores into a fresh state bit for bit
         mgr = CheckpointManager(ckpt, keep=2)
-        check(mgr.all_steps() == [2, 4], f"checkpoints {mgr.all_steps()}, expected [2, 4]")
+        check(mgr.all_steps() == [2, 3], f"checkpoints {mgr.all_steps()}, expected [2, 3]")
         t0 = time.perf_counter()
         fresh = token_dqn.init_train_state(res["cfg"], res["tcfg"],
                                            torch.Generator(device=dev).manual_seed(SEED + 99))
-        got = mgr.restore(4, state_tensors(fresh))
+        got = mgr.restore(3, state_tensors(fresh))
         restore_s = time.perf_counter() - t0
         saved = state_tensors(state)
         same = sum(bool(torch.equal(t, saved[k])) for k, t in got.items())
@@ -1188,17 +1229,17 @@ def train_phases(torch, dev, card: str) -> list:
         gc.collect()
         torch.cuda.empty_cache()
         shutil.rmtree(os.path.join(ckpt, "step_2"))   # the card's machine has ~75 GB of disk
-        # a second call resumes from step 4
+        # a second call resumes from step 3
         printed = io.StringIO()
         ops.reset_launch_counts()
         with contextlib.redirect_stdout(printed):
-            res2 = train.main(argv + ["--steps", "6"])
+            res2 = train.main(argv + ["--steps", "4"])
         resume_counts = dict(ops.launch_counts)
         print(printed.getvalue(), end="", flush=True)
-        check("resumed from step 4" in printed.getvalue() and res2["start"] == 4
-              and len(res2["history"]) == 2, f"the second call did not resume from step 4: "
+        check("resumed from step 3" in printed.getvalue() and res2["start"] == 3
+              and len(res2["history"]) == 1, f"the second call did not resume from step 3: "
               f"start {res2['start']}, {len(res2['history'])} steps")
-        check(resume_counts.get(fa.DQ_SM90_NAME) == 2 * layers,
+        check(resume_counts.get(fa.DQ_SM90_NAME) == layers,
               f"resumed run launches {resume_counts}")
         peak = res2["peak_memory_bytes"] or 0
         hist2 = res2["history"]
@@ -1226,6 +1267,7 @@ def train_phases(torch, dev, card: str) -> list:
           f"busy share), {step_prof['device_ops_per_step']:,.0f} device ops | {card}", flush=True)
     print(f"[train rate] {json.dumps(rate)}", flush=True)
 
+    clock("14 (backward times)")
     # 14. the backward kernels' times beside their bounds, their plain
     # versions and one SDPA backward call; the f32-FMA pair is the Hopper
     # pair's earlier version, timed on the same bf16 inputs
@@ -1308,7 +1350,10 @@ LEARN_RTOL, LEARN_ATOL = 1e-4, 1e-5
 # short enough for the script to stay well inside its time limit (the
 # Pendulum returns are reported, not gated)
 PENDULUM_ITERS = 300
-ASYNC_ITERS = 1400
+# 16(c) and 18(b): the return passes 30 by iteration 256 on both paths and
+# stays above 110 from iteration 448 on (their returns a chunk, recorded in
+# the rate lines)
+ASYNC_ITERS = 700
 
 
 def differing(torch, a: dict, b: dict) -> list:
@@ -1444,7 +1489,8 @@ def async_phase(torch, dev, card: str) -> dict:
     rate = {"iterations": ASYNC_ITERS, "seconds": secs, "env_steps_per_s": st.env_steps / secs,
             "learner_calls_per_s": calls["learner_calls"] / secs,
             "wall_us_per_iteration": secs / ASYNC_ITERS * 1e6, "final_return": final,
-            "launches": counts}
+            "launches": counts, "returns_by_chunk": [round(float(x), 1)
+                                                     for x in hist["mean_episode_return"]]}
     print(f"[async arm] publish_interval 4, {ASYNC_ITERS} iterations in {secs:.2f} s: "
           f"{rate['wall_us_per_iteration']:,.0f} us an iteration, {rate['env_steps_per_s']:,.1f} "
           f"env-steps/s, final return {final:.1f}, launches {counts} | {card}", flush=True)
@@ -1589,8 +1635,8 @@ def actor_critic_phase(torch, dev, card: str, iterations: int = PENDULUM_ITERS) 
 
 # -- phase 18: the sharded runtime, its shards as ranks on the one card -----------
 
-SHARDED_ITERS = 1400       # 18(b): the main path's run, never shortened
-POD_ITERS = 192            # 18(c): each of the 2×2 runs (384 until PR 20)
+SHARDED_ITERS = 700        # 18(b): see ASYNC_ITERS
+POD_ITERS = 128            # 18(c): each of the 2×2 runs
 
 
 def _cartpole_dqn():
@@ -1674,7 +1720,7 @@ def _sharded_world1(rank: int) -> dict:
 def _sharded_world2(rank: int, ckpt: str) -> dict:
     """18(b), two ranks over gloo on the one card: the transport check,
     pod_data_mesh(2, 1) ≡ data_mesh(2), then the main path's settings split
-    over the two shards for 1,400 counted iterations, its kernels against
+    over the two shards for SHARDED_ITERS counted iterations, its kernels against
     their plain versions on this shard's tree and rows, a profiler window
     on rank 0, and the learner state saved for 18(d)."""
     import torch
@@ -1723,6 +1769,7 @@ def _sharded_world2(rank: int, ckpt: str) -> dict:
     out["learner_calls"] = st.learn_steps
     out.update(seconds=secs, iterations=SHARDED_ITERS,
                return_=float(hist["mean_episode_return"][-1]),
+               returns=[round(float(x), 1) for x in hist["mean_episode_return"]],
                finite=bool(torch.isfinite(hist["loss"]).all()),
                buffer=int(hist["buffer_size"][-1]))
     out["not_replicated"] = _replicated_on_every_rank(torch, st.agent)
@@ -1763,7 +1810,7 @@ def _sharded_world2(rank: int, ckpt: str) -> dict:
 def _sharded_world4(rank: int) -> dict:
     """18(c), four ranks over gloo as 2×2 (pod, data): the compressed
     cross-pod reduce with bf16 inside a pod, then AsyncExecutor at publish
-    interval 3 and max staleness 1 on the same mesh, 192 iterations each,
+    interval 3 and max staleness 1 on the same mesh, POD_ITERS iterations each,
     chunk by chunk."""
     import torch
 
@@ -1948,7 +1995,7 @@ def sharded_phase(torch, dev, card: str) -> dict:
         shutil.rmtree(ckpt1, ignore_errors=True)
     res["seconds"] = time.perf_counter() - t_phase
     print(f"[sharded] phase 18 in {res['seconds']:.1f} s", flush=True)
-    print(f"[sharded rate] {json.dumps({'iterations': SHARDED_ITERS, 'seconds': secs, 'iterations_per_s': SHARDED_ITERS / secs, 'wall_us_per_iteration': secs / SHARDED_ITERS * 1e6, 'return': ret, 'launches': [r['launches'] for r in b], 'profile': prof})}", flush=True)
+    print(f"[sharded rate] {json.dumps({'iterations': SHARDED_ITERS, 'seconds': secs, 'iterations_per_s': SHARDED_ITERS / secs, 'wall_us_per_iteration': secs / SHARDED_ITERS * 1e6, 'return': ret, 'returns_by_chunk': b[0]['returns'], 'launches': [r['launches'] for r in b], 'profile': prof})}", flush=True)
     return res
 
 
@@ -1970,7 +2017,8 @@ def spi_band(kv: dict) -> tuple:
 
 
 def service_launches(kv: dict) -> dict:
-    """The server's kernel launches, by kernel name."""
+    """A process's replay kernel launches (its ``LAUNCH_<KERNEL>`` lines:
+    a service server's, a wall-clock gang rank's), by kernel name."""
     return {name: int(kv[f"LAUNCH_{name.upper()}"])
             for name in ("sumtree_sample", "gather", "sample_gather", "sumtree_update")}
 
@@ -2160,6 +2208,303 @@ def service_phase(torch, dev, card: str) -> dict:
     return res
 
 
+# -- phase 20: the DSE, the planner and the wall-clock gang on the one card ------
+
+DSE_LANES = (1, 2, 4, 8)        # 20(a): the profiled lane counts (fig12_dse's)
+DSE_ITERS = 200                 # 20(a): the plan-built executor's run
+GANG_FUSED_ITERS = 30           # 20(b): tests/test_multiprocess.py's degenerate launch
+GANG_BENCH = ["--mode", "bench", "--n-data", "2", "--n-envs", "8", "--iters", "24",
+              "--repeats", "3", "--scan-chunk", "20"]      # 20(c)
+WALLCLOCK_STEPS = 3             # 20(e): each worker's train steps
+
+
+def dse_actor_throughput(torch, dev, lanes: int) -> float:
+    """benchmarks/fig12_dse.py's actor curve on the card: 10 act + env
+    steps of ``lanes`` CartPole envs with the port's DQN, ending in a
+    sync → env steps/s."""
+    from repro_torch.agents.dqn import DQNConfig, make_dqn
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.runtime import dse
+
+    spec, v_reset, v_step = make_vec("cartpole", lanes)
+    agent = make_dqn(spec, DQNConfig())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    agent_state = agent.init(gen)
+    env_state, obs = v_reset(gen)
+
+    def fn():
+        nonlocal env_state, obs
+        for _ in range(10):
+            a = agent.act(agent_state, obs, gen, 0.1)
+            env_state, obs, _, _, _ = v_step(env_state, a, gen)
+        torch.cuda.synchronize()
+
+    return dse.measure_throughput(fn, 10 * lanes)
+
+
+def dse_learner_throughput(torch, dev, lanes: int) -> float:
+    """benchmarks/fig12_dse.py's learner curve on the card: 10 learn calls
+    of the port's DQN at batch 32·lanes, ending in a sync → batch items/s."""
+    from repro_torch.agents.dqn import DQNConfig, make_dqn
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.runtime import dse
+
+    spec, _, _ = make_vec("cartpole", 1)
+    agent = make_dqn(spec, DQNConfig())
+    agent_state = agent.init(torch.Generator(device=dev).manual_seed(SEED))
+    b = 32 * lanes
+    batch = {"obs": torch.zeros((b, 4), device=dev),
+             "action": torch.zeros((b,), dtype=torch.int32, device=dev),
+             "reward": torch.ones((b,), device=dev), "next_obs": torch.zeros((b, 4), device=dev),
+             "done": torch.zeros((b,), device=dev)}
+    weights = torch.ones((b,), device=dev)
+
+    def fn():
+        nonlocal agent_state
+        for _ in range(10):
+            agent_state, _, _ = agent.learn(agent_state, batch, weights)
+        torch.cuda.synchronize()
+
+    return dse.measure_throughput(fn, 10 * b)
+
+
+def f32_flash_times(torch, dev, n: int, s: int, hd: int) -> dict:
+    """#5b, #6b and #7b (the f32 kernels) at (n, s, hd) f32 causal, the
+    wall-clock trainer's shape: device time, plain version, the library
+    (SDPA forward; one SDPA backward for dQ, dK and dV together) and the
+    bound, by kernel name."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    q, k, v, do = ((torch.randn((n, s, hd), generator=gen, device=dev) * 0.3)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_cuda(q, k, v)
+    delta = fa.flash_delta(o, do)
+    pairs = n * s * (s + 1) / 2                  # causal (query, key) pairs
+    reads = 4 * n * s * hd * 4 + 2 * n * s * 4   # q, k, v, dO; lse, delta
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    backend, lib_bwd = sdpa_backward(torch, q[None], k[None], v[None], do[None])
+    lib_bwd_ms = device_ms(torch, lib_bwd)
+    args = (q, k, v, do, lse, delta)
+    calls = {
+        fa.NAME: (lambda: fa.flash_attention_cuda(q, k, v),
+                  lambda: fa.flash_attention_plain(q, k, v),
+                  device_ms(torch, lambda: sdpa(q[None], k[None], v[None], is_causal=True)),
+                  bound(3 * n * s * hd * 4 + n * s * hd * 4 + n * s * 4, 4 * hd * pairs)),
+        fa.DQ_NAME: (lambda: fa.flash_attention_dq_cuda(*args),
+                     lambda: fa.flash_attention_dq_plain(*args), lib_bwd_ms,
+                     bound(reads + n * s * hd * 4, 3 * 2 * hd * pairs)),
+        fa.DKV_NAME: (lambda: fa.flash_attention_dkv_cuda(*args),
+                      lambda: fa.flash_attention_dkv_plain(*args), lib_bwd_ms,
+                      bound(reads + 2 * n * s * hd * 4, 4 * 2 * hd * pairs)),
+    }
+    out = {}
+    for name, (kern, plain, lib_ms, (b_ms, b_by)) in calls.items():
+        out[name] = {"ms": device_ms(torch, kern), "plain_ms": device_ms(torch, plain),
+                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "shape": f"({n}, {s}, {hd}) f32 causal",
+                     "library": "SDPA" if name == fa.NAME else
+                     f"one SDPA {backend} backward call (dQ, dK and dV together)"}
+        check(all(math.isfinite(out[name][x]) for x in ("ms", "plain_ms", "library_ms")),
+              f"timing of {name} at ({n}, {s}, {hd}) is not finite")
+    return out
+
+
+def dse_phase(torch, dev, card: str) -> dict:
+    """Phase 20: Eq. 5 on the card's own lane curves, the planner's plan
+    built by executor_from_plan and run on the card; the wall-clock gang
+    (launch/multiprocess.py) in its three modes, its ranks processes on
+    this card over gloo; and launch/train.py --wall-clock 2."""
+    import shutil
+    import tempfile
+
+    from repro_torch.agents.dqn import DQNConfig, make_dqn
+    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import multiprocess as mp
+    from repro_torch.launch import train
+    from repro_torch.quickstart import transition_example
+    from repro_torch.runtime import dse, planner
+    from repro_torch.runtime.executors import FusedExecutor, executor_from_plan
+    from repro_torch.runtime.loop import LoopConfig
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    res = {}
+    # (a) the lane curves, Eq. 5 and the plan, built and run on the card
+    t0 = time.perf_counter()
+    actor = dse.profile_curve(lambda x: dse_actor_throughput(torch, dev, x), list(DSE_LANES))
+    learner = dse.profile_curve(lambda x: dse_learner_throughput(torch, dev, x),
+                                list(DSE_LANES))
+    solves = {ui: planner.solve_lanes(actor, learner, total=8, update_interval=ui)
+              for ui in (1.0, 4.0)}
+    pc = planner.plan(actor_curve=actor, learner_curve=learner, total_lanes=8,
+                      update_interval=1, source="chip_smoke")
+    profile_s = time.perf_counter() - t0
+    check(all(math.isfinite(v) and v > 0 for v in list(actor.values()) + list(learner.values())),
+          f"20(a) lane curves not finite and positive: {actor}, {learner}")
+    check(pc.backend == "fused" and pc.n_envs == solves[1.0].x_actor >= 1
+          and pc.x_actor + pc.x_learner <= 8,
+          f"20(a) the curve-only plan is not the Eq. 5 split: {pc}, {solves[1.0]}")
+    print(f"[dse a] lane curves on {dev} (fig12_dse's: 10 act+env steps of x CartPole envs; 10 "
+          f"learn calls at batch 32x): actor env-steps/s "
+          f"{ {x: round(v, 1) for x, v in actor.items()} }, learner items/s "
+          f"{ {x: round(v, 1) for x, v in learner.items()} }; Eq. 5 at total 8: "
+          + "; ".join(f"update_interval {ui:g}: x_actor {r.x_actor}, x_learner {r.x_learner}, "
+                      f"ratio {r.ratio:.4f}, error {r.ratio_error:.4f}"
+                      for ui, r in solves.items())
+          + f"; plan: {pc.describe()} ({profile_s:.1f} s to profile) | {card}", flush=True)
+    env_fn = lambda n: make_vec("cartpole", n)  # noqa: E731
+    spec_env, _, _ = env_fn(1)
+    agent = make_dqn(spec_env, DQNConfig())
+    cfg = LoopConfig(batch_size=64, warmup=64, epsilon=0.1)
+    ex = executor_from_plan(pc, agent, env_fn, cfg, transition_example(spec_env),
+                            capacity=20_000, fanout=128, device="cuda")
+    check(isinstance(ex, FusedExecutor) and ex.replay.ops.name == "cuda" and ex.n_envs == pc.n_envs,
+          f"20(a) executor_from_plan built {type(ex).__name__} on {ex.replay.ops.name}")
+    state, hist, secs, counts, calls = counted_run(torch, ex, ex.init(SEED + 11), DSE_ITERS,
+                                                   "the plan-built executor")
+    realized = DSE_ITERS * pc.n_envs / secs
+    learned = calls["learner_calls"]
+    check(learned > 0 and counts.get("sumtree_sample", 0) == counts.get("gather", 0) == learned
+          and not counts.get("sample_gather") and not counts.get("sumtree_update"),
+          f"20(a) launches {counts} for {learned} learner calls: want one descent and one "
+          "gather a learner call")
+    check(bool(torch.isfinite(hist["loss"]).all()), "20(a) a non-finite loss")
+    print(f"[dse a] executor_from_plan -> {type(ex).__name__} on {ex.device}, {pc.n_envs} envs, "
+          f"DQN (4, 256, 256, 2), replay 20,000 x K=128, batch 64, warmup 64: {DSE_ITERS} "
+          f"iterations in {secs:.2f} s, realized {realized:,.1f} env-steps/s against the "
+          f"predicted {pc.predicted_env_steps_per_s:,.1f} (the actor curve alone), {learned} "
+          f"learner calls, launches {counts}; no host sync in a step | {card}", flush=True)
+    res["a"] = {"actor_curve": actor, "learner_curve": learner,
+                "solves": {str(ui): dataclasses.asdict(r) for ui, r in solves.items()},
+                "plan": pc.to_dict(), "realized_env_steps_per_s": realized, "seconds": secs,
+                "learner_calls": learned, "launches": counts, "profile_s": profile_s}
+    del ex, state, hist
+    # (b), (d) and (e) check results, not speed: their gangs start together,
+    # each process's start (~8-14 s) overlapping the others'
+    args = ["--mode", "fused", "--iters", str(GANG_FUSED_ITERS), "--n-envs", "8",
+            "--scan-chunk", "10", "--seed", str(SEED)]
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_wallclock_")
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(3) as pool:
+            fut_b = pool.submit(mp.launch, args, n_procs=1, timeout_s=300.0, device="cuda")
+            fut_d = pool.submit(mp.launch, ["--mode", "equiv", "--seed", str(SEED)],
+                                n_procs=2, timeout_s=300.0, device="cuda")
+            fut_e = pool.submit(train.main, [
+                "--arch", "granite_8b", "--smoke", "--attn-impl", "flash", "--seq", "128",
+                "--steps", str(WALLCLOCK_STEPS), "--ckpt-every", "0", "--ckpt-dir", ckpt,
+                "--wall-clock", "2"])
+            # (b)'s yardstick: the same executor in this process
+            replay = PrioritizedReplay(ReplayConfig(capacity=50_000, fanout=128),
+                                       transition_example(spec_env), device="cuda")
+            fused = FusedExecutor(make_dqn(spec_env, DQNConfig()), replay, env_fn,
+                                  LoopConfig(batch_size=64, warmup=64, epsilon=0.1), 8,
+                                  scan_chunk=10)
+            fs, fh = fused.train(GANG_FUSED_ITERS, SEED)
+            kv = mp.parse_kv(fut_b.result()[0])
+            kv_d = mp.parse_kv(fut_d.result()[0])
+            out = fut_e.result()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    secs_bde = time.perf_counter() - t0
+    # (b) --mode fused, one process on the card, against the same executor here
+    want = {"FINAL_LOSS": float(fh["loss"][-1]),
+            "FINAL_RETURN": float(fh["mean_episode_return"][-1]),
+            "ENV_STEPS": int(fh["env_steps"][-1]),
+            "PARAMS_CHECKSUM": mp.params_checksum(fs.agent.params)}
+    got = {k: type(v)(kv[k]) for k, v in want.items()}
+    fused_launches = service_launches(kv)
+    check(got == want and kv["DEVICE"].startswith("cuda"),
+          f"20(b) --mode fused on {kv.get('DEVICE')} is not FusedExecutor bit for bit: {got} "
+          f"against {want}")
+    check(fused_launches["sumtree_sample"] == fused_launches["gather"] == int(kv["LEARN_CALLS"])
+          == fs.learn_steps > 0, f"20(b) launches {fused_launches} for {kv['LEARN_CALLS']} "
+          "learner calls")
+    print(f"[dse b] --mode fused, 1 process on {kv['DEVICE']} through the tcp:// handshake, "
+          f"{GANG_FUSED_ITERS} iterations: loss, return, env steps and the parameter checksum "
+          f"bit for bit those of FusedExecutor in this process ({want}); launches "
+          f"{fused_launches} for {kv['LEARN_CALLS']} learner calls; (b), (d) and (e) together "
+          f"{secs_bde:.1f} s with their starts | {card}", flush=True)
+    res["b"] = {"seconds_b_d_e": secs_bde, "launches": fused_launches, "result": got}
+    del fused, fs, fh, replay
+    torch.cuda.empty_cache()
+    # (d) --mode equiv, 2 processes: the overlapped against the barrier reduce
+    shift, tele = float(kv_d["SHIFT_MAX_ABS_ERR"]), float(kv_d["TELESCOPE_MAX_ABS_ERR"])
+    check(shift == 0.0 and tele < 1e-6 and kv_d["DEVICE"].startswith("cuda"),
+          f"20(d) equiv on {kv_d.get('DEVICE')}: shift {shift}, telescoping {tele}")
+    print(f"[dse d] --mode equiv, 2 processes on {kv_d['DEVICE']} over gloo, a (pod,) group: "
+          f"SHIFT_MAX_ABS_ERR {shift!r} (want 0), TELESCOPE_MAX_ABS_ERR {tele!r} (want < 1e-6) "
+          f"| {card}", flush=True)
+    res["d"] = {"shift": shift, "telescope": tele}
+    # (e) launch.train --wall-clock 2 at granite_8b SMOKE with flash: the f32 kernels
+    outs = out["workers"]
+    kvs = [mp.parse_kv(o) for o in outs]
+    layers = 2      # granite_8b SMOKE
+    want_flash = {fa.NAME: 2 * layers * WALLCLOCK_STEPS, fa.DQ_NAME: layers * WALLCLOCK_STEPS,
+                  fa.DKV_NAME: layers * WALLCLOCK_STEPS, fa.SM90_NAME: 0,
+                  fa.DQ_SM90_NAME: 0, fa.DKV_SM90_NAME: 0}
+    flash = [{name: int(k[f"LAUNCH_{name.upper()}"]) for name in want_flash} for k in kvs]
+    check(all("arch=granite-smoke" in o and "device=cuda" in o for o in outs)
+          and f"trained {WALLCLOCK_STEPS} steps" in outs[0],
+          f"20(e) the workers' output: {[o[-600:] for o in outs]}")
+    check(kvs[0]["PARAMS_CHECKSUM"] == kvs[1]["PARAMS_CHECKSUM"]
+          and kvs[0]["PARAMS_SUM"] == kvs[1]["PARAMS_SUM"]
+          and kvs[0]["PRE_AVERAGE_SUM"] != kvs[1]["PRE_AVERAGE_SUM"],
+          f"20(e) the workers' parameters after the last average: {kvs}")
+    check(all(f == want_flash for f in flash),
+          f"20(e) flash launches {flash}; the code predicts {want_flash} on each worker")
+    print(f"[dse e] launch.train --arch granite_8b --smoke --attn-impl flash --seq 128 "
+          f"--wall-clock 2: 2 workers on the card over gloo, {WALLCLOCK_STEPS} steps each, "
+          f"parameters averaged after every step; after the last average both checksums "
+          f"{kvs[0]['PARAMS_CHECKSUM']} (sums before it {kvs[0]['PRE_AVERAGE_SUM']} and "
+          f"{kvs[1]['PRE_AVERAGE_SUM']}, after {kvs[0]['PARAMS_SUM']}); flash launches per "
+          f"worker {flash} (#5b/#6b/#7b: the f32 kernels at hd 16) | {card}", flush=True)
+    # what #5b-#7b cost there: each worker's learner attends over (8 sequences
+    # x 4 heads, 128 tokens, hd 16) in f32
+    times = f32_flash_times(torch, dev, 8 * 4, 128, 16)
+    for name, t in times.items():
+        print(f"[dse e] {name} at {t['shape']}, the wall-clock trainer's shape: device "
+              f"{t['ms'] * 1e3:.2f} us (plain {t['plain_ms'] * 1e3:.1f} us, {t['library']} "
+              f"{t['library_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.4f} us by "
+              f"{t['bound_by']}) | {card}", flush=True)
+    res["e"] = {"flash_launches": flash, "times": times,
+                "checksum": float(kvs[0]["PARAMS_CHECKSUM"])}
+    # (c) --mode bench, 2 ranks over gloo on the card, alone: plain and the host publish
+    res["c"] = {}
+    for label, extra in (("plain", []), ("publish 3", ["--publish-interval", "3"])):
+        t0 = time.perf_counter()
+        outs = mp.launch(GANG_BENCH + extra, n_procs=2, timeout_s=300.0, device="cuda")
+        secs_c = time.perf_counter() - t0
+        kvs = [mp.parse_kv(o) for o in outs]
+        launches = [service_launches(k) for k in kvs]
+        for rank, (k, ln) in enumerate(zip(kvs, launches)):
+            check(k["DEVICE"].startswith("cuda") and ln["sumtree_sample"] == ln["gather"]
+                  == int(k["LEARN_CALLS"]) > 0 and not ln["sample_gather"]
+                  and not ln["sumtree_update"],
+                  f"20(c) {label} rank {rank}: launches {ln} for {k['LEARN_CALLS']} learner "
+                  f"calls on {k['DEVICE']}")
+        if extra:
+            check(all(int(k["PARAMS_AGE"]) == 0 for k in kvs),
+                  f"20(c) {label}: ages {[k['PARAMS_AGE'] for k in kvs]} after the last host "
+                  "publish")
+        rate, spread = float(kvs[0]["STEPS_PER_S"]), float(kvs[0]["REL_SPREAD"])
+        print(f"[dse c] --mode bench {label}, 2 ranks on {kvs[0]['DEVICE']} over gloo, data "
+              f"mesh of 2 (8 envs, replay 25,000 x K=128 a shard, batch 32 a shard): "
+              f"STEPS_PER_S {rate:.2f} (median of {kvs[0]['REPEATS']}, REL_SPREAD "
+              f"{spread:.4f}), launches per rank {launches} for {kvs[0]['LEARN_CALLS']} learner "
+              f"calls each; recorded, not gated; {secs_c:.1f} s with its start | {card}",
+              flush=True)
+        res["c"][label] = {"steps_per_s": rate, "rel_spread": spread, "launches": launches,
+                           "learner_calls": int(kvs[0]["LEARN_CALLS"]), "seconds": secs_c}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[dse] phase 20 in {res['seconds']:.1f} s", flush=True)
+    print(f"[dse rate] {json.dumps({k: res[k] for k in ('a', 'b', 'c', 'd', 'e')})}", flush=True)
+    return res
+
+
 # -- the phases ----------------------------------------------------------------
 
 
@@ -2217,6 +2562,7 @@ def main() -> None:
     err = {"sumtree_sample": 0.0, "gather": 0.0, "sample_gather": 0.0,
            "sumtree_update": 0.0}
 
+    clock("3 (parity)")
     # 3. parity: each kernel against its plain version on the card
     shapes = [("main path", 50_000, 128, 64), ("Nature DQN", 1_000_000, 128, 512),
               ("token replay", 8192, 128, 8), ("K=8", 100_000, 8, 512),
@@ -2346,6 +2692,7 @@ def main() -> None:
           "views 4, 2 and 1 bytes off alignment, and on 16 leaves: indices and priorities "
           "those of the split descent, rows byte for byte", flush=True)
 
+    clock("4 (main path)")
     # 4. main path: the paper's system through the user entry points
     main_iters = 1400
     ex, state, hist, secs, main_counts, _ = run_arm(torch, main_iters, fused=False, lazy=True)
@@ -2373,7 +2720,8 @@ def main() -> None:
     check(all(t.device.type == "cuda" for t in tensors), "state left the GPU")
     main_rate = {"env_steps_per_s": state.env_steps / secs,
                  "learner_calls_per_s": state.learn_steps / secs,
-                 "iterations": main_iters, "seconds": secs}
+                 "iterations": main_iters, "seconds": secs,
+                 "returns_by_chunk": [round(float(x), 1) for x in hist["mean_episode_return"]]}
 
     # where the main path's time goes: a profiler window of steady iterations
     # (8 learner calls each), taken after the counted run
@@ -2384,7 +2732,7 @@ def main() -> None:
     # the code predicts: one fused launch a learner call; one update launch a
     # learner call and two an iteration (the insert's zeroing and its commit)
     arms, arm_profiles = {}, {}
-    arm_iters = 200
+    arm_iters = 100
     for arm, fused, lazy, kernel in (("fused", True, True, "sample_gather"),
                                      ("eager", False, False, "sumtree_update")):
         ex_a, st, h, s, counts, calls = run_arm(torch, arm_iters, fused=fused, lazy=lazy)
@@ -2403,6 +2751,7 @@ def main() -> None:
         del ex_a, st
     main_rate["arm_profiles"] = arm_profiles
 
+    clock("6 (times)")
     # 6. times at the main path's shapes and at the Nature-DQN size
     def measure(capacity, batch, token=False):
         spec, tree = replay_tree(torch, dev, gen, capacity, 128)
@@ -2536,7 +2885,9 @@ def main() -> None:
                 + f" | {card}", flush=True)
     print(f"[main path rate] {json.dumps(main_rate)}", flush=True)
 
+    clock("7 (flash)")
     kernels += flash_phases(torch, dev, card)
+    clock("11 (flash backward)")
     bwd_entries, train_counts = train_phases(torch, dev, card)
     for entry in kernels:       # the replay kernels and the forward on the training path
         entry["train_launches"] = train_counts.get(entry["name"], 0)
@@ -2544,15 +2895,23 @@ def main() -> None:
 
     # 15-17. the restart, the async loop and the actor-critics; each path's
     # launches counted from 0
+    clock("15-16 (restart, async)")
     restart = restart_phase(torch, dev, card)
     async_rate = async_phase(torch, dev, card)
+    clock("17 (actor-critics)")
     actor_critic = actor_critic_phase(torch, dev, card)
     # 18. the sharded runtime, its ranks on this card; each rank's launches
-    # counted from 0 over the 1,400 iterations of 18(b)
+    # counted from 0 over the SHARDED_ITERS iterations of 18(b)
+    clock("18 (sharded)")
     sharded = sharded_phase(torch, dev, card)
     # 19. the replay service: its roles as processes on this card, the server's
     # launches counted from its start; then in process
+    clock("19 (service)")
     service = service_phase(torch, dev, card)
+    # 20. the DSE and the wall-clock gang: the plan-built executor's launches
+    # counted from 0; each gang rank's from its start
+    clock("20 (dse)")
+    dse_res = dse_phase(torch, dev, card)
     for entry in kernels:
         entry["restart_launches"] = restart["launches"].get(entry["name"], 0)
         entry["async_launches"] = async_rate["launches"].get(entry["name"], 0)
@@ -2565,6 +2924,17 @@ def main() -> None:
                                      "ServiceExecutor": service["c"]["launches"].get(entry["name"], 0)}
         if entry["name"] == "gather":
             entry["sampling_chain"]["Pendulum 50,000/B=64, 5 leaves"] = actor_critic["chain"]
+        name = entry["name"]
+        entry["dse_launches"] = dse_res["a"]["launches"].get(name, 0)
+        entry["gang_launches"] = {
+            "fused, 1 process": dse_res["b"]["launches"].get(name, 0),
+            "bench, 2 ranks": [r.get(name, 0) for r in dse_res["c"]["plain"]["launches"]],
+            "bench, 2 ranks, host publish 3": [
+                r.get(name, 0) for r in dse_res["c"]["publish 3"]["launches"]]}
+        if name in dse_res["e"]["flash_launches"][0]:
+            entry["wallclock_train_launches"] = [f[name] for f in dse_res["e"]["flash_launches"]]
+        if name in dse_res["e"]["times"]:
+            entry["at_wallclock_train_shape"] = dse_res["e"]["times"][name]
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,6 +1,7 @@
 """Sharded replay buffer across a mesh of ranks — port of
 ``repro.core.distributed``'s ``ShardedReplayConfig`` and
-``ShardedPrioritizedReplay``.
+``ShardedPrioritizedReplay`` — and ``initialize_distributed``, the
+wall-clock gang's handshake (``launch/multiprocess.py``).
 
 The paper's single shared buffer becomes one shard per rank: local storage
 and a local K-ary sum tree.  Sampling is *stratified*: each learner shard
@@ -18,18 +19,83 @@ per axis).  Inserts, flushes and priority updates are shard-local.
 The count is a host int, as in ``core/replay.py``; the global count
 travels in the stats collective as an f32 scalar, as in the reference.
 The mesh is passed to the calls that reduce (``launch/mesh.py``).
+
+``initialize_distributed`` joins this process to a gang of OS processes
+as one rank of a ``torch.distributed`` process group, the counterpart of
+the reference's ``jax.distributed.initialize``: rank 0 hosts the
+rendezvous store at the coordinator address, the others connect to it.
+After it returns, ``launch/mesh.py``'s meshes span the gang.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import socket
+import time
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.replay import PrioritizedReplay, ReplayConfig, ReplayState, Storage
 from repro_torch.device import DeviceLike
 from repro_torch.optim.collectives import all_reduce_axes
+
+
+def _handshake_error(coordinator_address: str, process_id: int, num_processes: int,
+                     timeout_s: float) -> RuntimeError:
+    return RuntimeError(
+        f"coordinator handshake failed: process {process_id}/{num_processes} could not "
+        f"join the coordinator at {coordinator_address} within {timeout_s:.0f}s — check "
+        "that every worker of the gang was actually launched (launch/multiprocess.py "
+        "spawns the full set) and that the coordinator host:port is reachable and not "
+        "already bound")
+
+
+def _wait_for_coordinator(coordinator_address: str, process_id: int,
+                          num_processes: int, timeout_s: float) -> None:
+    """Poll plain TCP connects against the coordinator until it accepts or
+    ``timeout_s`` elapses, so that a missing rank 0 surfaces as the
+    handshake error, not as the store's own connect failure."""
+    host, _, port = coordinator_address.rpartition(":")
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            with socket.create_connection((host, int(port)), timeout=1.0):
+                return
+        except OSError:
+            if time.monotonic() >= deadline:
+                raise _handshake_error(coordinator_address, process_id, num_processes,
+                                       timeout_s) from None
+            time.sleep(0.25)
+
+
+def initialize_distributed(coordinator_address: str, num_processes: int, process_id: int,
+                           timeout_s: float = 60.0, *, backend: str) -> None:
+    """Join the gang as rank ``process_id`` of ``num_processes``
+    (``launch/multiprocess.py``, ``launch/train.py --wall-clock``).
+
+    Ranks other than 0 first probe the coordinator with plain TCP connects
+    until ``timeout_s``; then every rank calls ``init_process_group(backend,
+    init_method="tcp://host:port")`` with that timeout, which blocks until
+    the whole gang has joined.  Any failure is raised as a ``RuntimeError``
+    naming the coordinator, never a hang.  The caller picks ``backend``:
+    ``"gloo"`` for ranks that share one card (NCCL refuses two ranks on one
+    GPU), ``"nccl"`` for a card a rank."""
+    if num_processes < 1:
+        raise ValueError(f"num_processes={num_processes}: need ≥ 1")
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process_id={process_id}: need 0 ≤ id < {num_processes}")
+    if process_id != 0:
+        _wait_for_coordinator(coordinator_address, process_id, num_processes, timeout_s)
+    try:
+        dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
+                                rank=process_id, world_size=num_processes,
+                                timeout=datetime.timedelta(seconds=timeout_s))
+    except Exception as e:
+        raise _handshake_error(coordinator_address, process_id, num_processes,
+                               timeout_s) from e
 
 
 @dataclasses.dataclass(frozen=True)

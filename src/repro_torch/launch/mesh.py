@@ -150,6 +150,20 @@ def pod_data_mesh(n_pods: int, n_data: int,
     return make_mesh(axes, (n_pods, n_data))
 
 
+def mesh_from_plan(plan) -> Optional[Mesh]:
+    """The mesh a ``runtime.planner.PlannedConfig`` selected, over the
+    current process group: ``None`` for a plan without one (the fused
+    program, also its async form), else ``pod_data_mesh(n_pods, n_data)``
+    when the plan has more than one pod and ``data_mesh(n_data)``
+    otherwise.  Its world must be ``plan.n_devices`` ranks; with no group
+    this raises as ``make_mesh`` does."""
+    if not plan.n_data:
+        return None
+    if plan.n_pods > 1:
+        return pod_data_mesh(plan.n_pods, plan.n_data)
+    return data_mesh(plan.n_data)
+
+
 # -- the local launcher ---------------------------------------------------------
 
 

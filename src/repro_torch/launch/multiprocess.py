@@ -1,36 +1,62 @@
-"""The replay-service gang — port of the service half of
-``repro.launch.multiprocess`` (DESIGN.md §11, §14).
+"""The wall-clock multi-process gang and the replay-service gang — port
+of ``repro.launch.multiprocess`` (DESIGN.md §10, §11, §14).
 
-``launch_service`` spawns one ``--mode replay-server`` process hosting
-the sharded rate-limited ``ReplayService``, N ``--mode service-actor``
-writer processes and one ``--mode service-learner`` sampler process.
-The roles share no process group: each owns its own torch runtime and
-they meet only at the service's TCP boundary (append / sample / priority
-write-back / params channel), so an actor crash can never wedge a
-collective.  Every role runs on the card unless given ``--device cpu``
-(``launch_service(..., device="cpu")``); on the card the server's shards
-run the replay kernels, which it builds before it serves, and it prints
-their launches (``LAUNCH_SUMTREE_SAMPLE``, ``LAUNCH_GATHER``,
-``LAUNCH_SAMPLE_GATHER``).
+**The wall-clock gang** (``launch``, ``--mode bench|fused|equiv``): N
+worker processes, each one rank of a ``torch.distributed`` process group
+joined by ``core.distributed.initialize_distributed`` (rank 0 hosts the
+rendezvous at ``--coordinator``; ranks that share one card take gloo,
+NCCL wants a card a rank).  After the handshake ``launch/mesh.py``'s
+meshes span the gang, so the sharded executors run unchanged and the
+gradient reduce crosses real process boundaries.  ``launch`` spawns
+``python -m repro_torch.launch.multiprocess`` once per rank, collects
+each rank's stdout and, when one rank fails, kills the whole gang and
+raises with that rank's output tail.  The workloads:
 
-Results travel as ``KEY=VALUE`` lines on each role's stdout
-(``parse_kv``); the server reports the rate limiter's realized
-samples-per-insert ratio and its tolerance band.  With
-``restart_learner_after`` the learner exits mid-run after checkpointing
-and a fresh learner process resumes from the checkpoint against the
-still-live service — actors park in writer backpressure for the gap (the
-rate limiter, not a barrier, holds the fleet).  With
+  * ``--mode bench`` — DQN/CartPole through ``FusedExecutor`` (1 cell) or
+    ``ShardedExecutor`` (a data or pod×data mesh over the gang),
+    timed median-of-``--repeats`` with ``REL_SPREAD``; each chunk runs
+    under ``torch.profiler.record_function("wallclock_chunk")``.  With
+    ``--publish-interval P > 0`` the async acting copy is republished
+    *externally*: between chunks the fresh params make a real
+    device→host→device round trip (``_publish_host_roundtrip``).
+  * ``--mode fused`` — the degenerate single-process launch: the exact
+    ``FusedExecutor.train`` program, printing final metrics and a
+    parameter checksum, bit for bit those of the same executor run in
+    process (the process group at N=1 must change nothing).
+  * ``--mode equiv`` — the overlapped and the barrier cross-pod reduces
+    (``runtime/learner.py::make_grad_reducer``) over a real 2-process
+    ``("pod",)`` group: the shift identity and the telescoping error.
+
+Every rank also prints its replay kernels' launches (``LAUNCH_<KERNEL>``)
+and learner calls.
+
+**The replay-service gang** (``launch_service``): one ``--mode
+replay-server`` process hosting the sharded rate-limited
+``ReplayService``, N ``--mode service-actor`` writer processes and one
+``--mode service-learner`` sampler process.  The roles share no process
+group: each owns its own torch runtime and they meet only at the
+service's TCP boundary (append / sample / priority write-back / params
+channel), so an actor crash can never wedge a collective.  On the card
+the server's shards run the replay kernels, which it builds before it
+serves, and it prints their launches.  The server reports the rate
+limiter's realized samples-per-insert ratio and its tolerance band.
+With ``restart_learner_after`` the learner exits mid-run after
+checkpointing and a fresh learner process resumes from the checkpoint
+against the still-live service — actors park in writer backpressure for
+the gap (the rate limiter, not a barrier, holds the fleet).  With
 ``restart_server_after`` a hard ``FaultPlan`` kills the server
 (``os._exit(42)``) and a fresh one restores its snapshot onto the same
 port.
 
-Every role gets ``cpu_count // n_procs`` intra-op threads (``worker_env``
-sets ``OMP_NUM_THREADS``; each role calls ``torch.set_num_threads``):
+Results travel as ``KEY=VALUE`` lines on stdout (``parse_kv``).  Every
+process runs on the card unless given ``--device cpu``
+(``launch(..., device="cpu")``, ``launch_service(..., device="cpu")``),
+and gets ``cpu_count // n_procs`` intra-op threads (``worker_env`` sets
+``OMP_NUM_THREADS``; each process calls ``torch.set_num_threads``):
 processes that each take every core spin against each other.
 
-The reference's jax.distributed gang (``launch``, ``--mode
-bench|fused|equiv``) is ROADMAP item 22; those modes exit 2.
-
+    PYTHONPATH=src python -c "from repro_torch.launch import multiprocess as mp; \\
+        print(mp.launch(['--mode', 'equiv'], n_procs=2, device='cpu')[0])"
     PYTHONPATH=src python -c "from repro_torch.launch.multiprocess import launch_service; \\
         print(launch_service(n_actors=2, samples_per_insert=8.0, learn_steps=1400, \\
                              warmup=400, epsilon=0.2, seed=1, device='cpu')['learner'])"
@@ -45,19 +71,22 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Dict, List, Optional, Sequence
 
 GANG_MODES = ("bench", "fused", "equiv")
 SERVICE_ROLES = ("replay-server", "service-actor", "service-learner")
+HANDSHAKE_TIMEOUT_S = 60.0
+REPLAY_KERNELS = ("sumtree_sample", "gather", "sample_gather", "sumtree_update")
 
 
 # -- parent side -------------------------------------------------------------
 
 
 def free_port() -> int:
-    """A port the server can bind (raced, but single-host tests re-launch
-    on collision rather than coordinate)."""
+    """A port the coordinator or the server can bind (raced, but
+    single-host tests re-launch on collision rather than coordinate)."""
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -95,6 +124,79 @@ def parse_kv(text: str) -> Dict[str, str]:
 
 def _tail(text: str, n: int = 25) -> str:
     return "\n".join(text.splitlines()[-n:])
+
+
+def run_gang(cmds: Sequence[Sequence[str]], envs: Sequence[Dict[str, str]],
+             timeout_s: float = 900.0) -> List[str]:
+    """Start one process per command (rank = index), each with its
+    environment, and wait for all; return each one's output (stdout and
+    stderr).  As soon as one exits non-zero, or the gang overruns
+    ``timeout_s``, kill the rest (they would wait on it at their next
+    collective) and raise ``RuntimeError`` naming that rank, with its
+    output tail."""
+    n = len(cmds)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_gang_") as tmp:
+        procs, logs = [], []
+        for pid, (cmd, env) in enumerate(zip(cmds, envs)):
+            # a file, not a pipe: a rank that prints more than a pipe holds
+            # must not block while the parent waits on another rank
+            logs.append(open(os.path.join(tmp, f"rank{pid}.log"), "w+"))
+            procs.append(subprocess.Popen(list(cmd), env=env, stdout=logs[-1],
+                                          stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + timeout_s
+        failed = None
+        try:
+            while failed is None:
+                codes = [p.poll() for p in procs]       # every rank, each round
+                failed = next(((pid, f"exit code {c}") for pid, c in enumerate(codes)
+                               if c not in (0, None)), None)
+                if failed is None and None not in codes:
+                    break
+                if failed is None and time.monotonic() > deadline:
+                    failed = (codes.index(None), "timeout")
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+            f.close()
+    if failed is not None:
+        pid, why = failed
+        raise RuntimeError(f"wall-clock worker {pid}/{n} failed ({why}); output "
+                           f"tail:\n{_tail(outs[pid])}")
+    return outs
+
+
+def launch(
+    worker_args: Sequence[str],
+    n_procs: int,
+    coordinator: Optional[str] = None,
+    timeout_s: float = 900.0,
+    handshake_timeout_s: float = HANDSHAKE_TIMEOUT_S,
+    backend: str = "gloo",
+    device: str = "cuda",
+) -> List[str]:
+    """Spawn the full ``n_procs`` gang of ``python -m
+    repro_torch.launch.multiprocess`` ranks and return each rank's stdout
+    (index = rank), through ``run_gang``.  Every rank gets ``--backend``
+    and ``--device``; ranks that share one card need gloo."""
+    from repro_torch.device import resolve_device
+
+    if n_procs < 1:
+        raise ValueError(f"n_procs={n_procs}: need ≥ 1")
+    resolve_device(device)      # no GPU and no device="cpu": raise before spawning
+    coordinator = coordinator or f"127.0.0.1:{free_port()}"
+    cmds = [[sys.executable, "-m", "repro_torch.launch.multiprocess",
+             "--coordinator", coordinator, "--n-procs", str(n_procs),
+             "--process-id", str(pid), "--handshake-timeout", str(handshake_timeout_s),
+             "--backend", backend, "--device", device, *worker_args]
+            for pid in range(n_procs)]
+    return run_gang(cmds, [worker_env(n_procs)] * n_procs, timeout_s)
 
 
 def _wait_for_server(port: int, proc: subprocess.Popen,
@@ -332,8 +434,230 @@ def _dqn_cartpole():
     return env_fn, spec, make_dqn(spec, DQNConfig()), transition_example(spec)
 
 
-def _params_checksum(module) -> float:
+def params_checksum(module) -> float:
+    """Σ|p| over the module's parameters, in f64, in parameter order: equal
+    checksums of two runs mean the same parameters for every purpose the
+    gangs check."""
     return float(sum(p.detach().double().abs().sum().item() for p in module.parameters()))
+
+
+def _median_spread(samples: Sequence[float]):
+    """(median, (max−min)/median): the rel_spread convention of the
+    reference's benchmarks, inlined because they are not ported."""
+    xs = sorted(samples)
+    n = len(xs)
+    med = xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
+    return med, ((xs[-1] - xs[0]) / med if med else 0.0)
+
+
+def _print_launches(state) -> None:
+    """This rank's replay kernel launches since its start, and its learner
+    calls (0 launches on the CPU: the plain versions run there)."""
+    from repro_torch.kernels import ops
+
+    print(f"LEARN_CALLS={state.learn_steps}")
+    for name in REPLAY_KERNELS:
+        print(f"LAUNCH_{name.upper()}={ops.launch_counts.get(name, 0)}")
+
+
+def _build_executor(args, device):
+    """The gang's workload, the reference's: DQN on CartPole, replay 50,000 ×
+    K=128 (divided over the mesh cells), batch 64, warmup 64, ε 0.1;
+    ``FusedExecutor`` on one cell, else ``ShardedExecutor`` over a data or
+    (pod, data) mesh of the whole gang."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import ShardedPrioritizedReplay, ShardedReplayConfig
+    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+    from repro_torch.launch.mesh import data_mesh, pod_data_mesh
+    from repro_torch.runtime.executors import FusedExecutor, ShardedExecutor
+    from repro_torch.runtime.loop import LoopConfig
+
+    env_fn, _, agent, example = _dqn_cartpole()
+    cfg = LoopConfig(batch_size=64, warmup=64, epsilon=0.1,
+                     update_interval=args.update_interval)
+    n_cells = args.n_pods * args.n_data
+    if n_cells != dist.get_world_size():
+        raise RuntimeError(f"mesh {args.n_pods}x{args.n_data} wants {n_cells} cells but "
+                           f"the gang has {dist.get_world_size()} ranks")
+    external = args.publish_interval > 0
+    if n_cells == 1:
+        replay = PrioritizedReplay(ReplayConfig(capacity=50_000, fanout=128), example,
+                                   device=device)
+        return FusedExecutor(agent, replay, env_fn, cfg, args.n_envs,
+                             scan_chunk=args.scan_chunk, device=device,
+                             publish_interval=args.publish_interval,
+                             external_publish=external)
+    if args.n_pods > 1:
+        mesh, axes = pod_data_mesh(args.n_pods, args.n_data), ("pod", "data")
+    else:
+        mesh, axes = data_mesh(args.n_data), ("data",)
+    replay = ShardedPrioritizedReplay(
+        ShardedReplayConfig(capacity_per_shard=50_000 // n_cells, fanout=128,
+                            axis_names=axes), example, device=device)
+    return ShardedExecutor(agent, replay, env_fn, cfg, args.n_envs, mesh,
+                           scan_chunk=args.scan_chunk,
+                           publish_interval=args.publish_interval,
+                           compress_pod_reduce=args.compress,
+                           overlap_pod_reduce=args.overlap, device=device,
+                           external_publish=external)
+
+
+def _publish_host_roundtrip(ex, state):
+    """The wall-clock gang's parameter publish: the fresh learner params go
+    device → host (numpy) and back into this rank's acting copy, in place,
+    and the age drops to 0.  Replaces the in-step republish
+    (``make_step(external_publish=True)``); the agent state is replicated,
+    so every rank publishes the same params."""
+    import torch
+
+    fresh = ex.agent.params_for_acting(state.agent)
+    host = [p.detach().cpu().numpy() for p in fresh.parameters()]
+    with torch.no_grad():
+        for held, h in zip(state.actor_params.parameters(), host):
+            held.copy_(torch.from_numpy(h))
+    return state._replace(params_age=0)
+
+
+def _bench_worker(args, device):
+    """``--mode bench``: median env-steps/s over ``--repeats`` timed runs of
+    ``--iters`` iterations, after one untimed run."""
+    import torch
+    import torch.distributed as dist
+
+    ex = _build_executor(args, device)
+    publish = args.publish_interval
+
+    def run_iters(state, iters):
+        done, metrics = 0, None
+        while done < iters:
+            length = min(publish or ex.scan_chunk, iters - done)
+            with torch.profiler.record_function("wallclock_chunk"):
+                state, metrics = ex.run_chunk(state, length)
+            if publish:
+                state = _publish_host_roundtrip(ex, state)
+            done += length
+        return state, metrics
+
+    state = ex.init(args.seed)
+    state, _ = run_iters(state, args.iters)
+    samples = []
+    for _ in range(args.repeats):
+        t0 = time.perf_counter()
+        state, metrics = run_iters(state, args.iters)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        samples.append(args.n_envs * args.iters / (time.perf_counter() - t0))
+    med, spread = _median_spread(samples)
+    if dist.get_rank() == 0:
+        print(f"STEPS_PER_S={med!r}")
+        print(f"REL_SPREAD={spread!r}")
+        print(f"REPEATS={args.repeats}")
+        print(f"ENV_STEPS={int(metrics['env_steps'])}")
+    print(f"DEVICE={device}")
+    print(f"PARAMS_AGE={state.params_age}")
+    _print_launches(state)
+
+
+def _fused_worker(args, device):
+    """``--mode fused``: ``FusedExecutor.train`` in a gang of one."""
+    import torch.distributed as dist
+
+    if dist.get_world_size() != 1:
+        raise RuntimeError("--mode fused is the degenerate single-process launch; got "
+                           f"{dist.get_world_size()} procs")
+    ex = _build_executor(args, device)
+    state, hist = ex.train(args.iters, args.seed)
+    print(f"FINAL_LOSS={float(hist['loss'][-1])!r}")
+    print(f"FINAL_RETURN={float(hist['mean_episode_return'][-1])!r}")
+    print(f"ENV_STEPS={int(hist['env_steps'][-1])}")
+    print(f"PARAMS_CHECKSUM={params_checksum(state.agent.params)!r}")
+    print(f"DEVICE={device}")
+    _print_launches(state)
+
+
+def _equiv_worker(args, device):
+    """``--mode equiv``: the overlapped against the barrier cross-pod reduce
+    over a real 2-process ``("pod",)`` group, one pod a process, on the
+    same per-pod gradient streams (made on every rank from ``--seed``):
+
+      * shift identity — on a constant stream, overlapped event t equals
+        barrier event t−1 bit for bit;
+      * telescoping — on a varying stream the cumulative applied
+        difference collapses to ``p_T − pm_T`` (n_data = 1, so the
+        intra-pod partial is the pod's own gradient).
+
+    Rank 0 prints the maxima over both ranks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.learner import make_grad_reducer
+
+    if dist.get_world_size() != 2:
+        raise RuntimeError(f"--mode equiv wants a 2-process (pod) gang, got "
+                           f"{dist.get_world_size()}")
+    mesh = make_mesh(("pod",), (2,))
+    barrier = make_grad_reducer(("pod",), mesh, compress_axis="pod")
+    overlap = make_grad_reducer(("pod",), mesh, compress_axis="pod", overlap=True)
+    T, dim = 8, 16
+    rng = np.random.RandomState(args.seed)
+    gc_host = rng.randn(2, 1, dim).astype(np.float32)
+    gs_host = rng.randn(T, 2, 1, dim).astype(np.float32)
+    pod = mesh.axis_index("pod")
+    gc = torch.from_numpy(gc_host[pod]).to(device)
+    z = torch.zeros_like(gc)
+
+    def b_chain(stream):
+        ef, outs = [z], []
+        for g in stream:
+            out, ef = barrier([g], None, ef)
+            outs.append(out[0])
+        return outs
+
+    def o_chain(stream):
+        ef, outs = {"ef": [z], "prev_mean": [z], "prev_partial": [z]}, []
+        for g in stream:
+            out, ef = overlap([g], None, ef)
+            outs.append(out[0])
+        return outs
+
+    const = [gc] * 6
+    ob, oo = b_chain(const), o_chain(const)
+    shift = torch.stack([torch.max(torch.abs(oo[t] - ob[t - 1])) for t in range(1, 6)]).max()
+    varying = [torch.from_numpy(gs_host[t, pod]).to(device) for t in range(T)]
+    vb, vo = b_chain(varying), o_chain(varying)
+    cum_diff = sum(vo) - sum(vb)
+    tele = torch.max(torch.abs(cum_diff - (varying[-1] - vb[-1])))
+    errs = torch.stack([shift, tele]).cpu()
+    dist.all_reduce(errs, op=dist.ReduceOp.MAX, group=mesh.group("pod"))
+    if dist.get_rank() == 0:
+        print(f"SHIFT_MAX_ABS_ERR={float(errs[0])!r}")
+        print(f"TELESCOPE_MAX_ABS_ERR={float(errs[1])!r}")
+        print(f"DEVICE={device}")
+
+
+def _gang_worker(args):
+    """A rank of the wall-clock gang: the device first (raises with no GPU
+    unless ``--device cpu``), then the handshake, then the workload; the
+    kernels are built before the handshake on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import initialize_distributed
+    from repro_torch.kernels import ops
+
+    device = _role_device(args)
+    if device.type == "cuda":
+        ops.build_all()
+        ops.reset_launch_counts()
+    initialize_distributed(args.coordinator, args.n_procs, args.process_id,
+                           timeout_s=args.handshake_timeout, backend=args.backend)
+    try:
+        {"bench": _bench_worker, "fused": _fused_worker,
+         "equiv": _equiv_worker}[args.mode](args, device)
+    finally:
+        dist.destroy_process_group()
 
 
 def _replay_server_worker(args):
@@ -421,7 +745,7 @@ def _replay_server_worker(args):
     print(f"SNAPSHOTS={st['snapshots']}")
     print(f"SAMPLE_CALLS={st['sample_calls']}")
     print(f"SAMPLE_HOST_COPIES={st['sample_host_copies']}")
-    for name in ("sumtree_sample", "gather", "sample_gather", "sumtree_update"):
+    for name in REPLAY_KERNELS:
         print(f"LAUNCH_{name.upper()}={ops.launch_counts.get(name, 0)}")
     if restored_step is not None:
         print(f"RESTORED_STEP={restored_step}")
@@ -672,7 +996,7 @@ def _service_learner_worker(args):
     print(f"LEARN_STEPS={learn_step}")
     print(f"FINAL_LOSS={float(last_loss)!r}")
     print(f"EVAL_RETURN={eval_ret!r}")
-    print(f"PARAMS_CHECKSUM={_params_checksum(agent_state.params)!r}")
+    print(f"PARAMS_CHECKSUM={params_checksum(agent_state.params)!r}")
     print(f"MEAN_RECENT_RETURN={stats['mean_recent_return']!r}")
     print(f"SERVICE_INSERTS={stats['inserts']}")
     print(f"SERVICE_SAMPLES={stats['samples']}")
@@ -688,11 +1012,30 @@ def _service_learner_worker(args):
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(
-        description="replay-service gang worker (spawned by launch_service())")
+        description="wall-clock gang rank (spawned by launch()) or replay-service "
+                    "role (spawned by launch_service())")
     ap.add_argument("--mode", choices=GANG_MODES + SERVICE_ROLES, default="bench")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--n-envs", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    # the wall-clock gang (DESIGN.md §10)
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of the process group's rendezvous (rank 0 binds "
+                         "it); required by the gang modes, unused by the service roles")
+    ap.add_argument("--n-procs", type=int, default=1)
+    ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--handshake-timeout", type=float, default=HANDSHAKE_TIMEOUT_S)
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
+                    help="torch.distributed backend: gloo for ranks that share a card")
+    ap.add_argument("--n-pods", type=int, default=1)
+    ap.add_argument("--n-data", type=int, default=1)
+    ap.add_argument("--compress", action="store_true")
+    ap.add_argument("--overlap", action="store_true")
+    ap.add_argument("--publish-interval", type=int, default=0)
+    ap.add_argument("--update-interval", type=int, default=1)
+    ap.add_argument("--iters", type=int, default=120)
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--scan-chunk", type=int, default=20)
     # replay-service roles (DESIGN.md §11)
     ap.add_argument("--serve-port", type=int, default=0)
     ap.add_argument("--n-shards", type=int, default=1)
@@ -741,10 +1084,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     if args.mode in GANG_MODES:
-        print(f"--mode {args.mode}: the wall-clock gang over torch.distributed "
-              "is not ported yet (ROADMAP item 22); the replay-service roles "
-              f"are {', '.join(SERVICE_ROLES)}", file=sys.stderr)
-        raise SystemExit(2)
+        from repro_torch.device import resolve_device
+
+        resolve_device(args.device)     # no GPU and no --device cpu: raise first
+        if args.coordinator is None:
+            ap.error("--coordinator is required for modes bench/fused/equiv")
+        _gang_worker(args)
+        return
+    # service roles never join a process group: independent runtimes
+    # meeting only at the TCP boundary
     {"replay-server": _replay_server_worker,
      "service-actor": _service_actor_worker,
      "service-learner": _service_learner_worker}[args.mode](args)

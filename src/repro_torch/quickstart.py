@@ -21,6 +21,10 @@ of ``examples/quickstart.py``.
     PYTHONPATH=src python -m repro_torch.quickstart --executor async --shards 4 \\
         --publish-interval 4 --max-staleness 1
 
+    # the run a runtime/planner.py plan selected (executor_from_plan); a
+    # plan with a mesh runs on plan.n_devices ranks
+    PYTHONPATH=src python -m repro_torch.quickstart --plan BENCH_plan.json
+
 Several ranks on one card need ``--backend-dist gloo`` (the default),
 which stages the collectives through host memory; NCCL needs a card per
 rank, so it takes one shard here.
@@ -40,8 +44,10 @@ from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
 from repro_torch.device import resolve_device
 from repro_torch.envs.classic import make_vec
 from repro_torch.launch import mesh as meshlib
-from repro_torch.runtime.executors import AsyncExecutor, FusedExecutor, ShardedExecutor
+from repro_torch.runtime.executors import (AsyncExecutor, FusedExecutor, ShardedExecutor,
+                                           executor_from_plan)
 from repro_torch.runtime.loop import LoopConfig
+from repro_torch.runtime.planner import load_plan
 
 
 def transition_example(spec) -> dict:
@@ -128,10 +134,33 @@ def _sharded_rank(rank: int, args: argparse.Namespace):
              "params_age": state.params_age}, hist)
 
 
+def _planned(rank: int, args: argparse.Namespace, plan):
+    """The run a plan selected, through ``executor_from_plan``: in this
+    process, or on a rank of ``launch/mesh.py::spawn`` when it has a mesh."""
+    env_fn, spec, agent, cfg = _setup(args)
+    ex = executor_from_plan(plan, agent, env_fn, cfg, transition_example(spec),
+                            fanout=args.fanout, tree_backend=args.backend,
+                            intra_pod_dtype="bf16" if args.bf16_intra_pod else None,
+                            device=args.device)
+    if rank == 0:
+        print(f"planner-selected {plan.backend} executor on {plan.n_devices} device(s), "
+              f"{plan.n_envs} envs (predicted {plan.predicted_env_steps_per_s:,.0f} "
+              f"env-steps/s; {type(ex).__name__} on {ex.device})", flush=True)
+    state, hist = _train(ex, args, log=rank == 0)
+    if plan.n_data:
+        return ({"env_steps": state.env_steps, "learn_steps": state.learn_steps,
+                 "params_age": state.params_age}, hist)
+    return state, hist
+
+
 def main(argv=None):
-    """Returns (state, history); with ``--shards``, rank 0's (summary of its
-    state, history)."""
+    """Returns (state, history); with ``--shards`` or a plan with a mesh,
+    rank 0's (summary of its state, history)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--plan", default=None, metavar="BENCH_plan.json",
+                    help="run the executor a runtime.planner plan selected "
+                         "(overrides --shards/--pods/--executor/--publish-interval/"
+                         "--max-staleness/--n-envs/--update-interval)")
     ap.add_argument("--iterations", type=int, default=3000)
     ap.add_argument("--n-envs", type=int, default=8, help="parallel actors")
     ap.add_argument("--fanout", type=int, default=128, help="sum-tree K")
@@ -175,6 +204,21 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.plan:
+        plan = load_plan(args.plan)
+        print(f"plan: {plan.describe()}", flush=True)
+        if args.bf16_intra_pod and not plan.n_data:
+            ap.error("--bf16-intra-pod needs a plan with a mesh (the fused path has no "
+                     "cross-shard reduce to cast)")
+        resolve_device(args.device)           # no GPU and no --device cpu: raise here
+        if not plan.n_data:
+            return _planned(0, args, plan)
+        if args.backend_dist == "nccl" and plan.n_devices > 1:
+            ap.error(f"--backend-dist nccl needs a card per rank: a plan of "
+                     f"{plan.n_devices} ranks on one device needs --backend-dist gloo")
+        return meshlib.spawn(_planned, plan.n_devices, args, plan,
+                             backend=args.backend_dist, device=args.device,
+                             timeout_s=24 * 3600.0)[0]
     if args.pods and not args.shards:
         args.shards = 1                       # pods alone: a P×1 mesh
     if args.compress_pod_reduce and not args.pods:

@@ -9,6 +9,9 @@ requested number of iterations (full chunks plus one tail) and keeps the
 last iteration's metrics of each chunk as ``history``; it reads device
 values back only when it logs and once at the end.
 
+``executor_from_plan`` builds whichever of these (or the replay
+service's ``ServiceExecutor``) a ``runtime/planner.py`` plan selected.
+
 ``ShardedExecutor`` is the reference's ``shard_map`` program as one
 process a shard: each rank of a ``launch/mesh.py`` mesh constructs it
 with the same arguments, runs E/D envs and B/D draws a learner call on
@@ -101,7 +104,9 @@ class FusedExecutor(Executor):
     device (the paper's single-node regime).  Runs on CUDA unless
     ``device="cpu"``; the replay must live on the same device.
     ``publish_interval`` is the async executor's plumbing: > 0 acts on
-    the delayed copy (``AsyncExecutor``), 0 is the synchronous loop."""
+    the delayed copy (``AsyncExecutor``), 0 is the synchronous loop;
+    ``external_publish`` leaves the copy's republish to the wall-clock
+    gang (``make_step``)."""
 
     def __init__(
         self,
@@ -113,6 +118,7 @@ class FusedExecutor(Executor):
         scan_chunk: int = 64,
         device: DeviceLike = "cuda",
         publish_interval: int = 0,
+        external_publish: bool = False,
     ):
         self.device = resolve_device(device)
         if replay.device != self.device:
@@ -128,7 +134,8 @@ class FusedExecutor(Executor):
         self.schedule = RatioSchedule.from_config(cfg, n_envs)
         self.step = make_step(agent, replay, self._v_step, cfg, n_envs,
                               schedule=self.schedule,
-                              publish_interval=publish_interval)
+                              publish_interval=publish_interval,
+                              external_publish=external_publish)
 
     def init(self, seed: int) -> LoopState:
         return init_loop_state(self.agent, self.replay, self._v_reset, seed,
@@ -152,7 +159,8 @@ class ShardedExecutor(Executor):
     that leg (``make_grad_reducer(overlap=True)``).  ``publish_interval``
     and ``max_staleness`` are ``AsyncExecutor``'s plumbing: each shard
     acts on its own delayed copy, published on staggered ticks, and the
-    reduce weights each shard by the age of its copy.
+    reduce weights each shard by the age of its copy; ``external_publish``
+    leaves the republish to the wall-clock gang (``make_step``).
 
     Each rank holds its own replay shard, acting copy and EF buffer; the
     agent state is replicated (rank 0's, broadcast by ``init``) — with
@@ -174,6 +182,7 @@ class ShardedExecutor(Executor):
         intra_pod_dtype: Optional[str] = None,
         overlap_pod_reduce: bool = False,
         device: DeviceLike = "cuda",
+        external_publish: bool = False,
     ):
         axes = tuple(replay.config.axis_names)
         missing = [ax for ax in axes if ax not in mesh.shape]
@@ -261,7 +270,8 @@ class ShardedExecutor(Executor):
         # last metrics over the mesh in one collective
         self.step = make_step(agent, replay, self._v_step, cfg, self.n_envs_local,
                               schedule=self.schedule, learn_fn=learn_fn,
-                              shard_id=mesh.shard_id, publish_interval=publish_interval)
+                              shard_id=mesh.shard_id, publish_interval=publish_interval,
+                              external_publish=external_publish)
 
     def init(self, seed: int) -> LoopState:
         """This shard's initial state (``loop.init_loop_state`` with its
@@ -394,3 +404,98 @@ class AsyncExecutor(Executor):
 
     def run_chunk(self, state: LoopState, length: Optional[int] = None):
         return self._impl.run_chunk(state, length)
+
+
+def executor_from_plan(
+    plan,
+    agent: Agent,
+    env_fn: Callable[[int], tuple],
+    cfg: LoopConfig,
+    example,
+    *,
+    capacity: int = 50_000,
+    fanout: int = 128,
+    tree_backend: Optional[str] = None,
+    scan_chunk: int = 64,
+    intra_pod_dtype: Optional[str] = None,
+    device: DeviceLike = "cuda",
+) -> Executor:
+    """Instantiate the executor a ``runtime.planner.PlannedConfig``
+    selected: the backend class, the mesh (``launch.mesh.mesh_from_plan``),
+    the replay and the async knobs, with the plan's ``n_envs`` and
+    ``update_interval`` applied (the latter overrides
+    ``cfg.update_interval``: the plan *is* the Eq. 5 answer for the ratio
+    it was solved at).  ``tree_backend`` is the replay's TreeOps backend
+    (``None``: by device).
+
+    A plan with a mesh is built on each rank of a process group of
+    ``plan.n_devices`` ranks (``launch/mesh.py::spawn``;
+    ``python -m repro_torch.quickstart --plan`` shows it).  A plan with
+    ``n_replay_shards ≥ 1`` routes experience through an in-process
+    ``ReplayService`` (round-robin router) behind a ``RateLimiter`` at the
+    plan's ``samples_per_insert``: the ``ServiceExecutor`` form of the same
+    workload, which runs the fused program; a mesh together with a service
+    is refused (``launch_service`` runs the multi-process service gang)."""
+    import dataclasses
+
+    from repro_torch.core.distributed import ShardedReplayConfig
+    from repro_torch.core.replay import ReplayConfig
+    from repro_torch.launch.mesh import mesh_from_plan
+
+    cfg = dataclasses.replace(cfg, update_interval=plan.update_interval)
+    if plan.n_replay_shards:
+        from repro_torch.service.executor import ServiceExecutor
+        from repro_torch.service.rate_limiter import RateLimiter
+        from repro_torch.service.server import ReplayService, ReplayServiceConfig
+
+        if plan.n_data:
+            raise ValueError(
+                f"plan ({plan.describe()}) combines a device mesh with a "
+                "replay service — the service executor runs the fused "
+                "per-process program; use launch_service for a gang")
+        service = ReplayService(
+            ReplayServiceConfig(capacity_per_shard=max(1, capacity // plan.n_replay_shards),
+                                n_shards=plan.n_replay_shards, fanout=fanout,
+                                backend=tree_backend, router="round_robin"),
+            example, device=device)
+        limiter = None
+        if plan.samples_per_insert:
+            limiter = RateLimiter.for_loop(
+                cfg.batch_size, max(1, round(cfg.batch_size / plan.samples_per_insert)),
+                cfg.warmup, insert_burst=plan.n_envs)
+        return ServiceExecutor(agent, service, env_fn, cfg, plan.n_envs,
+                               scan_chunk=scan_chunk, rate_limiter=limiter)
+    mesh = mesh_from_plan(plan)
+    if mesh is None:
+        if intra_pod_dtype not in (None, "f32", "float32"):
+            raise ValueError(
+                f"intra_pod_dtype={intra_pod_dtype!r} but the plan "
+                f"({plan.describe()}) runs the fused program — there is "
+                "no cross-shard reduce to cast")
+        replay = PrioritizedReplay(ReplayConfig(capacity=capacity, fanout=fanout,
+                                                backend=tree_backend), example, device=device)
+        if plan.backend == "async":
+            return AsyncExecutor(agent, replay, env_fn, cfg, plan.n_envs,
+                                 publish_interval=plan.publish_interval,
+                                 max_staleness=plan.max_staleness,
+                                 scan_chunk=scan_chunk, device=device)
+        return FusedExecutor(agent, replay, env_fn, cfg, plan.n_envs,
+                             scan_chunk=scan_chunk, device=device)
+    axis_names = ("pod", "data") if plan.n_pods > 1 else ("data",)
+    replay = ShardedPrioritizedReplay(
+        ShardedReplayConfig(capacity_per_shard=capacity // plan.n_shards, fanout=fanout,
+                            backend=tree_backend, axis_names=axis_names),
+        example, device=device)
+    if plan.backend == "async":
+        return AsyncExecutor(agent, replay, env_fn, cfg, plan.n_envs,
+                             publish_interval=plan.publish_interval,
+                             max_staleness=plan.max_staleness, mesh=mesh,
+                             scan_chunk=scan_chunk,
+                             compress_pod_reduce=plan.compress_pod_reduce,
+                             intra_pod_dtype=intra_pod_dtype,
+                             overlap_pod_reduce=plan.overlap_pod_reduce, device=device)
+    return ShardedExecutor(agent, replay, env_fn, cfg, plan.n_envs, mesh,
+                           scan_chunk=scan_chunk,
+                           compress_pod_reduce=plan.compress_pod_reduce,
+                           intra_pod_dtype=intra_pod_dtype,
+                           overlap_pod_reduce=plan.overlap_pod_reduce, device=device)

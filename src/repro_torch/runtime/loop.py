@@ -37,7 +37,10 @@ never aliases the learners' module.  ``params_age`` counts iterations
 since the last publish and is handed to the learn fn (the sharded reduce
 weights a shard by it); like the publish tick it depends only on the
 iteration count, so both are host ints.  ``P = 1`` republishes every
-iteration and is the synchronous loop bit for bit.
+iteration and is the synchronous loop bit for bit.  With
+``external_publish`` the step only ages the copy: the wall-clock gang
+(``launch/multiprocess.py``) republishes it between chunks through the
+host.
 
 On a mesh each rank runs this step on its own envs and replay shard, with
 ``learn_fn`` the sharded learner (``runtime/learner.py``), which reduces
@@ -261,7 +264,7 @@ def publish(held: nn.Module, fresh: nn.Module) -> None:
 def make_step(agent: Agent, replay, v_step: Callable, cfg: LoopConfig,
               n_envs: int, *, schedule: Optional[RatioSchedule] = None,
               learn_fn: Optional[Callable] = None, shard_id: int = 0,
-              publish_interval: int = 0):
+              publish_interval: int = 0, external_publish: bool = False):
     """Compose actor + learner programs into one ``step(state) → (state,
     metrics)``.
 
@@ -274,10 +277,23 @@ def make_step(agent: Agent, replay, v_step: Callable, cfg: LoopConfig,
     ``publish_interval=0`` is the synchronous loop: actors act on the
     fresh ``state.agent``.  ``publish_interval=P ≥ 1`` is the async loop
     (module docstring); its state needs
-    ``init_loop_state(double_buffer=True)``."""
+    ``init_loop_state(double_buffer=True)``.
+
+    ``external_publish=True`` (the wall-clock gang) keeps the async
+    acting-copy reads but drops the in-step republish: the host owns the
+    publish, a real device→host→device copy of the fresh params between
+    chunks that rewrites ``actor_params`` and zeroes ``params_age``
+    (``launch/multiprocess.py::_publish_host_roundtrip``).  ``params_age``
+    then counts up every iteration, so the staleness-weighted reduce still
+    sees honest ages between host publishes."""
     if publish_interval < 0:
         raise ValueError(f"publish_interval={publish_interval}: need ≥ 0 "
                          "(0 = the synchronous loop)")
+    if external_publish and not publish_interval:
+        raise ValueError(
+            "external_publish=True needs publish_interval ≥ 1: the host "
+            "publish rewrites the async acting copy, which only exists "
+            "on the double-buffered (publish_interval > 0) loop")
     schedule = schedule or RatioSchedule.from_config(cfg, n_envs)
     actor_step = make_actor_step(agent, v_step, n_envs)
     learn_fn = learn_fn or make_learner_step(agent, replay, cfg)
@@ -331,8 +347,11 @@ def make_step(agent: Agent, replay, v_step: Callable, cfg: LoopConfig,
                                             lazy=lazy)
 
         # 6. async publish, on the host's iteration clock, staggered by shard
+        #    — unless the host runtime owns the publish (the age counts on)
         params_age = state.params_age
-        if publish_interval and (it + 1 + shard_id) % publish_interval == 0:
+        if publish_interval and external_publish:
+            params_age += 1
+        elif publish_interval and (it + 1 + shard_id) % publish_interval == 0:
             publish(state.actor_params, agent.params_for_acting(agent_state))
             params_age = 0
         elif publish_interval:

@@ -94,10 +94,29 @@ def test_quickstart_runs_on_cpu_when_asked(capsys):
     assert "tree backend cuda" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("rel", ["runtime/dse.py", "runtime/planner.py",
+                                 "launch/multiprocess.py"])
+def test_dse_planner_and_gang_import_no_jax(rel):
+    """The modules copied from the reference's jax-free ones and the gang
+    launcher import nothing of it: the AST scan, and a fresh interpreter
+    that imports the module alone."""
+    path = PORT / rel
+    bad = [f"{rel}:{line} imports {root}" for root, line in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, bad
+    mod = "repro_torch." + rel[:-3].replace("/", ".")
+    code = (f"import importlib, sys; importlib.import_module({mod!r}); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=120, cwd=str(REPO))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_service_roles_need_cuda_unless_cpu_requested(monkeypatch):
-    """Each replay-service role, the gang launcher and the service itself
-    raise without a GPU unless asked for the CPU; the gang modes of the
-    wall-clock launcher (not ported) exit 2."""
+    """Each replay-service role, each wall-clock gang mode, both launchers
+    and the service itself raise without a GPU unless asked for the CPU."""
     from repro_torch.launch import multiprocess as mp
     from repro_torch.service import ReplayService, ReplayServiceConfig
 
@@ -111,6 +130,9 @@ def test_service_roles_need_cuda_unless_cpu_requested(monkeypatch):
         ReplayService(ReplayServiceConfig(capacity_per_shard=8),
                       {"obs": np.zeros((2,), np.float32)})
     for mode in mp.GANG_MODES:
-        with pytest.raises(SystemExit) as e:
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            mp.main(["--mode", mode, "--coordinator", "127.0.0.1:1"])
+        with pytest.raises(RuntimeError, match="--device cpu"):
             mp.main(["--mode", mode])
-        assert e.value.code == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mp.launch(["--mode", "equiv"], n_procs=2)

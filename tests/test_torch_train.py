@@ -1,6 +1,8 @@
 """The port's training entry point (``python -m repro_torch.launch.train``)
 on the CPU at SMOKE size: it trains through the flash path, checkpoints,
-resumes from its checkpoint, and refuses the modes that are not ported."""
+resumes from its checkpoint, applies a planner's plan, and refuses model
+sharding (``--mesh``), which is not ported.  ``--wall-clock`` is in
+tests/test_torch_gang.py."""
 
 import pytest
 import torch
@@ -69,13 +71,32 @@ def test_trains_checkpoints_and_resumes(tmp_path, monkeypatch, capsys):
     assert CheckpointManager(str(tmp_path)).all_steps() == [4, 6]
 
 
-@pytest.mark.parametrize("flag", [["--wall-clock", "2"], ["--mesh", "16x16"],
-                                  ["--plan", "BENCH_plan.json"]])
+@pytest.mark.parametrize("flag", [["--mesh", "16x16"]])
 def test_unported_modes_exit_2(flag, capsys):
     with pytest.raises(SystemExit) as e:
         train.main(ARGS + flag)
     assert e.value.code == 2
-    assert "ROADMAP Queue 1 item 2" in capsys.readouterr().err
+    assert "ROADMAP Queue 1 item 21" in capsys.readouterr().err
+
+
+def test_plan_applies_the_planned_env_count(tmp_path, capsys):
+    """``--plan``: the plan's n_envs replaces --n-envs (one segment of each
+    actor lands in the replay a step) and the run names the planned mesh;
+    it stays one process, as the reference's unsharded planned run does."""
+    from repro_torch.runtime import planner
+
+    pc = planner.PlannedConfig(backend="sharded", n_data=2, n_envs=6,
+                               predicted_env_steps_per_s=10.0, source="test")
+    planner.save_plan(pc, str(tmp_path / "BENCH_plan.json"))
+    res = train.main(ARGS + ["--plan", str(tmp_path / "BENCH_plan.json"), "--steps", "2",
+                             "--ckpt-dir", str(tmp_path / "ckpt")])
+    out = capsys.readouterr().out
+    assert res["plan"] == pc
+    assert f"plan: {pc.describe()}" in out and "mesh=plan:1x2" in out
+    assert res["replay_state"].count == 2 * pc.n_envs
+    with pytest.raises(SystemExit) as e:
+        train.main(ARGS + ["--plan", str(tmp_path / "BENCH_plan.json"), "--mesh", "16x16"])
+    assert e.value.code == 2
 
 
 def test_needs_cuda_unless_cpu_requested(monkeypatch, tmp_path):
