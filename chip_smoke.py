@@ -43,8 +43,7 @@ failure and prints no result):
                 eager-replay arm, which launch the other two kernels: one
                 fused launch a learner call, one update launch a learner
                 call and two an iteration (the insert's two phases), each
-                count equal to the tree op's calls; then the main path's
-                profiler window over 20 more iterations of each arm;
+                count equal to the tree op's calls;
   6. times    — the launch floor (torch.cuda._sleep(0)); each kernel, its
                 plain version and the library call (searchsorted on the
                 leaves' CDF for the descent, index_select for the gather):
@@ -67,7 +66,7 @@ failure and prints no result):
   8. serve    — the token-model serve path: Granite-8B at its published
                 width and depth (36 layers, bf16, random weights from the
                 seed) with attn_impl="flash" through ActorServer (8 slots,
-                buckets 128/256/512, max_len 544), 16 requests of 1-512
+                buckets 128/256/512, max_len 544), 8 requests of 1-512
                 prompt tokens and 32 new tokens each: exact token accounting,
                 prefill shapes <= 3, and the Hopper forward's launches equal
                 to the count the code predicts (attention layers x prefills x
@@ -96,24 +95,38 @@ failure and prints no result):
                 and none of the other, and a second call bit for bit the same;
                 and the FlashAttention Function's gradients against autograd
                 through the plain forward, three masks at (3, 200, 64) f32;
- 12. grad gate — InternLM2-1.8B at its published width and depth in bf16,
-                one TD loss and its gradients on each of four seeded (8, 256)
-                batches with flash and with naive attention, against the same
-                weights in f32 (naive, TF32 off): flash's gradients, per-position
-                Q(s, a) and TD no farther from the f32 model than 1.1x naive's
-                (the loss and the per-sequence |TD| reported beside them);
+ 12. grad gate — InternLM2-1.8B at its published width and depth in bf16
+                with remat (each unit checkpointed), one TD loss and its
+                gradients on each of four seeded (8, 256) batches with flash
+                and with naive attention, against the same weights in f32
+                (naive, TF32 off): flash's gradients, per-position Q(s, a) and
+                TD no farther from the f32 model than 1.1x naive's (the loss
+                and the per-sequence |TD| reported beside them); 72 Hopper
+                forward launches (online, target, the recompute) and 24 of
+                each Hopper backward kernel; on the first batch the loss and
+                gradients with remat off too, reported against remat on (bit
+                for bit, or the largest difference) and held to the same gate;
  13. train    — `python -m repro_torch.launch.train`'s main at InternLM2-1.8B's
-                full width and depth, flash, --seq 256 --batch 8 --n-envs 16
-                --steps 3 --ckpt-every 2: 48 Hopper forward, 24 Hopper dQ and
-                24 Hopper dK/dV launches per train step (none of the f32
-                forward and backward kernels) and the sample and gather
-                kernels on every step,
+                full width and depth with remat, flash, --seq 256 --batch 8
+                --n-envs 16 --steps 2 --ckpt-every 1: 72 Hopper forward, 24
+                Hopper dQ and 24 Hopper dK/dV launches per train step (none of
+                the f32 forward and backward kernels) and the sample and
+                gather kernels on every step,
                 finite losses, moved parameters, the tree's root changed at the
-                flush after update_priorities, the step-4 checkpoint restored
+                flush after update_priorities, the step-2 checkpoint restored
                 into a fresh state bit for bit, the sample and gather kernels
                 against their plain versions on the run's own tree and token
-                rows, a profiled train step, and a second call with --steps 4
-                that resumes from step 3;
+                rows, a profiled train step, a second call with --steps 3
+                --ckpt-every 0 that resumes from step 2, and the peak memory
+                of both calls;
+     13(b)    — bf16 Adam moments (AdamConfig(lr=1e-4, state_dtype="bfloat16"))
+                on a fresh InternLM2-1.8B state, two train steps on seeded
+                (8, 256) batches: every moment bf16, the second update of the
+                embedding, unit 0's wq and the final norm's scale bit for bit
+                the reference's formula in plain f32 torch ops on the card
+                from its saved inputs, and a step's peak memory, and its rise
+                above the resident state, against the same step with f32
+                moments, with remat and without;
  14. bwd times — the Hopper dQ and dK/dV kernels and the f32-FMA pair at
                 (128, 256, 128) and (32, 4096, 128) bf16 causal beside their
                 bounds, their plain versions and one SDPA backward call that
@@ -133,7 +146,7 @@ failure and prints no result):
                 copy byte-identical between publishes; (c) publish interval
                 4 for 700 iterations at the main path's settings: return
                 above 30, one descent and one gather launch per learner
-                call, no host sync in a step, a profiler window;
+                call, no host sync in a step;
  17. actor-critic — DDPG, TD3 and SAC on Pendulum x 8 at the settings of
                 benchmarks/fig10_scalability.py (hidden (256, 256), capacity
                 50,000 K=128, batch 64, warmup 64, epsilon 0.1), 300
@@ -145,8 +158,8 @@ failure and prints no result):
                 card against the same step on the CPU from the same state,
                 batch and noise (rtol 1e-4, atol 1e-5 on the loss, |TD| and
                 every parameter and target tensor); the mean return and
-                iterations per second (not gated) and a profiler window;
-                then the sampling chain on Pendulum's five leaves.
+                iterations per second (not gated); then the sampling chain on
+                Pendulum's five leaves.
 
  18. sharded — the sharded runtime, each shard a rank of torch.distributed
                 on this card (launch/mesh.py::spawn; the kernels built first):
@@ -216,17 +229,43 @@ failure and prints no result):
                 launch.train --arch granite_8b --smoke --attn-impl flash --seq
                 128 --wall-clock 2, 3 steps: both workers' parameters equal
                 after the last average, the f32 flash kernels (#5b, #6b, #7b)
-                launched as the code predicts on each worker, none of the
-                Hopper ones; then those three kernels' times at the trainer's
-                shape (32, 128, 16) f32 causal beside their plain versions,
-                SDPA and their bounds.
+                launched as the code predicts on each worker (with remat,
+                three forwards a step), none of the Hopper ones; then those
+                three kernels' times at the trainer's shape (32, 128, 16) f32
+                causal beside their plain versions, SDPA and their bounds.
+ 21. big dense — Qwen1.5-32B and Command-R-35B, one at a time on a card that
+                holds nothing else: (a) at full width and 4 layers, bf16 flash
+                prefill logits against naive bf16 and both against the same
+                weights in f32 on 4 prompts of 1-512 tokens, phase 8's gates;
+                (b) at full width and depth in bf16 with flash through
+                ActorServer (8 slots, buckets 128/256/512, max_len 544), 8
+                requests of 1-512 prompt tokens and 16 new tokens: every
+                request complete, every prompt's prefill logits and a decode
+                step finite, the Hopper forward once a prefill per attention
+                layer (64 and 40) and no other flash kernel, flash against
+                naive prefill logits on 2 prompts under 3e-2 relative l2, the
+                rates, the peak memory and one profiled decode step of the 8
+                slots; (c) the Hopper forward at the prefill shape (heads,
+                512, 128) bf16 causal beside its bound and SDPA;
+ 22. token-DQN — `python -m repro_torch.train_token_dqn`'s main at its
+                39.9 M-parameter config (f32, naive attention), --steps 24
+                --update-interval 64 --ckpt-every 12 --backend cuda: the
+                printed schedule (every 2 collects, 1 update), 12 learn events
+                with finite losses, the sample and gather kernels once a learn
+                call and the update kernel twice an insert and once a priority
+                write-back; the sample and gather kernels against their plain
+                versions on the run's tree and rows (8 and 65,536 draws), the
+                eagerly written tree against the plain rebuild of its leaves,
+                and the update kernel against the plain update on one more
+                32-row insert and 8-row write-back from that tree; then a
+                second call that resumes from step 24.
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
-iterations gives the device-busy share and the ops per iteration; phase
-5 takes the same window on each arm.
+iterations gives the device-busy share and the ops per iteration.
 Granite-8B's weights and its f32 copy are freed before phase 11; phase 12
 runs before the training state and the 34.3 GB token-MDP table exist, and
-each training run's state is freed before the next.
+each training run's state is freed before the next.  Phase 21 starts with
+under 1 GiB allocated and frees each model before the next.
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.  The line before that one is
@@ -257,6 +296,8 @@ BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 SEED = 0
 N_TIMED = 60
 GATE_BATCHES = 4
+SERVE_REQUESTS = 8      # phase 8's Granite-8B requests (phase 21 serves the larger models)
+TRAIN_STEPS = 2         # phase 13's steps before the restart's one
 # (n, s, hd, attention, window, causal, is_global, dtype) of the flash
 # kernels' parity phases (7 and 11): the five mask cases of
 # tests/test_flash_attention.py, hd 16/96/128, a ragged S = 200, bf16
@@ -744,7 +785,7 @@ def flash_phases(torch, dev, card: str) -> list:
     n_params = sum(p.numel() for p in params.parameters())
     scfg = ActorServeConfig(slots=8, max_len=544, buckets=(128, 256, 512), max_new_tokens=32)
     rng = np.random.RandomState(SEED)
-    lens = rng.randint(1, 513, size=16)
+    lens = rng.randint(1, 513, size=SERVE_REQUESTS)
     prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
 
     def serve(c, batch, budget):
@@ -766,7 +807,7 @@ def flash_phases(torch, dev, card: str) -> list:
     peak = torch.cuda.max_memory_allocated()
     st = server.stats()
     generated = sum(len(c.tokens) for c in done)
-    check(generated == 16 * 32 == st["admissions"] + st["decoded_tokens"]
+    check(generated == SERVE_REQUESTS * 32 == st["admissions"] + st["decoded_tokens"]
           == st["generated_tokens"] and all(len(c.tokens) == 32 for c in done),
           f"token accounting: {generated} generated, stats {st}")
     check(st["prime_compiles"] <= 3, f"{st['prime_compiles']} prefill shapes for 3 buckets")
@@ -840,7 +881,7 @@ def flash_phases(torch, dev, card: str) -> list:
                 "latency_p99_ms": stats["latency_p99_ms"], "prefill_s": stats["prefill_s"],
                 "decode_s": stats["decode_s"], "decode_steps": stats["steps"], "wall_s": secs}
 
-    rate = {"model": cfg.name, "params": n_params, "init_s": init_s, "requests": 16,
+    rate = {"model": cfg.name, "params": n_params, "init_s": init_s, "requests": SERVE_REQUESTS,
             "new_tokens": 32, "slots": 8, "buckets": list(scfg.buckets),
             "max_len": scfg.max_len, "prompt_tokens": int(lens.sum()),
             "flash": phases(st, wall), "naive": phases(nst, nwall),
@@ -852,15 +893,16 @@ def flash_phases(torch, dev, card: str) -> list:
     f, nf = rate["flash"], rate["naive"]
     print(f"[serve] {cfg.name} ({n_params / 1e9:.2f} B params, {cfg.dtype}, made in "
           f"{init_s:.1f} s): "
-          f"16 requests x 32 tokens on 8 slots, {int(lens.sum())} prompt tokens; flash: "
+          f"{SERVE_REQUESTS} requests x 32 tokens on 8 slots, {int(lens.sum())} prompt tokens; "
+          f"flash: "
           f"{f['first_tokens_per_s']:.2f} first-tokens/s, {f['decode_tokens_per_s']:.1f} decode "
           f"tokens/s, p50 {f['latency_p50_ms']:.0f} ms, p99 {f['latency_p99_ms']:.0f} ms; naive: "
           f"{nf['first_tokens_per_s']:.2f} first-tokens/s, {nf['decode_tokens_per_s']:.1f} decode "
           f"tokens/s; peak memory {peak / 2**30:.2f} GiB; flash launches {flash_launches} = "
           f"{per_prefill} x {st['admissions']} prefills x 1 pass; prefill logits flash vs "
           f"naive rel l2 {fn_rel:.4g} (each from the f32 model: flash {rel['fx']:.4g}, naive "
-          f"{rel['nx']:.4g}); first tokens agree {first_agree}/16, all tokens "
-          f"{token_agree}/{16 * 32} | {card}", flush=True)
+          f"{rel['nx']:.4g}); first tokens agree {first_agree}/{SERVE_REQUESTS}, all tokens "
+          f"{token_agree}/{SERVE_REQUESTS * 32} | {card}", flush=True)
     for name, pr in prof.items():
         print(f"[serve profile] {name}: {pr['wall_us'] / pr['steps']:,.0f} us wall, "
               f"{pr['device_busy_us'] / pr['steps']:,.0f} us device-busy and "
@@ -979,6 +1021,15 @@ def sdpa_backward(torch, q4, k4, v4, do4):
             do4, q4, k4, v4, None, o, lse, seed, offset, 0.0, [True, True, True, False], True)
 
 
+def same_td_grads(torch, on: dict, off: dict) -> dict:
+    """Phase 12's remat check: the loss and the gradients of one batch with
+    remat on and off, bit for bit or their largest difference."""
+    pairs = [(on["loss"], off["loss"]), *zip(on["grads"], off["grads"])]
+    return {"bit_for_bit": all(bool(torch.equal(a, b)) for a, b in pairs),
+            "max_abs_diff": max(float((a.double() - b.double()).abs().max()) for a, b in pairs),
+            "grads_rel_l2": rel_l2(zip(off["grads"], on["grads"])), "gradients": len(pairs) - 1}
+
+
 def train_phases(torch, dev, card: str) -> list:
     """Phases 11-14 → the dQ and dK/dV kernels' entries of the kernels line
     and the training path's launch counts."""
@@ -1079,9 +1130,9 @@ def train_phases(torch, dev, card: str) -> list:
     # of 1, with a correct kernel.
     cfg = dataclasses.replace(get_config("internlm2_1_8b"), attn_impl="flash")
     check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff,
-           cfg.vocab_size, cfg.rope_theta, cfg.dtype)
-          == (24, 2048, 16, 8, 128, 8192, 92544, 1e6, "bfloat16"),
-          f"not InternLM2-1.8B's published shape: {cfg}")
+           cfg.vocab_size, cfg.rope_theta, cfg.dtype, cfg.remat)
+          == (24, 2048, 16, 8, 128, 8192, 92544, 1e6, "bfloat16", True),
+          f"not InternLM2-1.8B's published shape with remat: {cfg}")
     naive_cfg = dataclasses.replace(cfg, attn_impl="naive")
     exact_cfg = dataclasses.replace(naive_cfg, dtype="float32")
     tcfg = train.token_config()
@@ -1112,12 +1163,18 @@ def train_phases(torch, dev, card: str) -> list:
         ops.reset_launch_counts()
         arms = {"flash": td_grads(cfg, params, batch)}
         gate_counts = dict(ops.launch_counts)
-        check(gate_counts.get(fa.SM90_NAME) == 2 * layers and not gate_counts.get(fa.NAME)
+        # the online forward, the target's and the remat's recompute of the online
+        check(gate_counts.get(fa.SM90_NAME) == 3 * layers and not gate_counts.get(fa.NAME)
               and gate_counts.get(fa.DQ_SM90_NAME) == layers
               and gate_counts.get(fa.DKV_SM90_NAME) == layers
               and not gate_counts.get(fa.DQ_NAME) and not gate_counts.get(fa.DKV_NAME),
-              f"one TD loss and its gradients launched {gate_counts}, expected {2 * layers} "
-              f"Hopper forward and {layers} Hopper dQ and dK/dV")
+              f"one TD loss and its gradients launched {gate_counts}, expected {3 * layers} "
+              f"Hopper forward (with remat) and {layers} Hopper dQ and dK/dV")
+        if bi == 0:
+            # remat on against off, on the same batch: the loss and every gradient
+            arms["flash, no remat"] = td_grads(dataclasses.replace(cfg, remat=False), params,
+                                               batch)
+            remat_check = same_td_grads(torch, arms["flash"], arms["flash, no remat"])
         arms["naive"] = td_grads(naive_cfg, params, batch)
         x = td_grads(exact_cfg, exact, batch)
         row = {}
@@ -1129,38 +1186,53 @@ def train_phases(torch, dev, card: str) -> list:
             row[arm]["worst_tensor"] = max((rel_l2([(g, w)]), n)
                                            for g, w, n in zip(out["grads"], x["grads"], names))
         gate.append(row)
-        del arms, x
-        for key in held:
-            check(row["flash"][key] <= 1.1 * row["naive"][key],
-                  f"batch {bi}: flash bf16 {key} are {row['flash'][key]:.4g} relative l2 from "
-                  f"the f32 model, naive's {row['naive'][key]:.4g}: flash adds error")
+        del arms, x, out        # out: the last arm's gradients, 3.5 GiB
+        for arm in [a for a in row if a.startswith("flash")]:
+            for key in held:
+                check(row[arm][key] <= 1.1 * row["naive"][key],
+                      f"batch {bi}: {arm} bf16 {key} are {row[arm][key]:.4g} relative l2 from "
+                      f"the f32 model, naive's {row['naive'][key]:.4g}: flash adds error")
+        if bi == 0:
+            rc = remat_check
+            print(f"[grad gate] remat on against off, batch 0: loss and {rc['gradients']} "
+                  f"gradients {'bit for bit' if rc['bit_for_bit'] else 'not bit for bit'} "
+                  f"(largest difference {rc['max_abs_diff']:.4g}, gradients relative l2 "
+                  f"{rc['grads_rel_l2']:.4g}); without remat: "
+                  + ", ".join(f"{k} {row['flash, no remat'][k]:.4g}" for k in held)
+                  + " from the f32 model, within 1.1x naive's", flush=True)
         print(f"[grad gate] batch {bi}: relative l2 from the same weights in f32, flash vs "
               + ", ".join(f"{k} {row['flash'][k]:.4g} vs {row['naive'][k]:.4g} "
                           f"({row['flash'][k] / row['naive'][k]:.3f}x)" for k in held + shown)
               + f"; worst tensor flash {row['flash']['worst_tensor'][1]} "
               f"{row['flash']['worst_tensor'][0]:.4g}, naive {row['naive']['worst_tensor'][1]} "
               f"{row['naive']['worst_tensor'][0]:.4g}", flush=True)
-    print(f"[grad gate] {cfg.name} bf16, (8, 256) batches, {GATE_BATCHES} batches: flash no "
-          f"farther than 1.1x naive from the f32 model in {', '.join(held)} on every batch; "
-          f"launches per TD loss + gradients {gate_counts} | {card}", flush=True)
+    print(f"[grad gate] {cfg.name} bf16 with remat, (8, 256) batches, {GATE_BATCHES} batches: "
+          f"flash no farther than 1.1x naive from the f32 model in {', '.join(held)} on every "
+          f"batch; launches per TD loss + gradients {gate_counts} | {card}", flush=True)
     del params, exact
     gc.collect()
     torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev)
+    check(left < 2**30, f"{left / 2**30:.2f} GiB still allocated after the gradient gate")
 
     clock("13 (train)")
     # 13. the training path through its entry point, at full width and depth
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
     argv = ["--arch", "internlm2_1_8b", "--attn-impl", "flash", "--seq", "256", "--batch", "8",
-            "--n-envs", "16", "--ckpt-every", "2", "--ckpt-dir", ckpt, "--seed", str(SEED)]
+            "--n-envs", "16", "--ckpt-every", "1", "--ckpt-dir", ckpt, "--seed", str(SEED)]
     try:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        res = train.main(argv + ["--steps", "3"])
+        res = train.main(argv + ["--steps", str(TRAIN_STEPS)])
         train_counts = dict(ops.launch_counts)
         hist, state = res["history"], res["state"]
         steps = len(hist)
-        check(steps == 3 and res["start"] is None, f"{steps} steps, start {res['start']}")
-        want = {fa.SM90_NAME: 2 * layers * steps, fa.NAME: None,
+        train_peak = res["peak_memory_bytes"] or 0
+        check(steps == TRAIN_STEPS and res["start"] is None,
+              f"{steps} steps, start {res['start']}")
+        # a step: the online and target forwards and the remat's recompute of
+        # the online one, then one backward pair, per attention layer
+        want = {fa.SM90_NAME: 3 * layers * steps, fa.NAME: None,
                 fa.DQ_SM90_NAME: layers * steps, fa.DKV_SM90_NAME: layers * steps,
                 fa.DQ_NAME: None, fa.DKV_NAME: None}
         check(all(train_counts.get(k) == v for k, v in want.items())
@@ -1179,11 +1251,12 @@ def train_phases(torch, dev, card: str) -> list:
               f"({res['root_before_flush']})")
         # the checkpoint of the last step restores into a fresh state bit for bit
         mgr = CheckpointManager(ckpt, keep=2)
-        check(mgr.all_steps() == [2, 3], f"checkpoints {mgr.all_steps()}, expected [2, 3]")
+        check(mgr.all_steps() == [TRAIN_STEPS - 1, TRAIN_STEPS],
+              f"checkpoints {mgr.all_steps()}, expected [{TRAIN_STEPS - 1}, {TRAIN_STEPS}]")
         t0 = time.perf_counter()
         fresh = token_dqn.init_train_state(res["cfg"], res["tcfg"],
                                            torch.Generator(device=dev).manual_seed(SEED + 99))
-        got = mgr.restore(3, state_tensors(fresh))
+        got = mgr.restore(TRAIN_STEPS, state_tensors(fresh))
         restore_s = time.perf_counter() - t0
         saved = state_tensors(state)
         same = sum(bool(torch.equal(t, saved[k])) for k, t in got.items())
@@ -1193,27 +1266,9 @@ def train_phases(torch, dev, card: str) -> list:
         gc.collect()
         torch.cuda.empty_cache()
         # the replay kernels against their plain versions on the run's own
-        # tree and token rows, at the path's B = 8 and at 65,536 draws: the
-        # indices under the fp-tie rule, the rows bit for bit
+        # tree and token rows
         replay, rst = res["replay"], res["replay_state"]
-        for draws in (8, 65_536):
-            u = torch.rand((draws,), generator=gen, device=dev)
-            ki, kp = ops.sumtree_sample(replay.spec, rst.tree, u)
-            pi, pp = sumtree.sample(replay.spec, rst.tree, u)
-            torch.cuda.synchronize()
-            rep = parity.sample_ties(replay.spec, rst.tree, u, ki, pi)
-            check(rep.ok, f"sumtree_sample on the training run's tree, {draws} draws: {rep}")
-            agree = ki == pi
-            torch.testing.assert_close(kp[agree], pp[agree], rtol=1e-5, atol=0)
-            items = ops.gather_items(rst.storage, ki)
-            for key, buf in rst.storage.items():
-                check(torch.equal(ops.prioritized_gather(buf, ki), buf[ki])
-                      and torch.equal(items[key], buf[ki]),
-                      f"gather of the training run's {key} rows {tuple(buf.shape)} {buf.dtype}")
-        print(f"[train replay parity] capacity {replay.spec.capacity}, K={replay.spec.fanout}, "
-              f"{rst.count} rows filled: sample indices agree with the plain descent under the "
-              f"fp-tie rule at 8 and 65,536 draws ({rep.flips} flipped at 65,536, at most "
-              f"{rep.allowed}), gathered rows bit for bit", flush=True)
+        replay_parity(torch, replay, rst, gen, "the training run")
         # where one train step's time goes
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=acts) as prof:
@@ -1228,18 +1283,22 @@ def train_phases(torch, dev, card: str) -> list:
         del res, state, replay, rst, items, w, idx, prof
         gc.collect()
         torch.cuda.empty_cache()
-        shutil.rmtree(os.path.join(ckpt, "step_2"))   # the card's machine has ~75 GB of disk
-        # a second call resumes from step 3
+        # the card's machine has ~75 GB of disk
+        shutil.rmtree(os.path.join(ckpt, f"step_{TRAIN_STEPS - 1}"))
+        # a second call resumes from the last step (and saves only its final
+        # state: each 26.4 GB save takes ~37 s)
         printed = io.StringIO()
         ops.reset_launch_counts()
         with contextlib.redirect_stdout(printed):
-            res2 = train.main(argv + ["--steps", "4"])
+            res2 = train.main(argv + ["--steps", str(TRAIN_STEPS + 1), "--ckpt-every", "0"])
         resume_counts = dict(ops.launch_counts)
         print(printed.getvalue(), end="", flush=True)
-        check("resumed from step 3" in printed.getvalue() and res2["start"] == 3
-              and len(res2["history"]) == 1, f"the second call did not resume from step 3: "
-              f"start {res2['start']}, {len(res2['history'])} steps")
-        check(resume_counts.get(fa.DQ_SM90_NAME) == layers,
+        check(f"resumed from step {TRAIN_STEPS}" in printed.getvalue()
+              and res2["start"] == TRAIN_STEPS and len(res2["history"]) == 1,
+              f"the second call did not resume from step {TRAIN_STEPS}: start {res2['start']}, "
+              f"{len(res2['history'])} steps")
+        check(resume_counts.get(fa.DQ_SM90_NAME) == layers
+              and resume_counts.get(fa.SM90_NAME) == 3 * layers,
               f"resumed run launches {resume_counts}")
         peak = res2["peak_memory_bytes"] or 0
         hist2 = res2["history"]
@@ -1254,18 +1313,24 @@ def train_phases(torch, dev, card: str) -> list:
             "reward": [h["reward"] for h in hist], "optimal_reward": optimal,
             "train_steps_per_s": steps / sum(h["train_s"] for h in hist),
             "restore_s": restore_s, "resumed_steps": [h["step"] for h in hist2],
-            "peak_memory_bytes": peak, "launches": train_counts, "profile": step_prof,
-            "grad_gate": gate}
+            "peak_memory_bytes": peak, "first_call_peak_memory_bytes": train_peak,
+            "launches": train_counts, "profile": step_prof, "grad_gate": gate,
+            "remat_on_vs_off": remat_check}
     print(f"[train] {cfg.name} ({n_params / 1e9:.3f} B params) bf16, flash, (8 x 256) batch, 16 "
           f"actors: {steps} steps, collect {statistics.median(rate['collect_s']):.2f} s and train "
           f"step {statistics.median(rate['train_s']) * 1e3:.1f} ms (medians), "
           f"{rate['train_steps_per_s']:.3f} train steps/s of train-step time; launches "
           f"{train_counts}; restore {restore_s:.1f} s; resumed steps {rate['resumed_steps']}; "
-          f"peak memory {peak / 2**30:.2f} GiB | {card}", flush=True)
+          f"peak memory with remat {train_peak / 2**30:.2f} GiB (first call) and "
+          f"{peak / 2**30:.2f} GiB (resumed call) | {card}", flush=True)
     print(f"[train profile] one train step: {step_prof['wall_us']:,.0f} us wall, "
           f"{step_prof['device_busy_us']:,.0f} us device-busy ({step_prof['device_busy_share']} "
           f"busy share), {step_prof['device_ops_per_step']:,.0f} device ops | {card}", flush=True)
     print(f"[train rate] {json.dumps(rate)}", flush=True)
+
+    clock("13(b) (bf16 moments)")
+    moments = bf16_moments_phase(torch, dev, card, cfg, train_peak)
+    print(f"[bf16 moments rate] {json.dumps(moments)}", flush=True)
 
     clock("14 (backward times)")
     # 14. the backward kernels' times beside their bounds, their plain
@@ -1341,6 +1406,161 @@ def train_phases(torch, dev, card: str) -> list:
                                 "at_32x4096_ms": times[earlier][4096]["ms"]}
         entries.append(entry)
     return entries, train_counts
+
+
+def replay_parity(torch, replay, rst, gen, label: str):
+    """The sample and gather kernels against their plain versions on a
+    run's own tree and rows, at B = 8 (a learn call's) and at 65,536
+    draws: the indices under the fp-tie rule, the rows bit for bit. →
+    the tie report at 65,536 draws."""
+    from repro_torch.core import sumtree
+    from repro_torch.kernels import ops, parity
+
+    dev = rst.tree.device
+    for draws in (8, 65_536):
+        u = torch.rand((draws,), generator=gen, device=dev)
+        ki, kp = ops.sumtree_sample(replay.spec, rst.tree, u)
+        pi, pp = sumtree.sample(replay.spec, rst.tree, u)
+        torch.cuda.synchronize()
+        rep = parity.sample_ties(replay.spec, rst.tree, u, ki, pi)
+        check(rep.ok, f"sumtree_sample on {label}'s tree, {draws} draws: {rep}")
+        agree = ki == pi
+        torch.testing.assert_close(kp[agree], pp[agree], rtol=1e-5, atol=0)
+        items = ops.gather_items(rst.storage, ki)
+        for key, buf in rst.storage.items():
+            check(torch.equal(ops.prioritized_gather(buf, ki), buf[ki])
+                  and torch.equal(items[key], buf[ki]),
+                  f"gather of {label}'s {key} rows {tuple(buf.shape)} {buf.dtype}")
+    print(f"[replay parity] {label}: capacity {replay.spec.capacity}, K={replay.spec.fanout}, "
+          f"{rst.count} rows filled: sample indices agree with the plain descent under the "
+          f"fp-tie rule at 8 and 65,536 draws ({rep.flips} flipped at 65,536, at most "
+          f"{rep.allowed}), gathered rows bit for bit", flush=True)
+    return rep
+
+
+# the three parameters whose second bf16-moment update phase 13(b) recomputes
+MOMENT_CHECKS = ("embed.tok", "units.0.attn.w.wq", "final_norm.scale")
+
+
+def bf16_moments_phase(torch, dev, card: str, cfg, phase13_peak: int) -> dict:
+    """Phase 13(b): InternLM2-1.8B train steps with bf16 Adam moments
+    (``AdamConfig(lr=1e-4, state_dtype="bfloat16")``) on seeded (8, 256)
+    batches: every moment bf16 after each step, and the second update of
+    MOMENT_CHECKS bit for bit the reference's formula in plain f32 torch
+    ops on the card, from that update's saved gradients, moments and
+    parameters; the peak memory of one step from a fresh state, and how far
+    it rises above that state, with f32 moments (remat off, then on) and
+    with bf16 ones (remat on)."""
+    import gc
+
+    from repro_torch.agents import token_dqn
+    from repro_torch.optim import adam
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def batch():
+        b, s = 8, 256
+        return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev),
+                "actions": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev),
+                "rewards": torch.rand((b, s), generator=gen, device=dev),
+                "dones": torch.zeros((b, s), device=dev),
+                "is_weights": torch.ones((b,), device=dev)}
+
+    def fresh(state_dtype):
+        tcfg = token_dqn.TokenDQNConfig(gamma=0.9, accum=1, opt=adam.AdamConfig(
+            lr=1e-4, state_dtype=state_dtype))
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated(dev)
+        check(left < 2**30, f"{left / 2**30:.2f} GiB allocated before a fresh 13(b) state")
+        state = token_dqn.init_train_state(cfg, tcfg,
+                                           torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return tcfg, state, torch.cuda.memory_allocated(dev)
+
+    check(cfg.remat, f"{cfg.name} trains without remat")
+    # a step's peak, and its rise above the resident state (online and
+    # target networks, moments), for each arm in turn
+    arms = {"f32 moments, remat off": (dataclasses.replace(cfg, remat=False), None),
+            "f32 moments": (cfg, None), "bf16 moments": (cfg, "bfloat16")}
+    peaks, above = {}, {}
+    for arm, (arm_cfg, state_dtype) in arms.items():
+        tcfg, state, resident = fresh(state_dtype)
+        state, metrics, _ = token_dqn.train_step(arm_cfg, tcfg, state, batch())
+        torch.cuda.synchronize()
+        peaks[arm] = torch.cuda.max_memory_allocated(dev)
+        above[arm] = peaks[arm] - resident
+        if state_dtype is None:
+            del state, metrics
+    peak32, peak16 = peaks["f32 moments"], peaks["bf16 moments"]
+    losses = [float(metrics["loss"])]
+    names = [n for n, _ in state.params.named_parameters()]
+    where = [names.index(n) for n in MOMENT_CHECKS]
+    saved, real_update = {}, adam.update
+
+    def update(grads, st, params, c):       # train_step's call, its inputs kept first
+        saved["inputs"] = [(grads[i].clone(), st.m[i].clone(), st.v[i].clone(),
+                            params[i].detach().clone()) for i in where]
+        saved["count"] = st.count.clone()
+        out = real_update(grads, st, params, c)
+        saved["gnorm"] = out[1]
+        return out
+
+    dtypes = {x.dtype for x in state.opt.m + state.opt.v}
+    check(dtypes == {torch.bfloat16}, f"the first bf16-moment step left moments of {dtypes}")
+    token_dqn.adam.update = update
+    try:
+        state, metrics, _ = token_dqn.train_step(cfg, tcfg, state, batch())
+    finally:
+        token_dqn.adam.update = real_update
+    losses.append(float(metrics["loss"]))
+    dtypes = {x.dtype for x in state.opt.m + state.opt.v}
+    check(dtypes == {torch.bfloat16}, f"the second bf16-moment step left moments of {dtypes}")
+    check(all(math.isfinite(x) for x in losses), f"bf16-moment losses {losses}")
+    # the reference's upd(), op for op, on the saved pre-step tensors
+    oc = tcfg.opt
+    count = (saved["count"] + 1).float()
+    b1c, b2c = 1.0 - oc.b1 ** count, 1.0 - oc.b2 ** count
+    gnorm = saved["gnorm"]
+    scale = torch.minimum(torch.ones_like(gnorm), torch.div(
+        torch.full_like(gnorm, oc.grad_clip), torch.maximum(gnorm, torch.full_like(gnorm, 1e-12))))
+    params = list(state.params.parameters())
+    same = {}
+    for name, i, (g, m, v, p) in zip(MOMENT_CHECKS, where, saved["inputs"]):
+        gf = g.float() * scale
+        m_new = oc.b1 * m.float() + (1 - oc.b1) * gf
+        v_new = oc.b2 * v.float() + (1 - oc.b2) * torch.square(gf)
+        step = oc.lr * (m_new / b1c) / (torch.sqrt(v_new / b2c) + oc.eps)
+        p_new = (p.float() - step).to(p.dtype)
+        same[name] = [bool(torch.equal(a, b)) for a, b in (
+            (params[i].detach(), p_new), (state.opt.m[i], m_new.to(m.dtype)),
+            (state.opt.v[i], v_new.to(v.dtype)))]
+    check(all(all(x) for x in same.values()),
+          f"the second bf16-moment update is not the reference's formula bit for bit "
+          f"(parameter, m, v): {same}")
+    n = sum(p.numel() for p in params)
+    res = {"losses": losses, "peak_memory_bytes_f32_moments": peak32,
+           "peak_memory_bytes_bf16_moments": peak16,
+           "peak_memory_bytes_f32_moments_remat_off": peaks["f32 moments, remat off"],
+           "step_above_state_bytes": above,
+           "phase13_peak_memory_bytes": phase13_peak, "params": n,
+           "moment_bytes_saved_predicted": 4 * n, "checked": list(MOMENT_CHECKS)}
+    print(f"[bf16 moments] {cfg.name}, AdamConfig(lr=1e-4, state_dtype='bfloat16'), 2 train steps "
+          f"on (8, 256) batches: every moment bf16; the second update of "
+          f"{', '.join(MOMENT_CHECKS)} is the reference's formula bit for bit (parameter, m, v); "
+          f"losses {losses}; peak memory of a step {peak16 / 2**30:.2f} GiB against "
+          f"{peak32 / 2**30:.2f} GiB with f32 moments (saved {(peak32 - peak16) / 2**30:.2f} "
+          f"GiB; m + v at 2 B less each: {4 * n / 2**30:.2f} GiB) and "
+          f"{peaks['f32 moments, remat off'] / 2**30:.2f} GiB with f32 moments and remat off; "
+          f"a step above its resident state: "
+          + ", ".join(f"{arm} {b / 2**30:.2f} GiB" for arm, b in above.items()) + "; "
+          f"phase 13's run peaked at {phase13_peak / 2**30:.2f} GiB (its token-MDP table and "
+          f"replay included) | {card}", flush=True)
+    del state, saved, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 # -- phases 15-17: the restart, the async loop and the actor-critics ---------
@@ -1494,8 +1714,6 @@ def async_phase(torch, dev, card: str) -> dict:
     print(f"[async arm] publish_interval 4, {ASYNC_ITERS} iterations in {secs:.2f} s: "
           f"{rate['wall_us_per_iteration']:,.0f} us an iteration, {rate['env_steps_per_s']:,.1f} "
           f"env-steps/s, final return {final:.1f}, launches {counts} | {card}", flush=True)
-    _, rate["profile"] = profile_loop(torch, ex, st)
-    print(profile_line("async arm", rate["profile"]), flush=True)
     print(f"[async rate] {json.dumps(rate)}", flush=True)
     return rate
 
@@ -1620,8 +1838,6 @@ def actor_critic_phase(torch, dev, card: str, iterations: int = PENDULUM_ITERS) 
               f"|TD| and {len(pairs) - 2} state tensors within rtol "
               f"{LEARN_RTOL} / atol {LEARN_ATOL} (max |diff| {res['card_vs_cpu_max_abs']:.3g}) "
               f"| {card}", flush=True)
-        _, res["profile"] = profile_loop(torch, ex, st)
-        print(profile_line(f"{name} on Pendulum", res["profile"]), flush=True)
         out[name] = res
         del ex, st, hist, rst, replay, results
     chain = sampling_chain(torch, dev, gen, 50_000, 64,
@@ -2442,8 +2658,8 @@ def dse_phase(torch, dev, card: str) -> dict:
     # (e) launch.train --wall-clock 2 at granite_8b SMOKE with flash: the f32 kernels
     outs = out["workers"]
     kvs = [mp.parse_kv(o) for o in outs]
-    layers = 2      # granite_8b SMOKE
-    want_flash = {fa.NAME: 2 * layers * WALLCLOCK_STEPS, fa.DQ_NAME: layers * WALLCLOCK_STEPS,
+    layers = 2      # granite_8b SMOKE, with remat: three forwards a step
+    want_flash = {fa.NAME: 3 * layers * WALLCLOCK_STEPS, fa.DQ_NAME: layers * WALLCLOCK_STEPS,
                   fa.DKV_NAME: layers * WALLCLOCK_STEPS, fa.SM90_NAME: 0,
                   fa.DQ_SM90_NAME: 0, fa.DKV_SM90_NAME: 0}
     flash = [{name: int(k[f"LAUNCH_{name.upper()}"]) for name in want_flash} for k in kvs]
@@ -2505,6 +2721,360 @@ def dse_phase(torch, dev, card: str) -> dict:
     return res
 
 
+# -- phase 21: Qwen1.5-32B and Command-R-35B served at full width ------------------
+
+# (arch, its published shape: layers, d_model, heads, KV heads, hd, d_ff, vocab,
+# RoPE theta, qkv bias, norm)
+BIG_DENSE = (("qwen1_5_32b", (64, 5120, 40, 40, 128, 27392, 152064, 1e6, True, "rmsnorm")),
+             ("command_r_35b", (40, 8192, 64, 8, 128, 22528, 256000, 8e6, False, "layernorm")))
+BIG_SERVE = dict(slots=8, max_len=544, buckets=(128, 256, 512), max_new_tokens=16)
+BIG_REQUESTS = 8
+EXACT_LAYERS = 4        # 21(a): the exactness check's depth
+EXACT_PROMPTS = 4
+
+
+def prefill_logits(torch, backbone, cfg, params, prompt, spec, max_len, dev):
+    """The prefill logits of ``prompt`` at its real positions (bucket-padded
+    as the server pads it), in f32, and the cache."""
+    padded = torch.from_numpy(spec.pad(prompt)).to(dev).long()
+    logits, cache = backbone.prefill(cfg, params, padded, max_len)
+    return logits[0, :len(prompt)].float(), cache
+
+
+def flash_fwd_times(torch, dev, gen, n: int, s: int, hd: int = 128) -> dict:
+    """The Hopper forward at (n, s, hd) bf16 causal: device, plain and SDPA
+    times beside the bound (phase 10's measure)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = [(torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+               for _ in range(3)]
+    q4, k4, v4 = q[None], k[None], v[None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = s * (s + 1) / 2
+    b_ms, b_by = bound(4 * n * s * hd * 2 + n * s * 4, 4 * hd * n * pairs, BF16_OPS_PER_S)
+    t = {"shape": f"({n}, {s}, {hd}) bf16 causal",
+         "ms": device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v)),
+         "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v)),
+         "library_ms": device_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True)),
+         "bound_ms": b_ms, "bound_by": b_by,
+         "call_ms": call_ms(torch, lambda: fa.flash_attention_cuda(q, k, v))}
+    check(all(math.isfinite(t[x]) for x in ("ms", "plain_ms", "library_ms")),
+          f"timing of the flash forward at ({n}, {s}, {hd}) is not finite")
+    return t
+
+
+def big_dense_phase(torch, dev, card: str) -> dict:
+    """Phase 21: each of BIG_DENSE, one at a time, on a card that holds
+    nothing else (under 1 GiB allocated on entry): (a) at full width and
+    EXACT_LAYERS layers, bf16 flash prefill logits against naive bf16 and
+    both against the same weights in f32 (naive, TF32 off), phase 8's
+    gates; (b) at full width and depth in bf16 with flash through
+    ActorServer (BIG_SERVE, BIG_REQUESTS requests of 1-512 prompt tokens):
+    every request complete, finite prefill logits for every prompt and a
+    finite decode step, the Hopper forward once a prefill per attention
+    layer and no other flash kernel, flash against naive prefill logits on
+    two prompts under 3e-2 relative l2, the rates, the peak memory and one
+    profiled decode step; (c) the Hopper forward at the model's prefill
+    shape (heads, 512, 128) beside its bound and SDPA."""
+    import gc
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import backbone
+    from repro_torch.serve import ActorServeConfig, ActorServer, BucketSpec, DecodeEngine
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    scfg = ActorServeConfig(**BIG_SERVE)
+    spec = BucketSpec(scfg.buckets)
+    out = {}
+    others = (fa.NAME, fa.DQ_NAME, fa.DKV_NAME, fa.DQ_SM90_NAME, fa.DKV_SM90_NAME)
+    for arch, shape in BIG_DENSE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated(dev)
+        check(left < 2**30, f"{left / 2**30:.2f} GiB still allocated before {arch}")
+        cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+        check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff,
+               cfg.vocab_size, cfg.rope_theta, cfg.qkv_bias, cfg.norm, cfg.dtype)
+              == (*shape, "bfloat16"), f"not {arch}'s configured shape: {cfg}")
+        naive_cfg = dataclasses.replace(cfg, attn_impl="naive")
+        rng = np.random.RandomState(SEED + 21)
+        res = {"model": cfg.name}
+
+        # (a) full width, EXACT_LAYERS layers: flash and naive bf16 against f32
+        cut = dataclasses.replace(cfg, num_layers=EXACT_LAYERS)
+        cut_naive = dataclasses.replace(cut, attn_impl="naive")
+        exact_cfg = dataclasses.replace(cut_naive, dtype="float32")
+        params = backbone.init_params(cut, torch.Generator(device=dev).manual_seed(SEED))
+        exact = backbone.Backbone(exact_cfg, dev)
+        with torch.no_grad():
+            for a, b in zip(exact.parameters(), params.parameters(), strict=True):
+                a.copy_(b)
+        lens = [1, 512] + [int(n) for n in rng.randint(2, 512, size=EXACT_PROMPTS - 2)]
+        sums = {"fn": [0.0, 0.0], "fx": [0.0, 0.0], "nx": [0.0, 0.0]}
+        for n in lens:
+            p = rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+            lf = prefill_logits(torch, backbone, cut, params, p, spec, scfg.max_len, dev)[0]
+            ln = prefill_logits(torch, backbone, cut_naive, params, p, spec, scfg.max_len, dev)[0]
+            lx = prefill_logits(torch, backbone, exact_cfg, exact, p, spec, scfg.max_len, dev)[0]
+            check(all(bool(torch.isfinite(x).all()) for x in (lf, ln, lx)),
+                  f"{arch} {EXACT_LAYERS}-layer prefill logits not finite")
+            for key, a, b in (("fn", lf, ln), ("fx", lf, lx), ("nx", ln, lx)):
+                sums[key] = [x + y for x, y in zip(sums[key], l2_sums(a, b))]
+            del lf, ln, lx
+        del params, exact
+        gc.collect()
+        torch.cuda.empty_cache()
+        rel = {key: math.sqrt(num / den) for key, (num, den) in sums.items()}
+        check(rel["fx"] <= 1.1 * rel["nx"], f"{arch} at {EXACT_LAYERS} layers: flash prefill "
+              f"logits are {rel['fx']:.4g} relative l2 from the f32 model, naive's "
+              f"{rel['nx']:.4g}: flash adds error")
+        check(rel["fn"] < 3e-2, f"{arch} at {EXACT_LAYERS} layers: flash vs naive prefill logits "
+              f"differ by {rel['fn']:.4g} relative l2")
+        res["exactness"] = {"layers": EXACT_LAYERS, "prompt_lens": lens,
+                            "flash_vs_naive_rel_l2": rel["fn"], "flash_vs_f32_rel_l2": rel["fx"],
+                            "naive_vs_f32_rel_l2": rel["nx"]}
+        print(f"[big dense a] {cfg.name} at full width, {EXACT_LAYERS} layers, prompts of {lens} "
+              f"tokens: prefill logits flash vs naive rel l2 {rel['fn']:.4g} (< 3e-2); from the "
+              f"f32 model flash {rel['fx']:.4g}, naive {rel['nx']:.4g} (flash <= 1.1x naive) | "
+              f"{card}", flush=True)
+
+        # (b) full width and depth through ActorServer
+        t0 = time.perf_counter()
+        params = backbone.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        weights = torch.cuda.memory_allocated(dev)
+        prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+                   for n in [512, 1] + list(rng.randint(2, 513, size=BIG_REQUESTS - 2))]
+        # a first server warms cuBLAS, the allocator and one prefill per bucket
+        server = ActorServer(cfg, params, scfg, device=dev)
+        warm = [server.submit(rng.randint(0, cfg.vocab_size, size=n).astype(np.int32), 2)
+                for n in (100, 200, 400)]
+        server.drain(timeout=900)
+        check(all(len(h.result(0).tokens) == 2 for h in warm), f"{arch}: the warm-up requests")
+        del server, warm
+        gc.collect()
+        server = ActorServer(cfg, params, scfg, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        handles = [server.submit(p, scfg.max_new_tokens) for p in prompts]
+        t0 = time.perf_counter()
+        server.drain(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launch_counts)
+        peak = torch.cuda.max_memory_allocated(dev)
+        st = server.stats()
+        done = [h.result(0) for h in handles]
+        per_prefill = backbone.flash_launches_per_prefill(cfg)
+        check(all(len(c.tokens) == scfg.max_new_tokens for c in done)
+              and st["generated_tokens"] == BIG_REQUESTS * scfg.max_new_tokens
+              == st["admissions"] + st["decoded_tokens"],
+              f"{arch}: token accounting, stats {st}")
+        check(all(0 <= t < cfg.vocab_size for c in done for t in c.tokens),
+              f"{arch}: token out of range")
+        check(counts.get(fa.SM90_NAME) == per_prefill * st["admissions"]
+              and st["admissions"] == BIG_REQUESTS and not any(counts.get(k) for k in others),
+              f"{arch}: flash launches {counts}, the code predicts {per_prefill} x "
+              f"{st['admissions']} prefills of {fa.SM90_NAME} and no other flash kernel")
+        del server
+        gc.collect()
+        # every prompt's prefill logits finite; flash against naive on two
+        sums = [0.0, 0.0]
+        for i, p in enumerate(prompts):
+            lf, cache = prefill_logits(torch, backbone, cfg, params, p, spec, scfg.max_len, dev)
+            check(bool(torch.isfinite(lf).all()), f"{arch}: request {i}'s prefill logits")
+            if i < 2:
+                ln = prefill_logits(torch, backbone, naive_cfg, params, p, spec, scfg.max_len,
+                                    dev)[0]
+                check(bool(torch.isfinite(ln).all()), f"{arch}: naive prefill logits")
+                sums = [x + y for x, y in zip(sums, l2_sums(lf, ln))]
+                del ln
+            if i == len(prompts) - 1:
+                cache["pos"].fill_(len(p))
+                tok = torch.argmax(lf[-1]).reshape(1, 1)
+                lg = backbone.decode_step(cfg, params, cache, tok)[0]
+                check(bool(torch.isfinite(lg).all()), f"{arch}: decode logits not finite")
+            del lf, cache
+        fn_rel = math.sqrt(sums[0] / sums[1])
+        check(fn_rel < 3e-2, f"{arch}: flash vs naive prefill logits differ by {fn_rel:.4g} "
+              "relative l2")
+        # one profiled decode step over the 8 slots, each primed
+        eng = DecodeEngine(cfg, slots=scfg.slots, max_len=scfg.max_len, buckets=spec, device=dev)
+        state = eng.init_state()
+        for slot, p in enumerate(prompts[:scfg.slots]):
+            tok, slot_cache = eng.prime(params, p)
+            state = eng.insert(state, slot, slot_cache, tok)
+            del slot_cache
+        _, state = eng.step(params, state)          # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, state = eng.step(params, state)
+            torch.cuda.synchronize()
+            step_us = (time.perf_counter() - t0) * 1e6
+        prof_d = profile_summary(torch, prof, step_us, 1)
+        del eng, state, prof
+        rate = {"params": n_params, "weights_bytes": weights, "init_s": init_s,
+                "requests": BIG_REQUESTS, "new_tokens": scfg.max_new_tokens,
+                "slots": scfg.slots, "buckets": list(scfg.buckets), "max_len": scfg.max_len,
+                "prompt_tokens": int(sum(len(p) for p in prompts)),
+                "first_tokens_per_s": st["admissions"] / st["prefill_s"],
+                "decode_tokens_per_s": st["decoded_tokens"] / st["decode_s"],
+                "latency_p50_ms": st["latency_p50_ms"], "latency_p99_ms": st["latency_p99_ms"],
+                "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+                "decode_steps": st["steps"], "wall_s": wall, "peak_memory_bytes": peak,
+                "flash_launches": counts.get(fa.SM90_NAME, 0), "launches": counts,
+                "launches_per_prefill": per_prefill, "prefill_logits_rel_l2": fn_rel,
+                "decode_step_profile": prof_d}
+        res["serve"] = rate
+        print(f"[big dense b] {cfg.name} ({n_params / 1e9:.3f} B params, bf16, "
+              f"{weights / 2**30:.2f} GiB of weights, made in {init_s:.1f} s): {BIG_REQUESTS} "
+              f"requests x {scfg.max_new_tokens} tokens on {scfg.slots} slots, "
+              f"{rate['prompt_tokens']} prompt tokens: {rate['first_tokens_per_s']:.2f} "
+              f"first-tokens/s, {rate['decode_tokens_per_s']:.1f} decode tokens/s, p50 "
+              f"{rate['latency_p50_ms']:.0f} ms, p99 {rate['latency_p99_ms']:.0f} ms; peak memory "
+              f"{peak / 2**30:.2f} GiB; {fa.SM90_NAME} launches {rate['flash_launches']} = "
+              f"{per_prefill} x {st['admissions']} prefills, no other flash kernel; prefill logits "
+              f"flash vs naive rel l2 {fn_rel:.4g} on 2 prompts; one decode step of 8 slots: "
+              f"{step_us:,.0f} us wall, {prof_d['device_busy_us']:,.0f} us device-busy, "
+              f"{prof_d['device_ops_per_step']:,.0f} device ops | {card}", flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the Hopper forward at this model's prefill shape: one prompt of
+        # bucket 512, its KV heads expanded to the query heads
+        t = flash_fwd_times(torch, dev, gen, cfg.num_heads, 512)
+        res["flash_times"] = t
+        print(f"[times] {fa.SM90_NAME} at {cfg.name}'s prefill {t['shape']}: device "
+              f"{t['ms'] * 1e3:.1f} us (plain {t['plain_ms'] * 1e3:.1f} us, SDPA "
+              f"{t['library_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} us by "
+              f"{t['bound_by']}, call {t['call_ms'] * 1e3:.1f} us) | {card}", flush=True)
+        torch.cuda.empty_cache()
+        out[arch] = res
+    print(f"[big dense rate] {json.dumps(out)}", flush=True)
+    return out
+
+
+# -- phase 22: the ratio-scheduled token-DQN trainer ----------------------------
+
+TRAINER_ARGS = ["--update-interval", "64", "--ckpt-every", "12", "--backend", "cuda"]
+TRAINER_STEPS = 24
+
+
+def token_trainer_phase(torch, dev, card: str) -> dict:
+    """Phase 22: ``python -m repro_torch.train_token_dqn``'s main at its
+    39.9 M-parameter config (f32, 32 actors x 64 tokens, replay 4,096 x
+    K=128, batch 8), 24 collects at update interval 64: the printed
+    schedule (every 2 collects, 1 update), 12 learn events with finite
+    losses, the sample and gather kernels once a learn call, the update
+    kernel twice an insert and once a priority write-back; the three
+    kernels against their plain versions on the run's own tree and rows;
+    then a second call that resumes from the last checkpoint."""
+    import shutil
+    import tempfile
+
+    from repro_torch import train_token_dqn as ttd
+    from repro_torch.core import sumtree
+    from repro_torch.kernels import ops, parity
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_token_dqn_")
+    argv = TRAINER_ARGS + ["--ckpt-dir", ckpt, "--seed", str(SEED)]
+    try:
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(printed):
+            res = ttd.main(argv + ["--steps", str(TRAINER_STEPS)])
+        counts = dict(ops.launch_counts)
+        print(printed.getvalue(), end="", flush=True)
+        learns, collects = res["learns"], TRAINER_STEPS
+        check("ratio schedule: learn every 2 collect(s), 1 update(s) per event (64 segments per "
+              "update)" in printed.getvalue() and (res["schedule"].period, res["schedule"].learns)
+              == (2, 1), f"the trainer's schedule: {res['schedule']}")
+        check(len(learns) == 12 and all(math.isfinite(e[k]) for e in learns
+                                        for k in ("loss", "grad_norm", "q_mean")),
+              f"{len(learns)} learn events, losses {[e['loss'] for e in learns]}")
+        want = {"sumtree_sample": len(learns), "gather": len(learns),
+                "sumtree_update": 2 * collects + len(learns)}
+        check(all(counts.get(k) == v for k, v in want.items())
+              and not counts.get("sample_gather"), f"the trainer launched {counts}, the code "
+              f"predicts {want} (two update launches an eager insert, one a write-back)")
+        check(res["checkpoints"] == [12, 24], f"checkpoints {res['checkpoints']}")
+        # the kernels against their plain versions at the trainer's shapes:
+        # the sample and gather on its tree and 64-token rows; the tree its
+        # eager writes left against the plain rebuild of the same leaves;
+        # then one more insert (32 fresh slots at P_max) and one write-back
+        # (8 sampled rows, repeats kept) through the kernel and through the
+        # plain update, each from the run's tree
+        replay, rst = res["replay"], res["replay_state"]
+        spec, tree = replay.spec, rst.tree
+        gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+        ties = replay_parity(torch, replay, rst, gen, "the token-DQN trainer")
+        problems = parity.tree_mismatch(spec, tree, sumtree.rebuild(spec, tree.clone()))
+        check(not problems, f"the trainer's eagerly written tree against the plain rebuild of "
+              f"its leaves: {problems}")
+        n_envs = ttd.parse_args(argv).n_envs
+        slots = (rst.head + torch.arange(n_envs, device=dev)) % spec.capacity
+        back, _ = ops.sumtree_sample(spec, tree, torch.rand((8,), generator=gen, device=dev))
+        writes = {"insert": (slots, rst.max_priority.expand(n_envs), True),
+                  "write-back": (back, torch.rand((8,), generator=gen, device=dev) * 3, False)}
+        update_err = 0.0
+        for what, (idx, val, unique) in writes.items():
+            got = ops.sumtree_update(spec, tree.clone(), idx, val, unique=unique)
+            plain = sumtree.update(spec, tree.clone(), idx, val, unique=unique)
+            torch.cuda.synchronize()
+            problems = parity.tree_mismatch(spec, got, plain)
+            check(not problems, f"sumtree_update of the trainer's {what} ({idx.numel()} rows): "
+                  f"{problems}")
+            update_err = max(update_err, float((got - plain).abs().max()))
+        print(f"[token-dqn parity] the trainer's tree after {want['sumtree_update']} "
+              f"eager update launches agrees with the plain rebuild of its leaves; "
+              f"sumtree_update of a {n_envs}-row insert and an 8-row write-back ({back.unique().numel()} distinct) "
+              f"on it agrees with the plain update (leaves bit for bit, max |err| "
+              f"{update_err:.3g}) | {card}", flush=True)
+        del replay, rst, tree, got, plain
+        peak, secs = res["peak_memory_bytes"], res["seconds"]
+        n_params = sum(p.numel() for p in res["state"].params.parameters())
+        rewards = res["rewards"]
+        del res
+        printed = io.StringIO()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(printed):
+            again = ttd.main(argv + ["--steps", str(TRAINER_STEPS + 2)])
+        resume_counts = dict(ops.launch_counts)
+        print(printed.getvalue(), end="", flush=True)
+        check(f"resumed from checkpoint step {TRAINER_STEPS}" in printed.getvalue()
+              and again["start"] == TRAINER_STEPS
+              and [e["it"] for e in again["learns"]] == [TRAINER_STEPS]
+              and resume_counts.get("sumtree_sample") == 1,
+              f"the second call: start {again['start']}, learns {again['learns']}, launches "
+              f"{resume_counts}")
+        del again
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out = {"params": n_params, "collects": collects, "learns": len(learns),
+           "losses": [e["loss"] for e in learns], "rewards": rewards, "seconds": secs,
+           "peak_memory_bytes": peak, "launches": counts, "resume_launches": resume_counts,
+           "sample_flips_at_65536": ties.flips, "update_max_abs_err": update_err}
+    print(f"[token-dqn] train_token_dqn --steps {TRAINER_STEPS} {' '.join(TRAINER_ARGS)}: "
+          f"{n_params / 1e6:.1f} M params, "
+          f"{collects} collects of 32 x 64 tokens and {len(learns)} learn calls in {secs:.1f} s, "
+          f"losses {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}; launches {counts}; peak "
+          f"memory {peak / 2**30:.2f} GiB; resumed from {TRAINER_STEPS} with {resume_counts} | "
+          f"{card}",
+          flush=True)
+    return out
+
+
 # -- the phases ----------------------------------------------------------------
 
 
@@ -2519,6 +3089,7 @@ def main() -> None:
 
     from repro_torch.core import sumtree
     from repro_torch.kernels import _build, ops, parity
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import sumtree_update as kupdate
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2728,10 +3299,10 @@ def main() -> None:
     state, main_rate["profile"] = profile_loop(torch, ex, state)
     print(profile_line("main path", main_rate["profile"]), flush=True)
 
-    # 5. the other two arms, each with the same profiler window; the launches
-    # the code predicts: one fused launch a learner call; one update launch a
-    # learner call and two an iteration (the insert's zeroing and its commit)
-    arms, arm_profiles = {}, {}
+    # 5. the other two arms; the launches the code predicts: one fused launch a
+    # learner call; one update launch a learner call and two an iteration (the
+    # insert's zeroing and its commit)
+    arms = {}
     arm_iters = 100
     for arm, fused, lazy, kernel in (("fused", True, True, "sample_gather"),
                                      ("eager", False, False, "sumtree_update")):
@@ -2746,10 +3317,7 @@ def main() -> None:
         print(f"[{arm} arm] {arm_iters} iterations in {s:.2f} s: {st.env_steps / s:,.1f} "
               f"env-steps/s, {st.learn_steps / s:,.1f} learner calls/s, "
               f"launches {counts} ({want} predicted)", flush=True)
-        _, arm_profiles[arm] = profile_loop(torch, ex_a, st)
-        print(profile_line(f"{arm} arm", arm_profiles[arm]), flush=True)
         del ex_a, st
-    main_rate["arm_profiles"] = arm_profiles
 
     clock("6 (times)")
     # 6. times at the main path's shapes and at the Nature-DQN size
@@ -2912,6 +3480,13 @@ def main() -> None:
     # counted from 0; each gang rank's from its start
     clock("20 (dse)")
     dse_res = dse_phase(torch, dev, card)
+    # 21. Qwen1.5-32B and Command-R-35B at full width, each alone on the card,
+    # the forward's launches counted from 0 over each one's served requests
+    clock("21 (big dense serving)")
+    big = big_dense_phase(torch, dev, card)
+    # 22. the ratio-scheduled token-DQN trainer, its launches counted from 0
+    clock("22 (token-DQN trainer)")
+    trainer = token_trainer_phase(torch, dev, card)
     for entry in kernels:
         entry["restart_launches"] = restart["launches"].get(entry["name"], 0)
         entry["async_launches"] = async_rate["launches"].get(entry["name"], 0)
@@ -2935,6 +3510,11 @@ def main() -> None:
             entry["wallclock_train_launches"] = [f[name] for f in dse_res["e"]["flash_launches"]]
         if name in dse_res["e"]["times"]:
             entry["at_wallclock_train_shape"] = dse_res["e"]["times"][name]
+        entry["big_dense_serve_launches"] = {r["model"]: r["serve"]["launches"].get(name, 0)
+                                             for r in big.values()}
+        if name == fa.SM90_NAME:
+            entry["at_big_dense_prefill"] = {r["model"]: r["flash_times"] for r in big.values()}
+        entry["token_dqn_trainer_launches"] = trainer["launches"].get(name, 0)
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -26,7 +26,7 @@ ARCH_IDS = [
     "phi_3_vision_4_2b",
 ]
 
-PORTED = ("granite_8b", "internlm2_1_8b")
+PORTED = ("granite_8b", "internlm2_1_8b", "qwen1_5_32b", "command_r_35b")
 
 # the ROADMAP Queue 1 item that ports each architecture not ported yet
 NOT_PORTED = {
@@ -36,8 +36,6 @@ NOT_PORTED = {
     "xlstm_125m": "item 13 (ssm family)",
     "whisper_medium": "item 14 (audio family)",
     "phi_3_vision_4_2b": "item 15 (vlm family)",
-    "qwen1_5_32b": "item 16 (dense configs past one card's memory)",
-    "command_r_35b": "item 16 (dense configs past one card's memory)",
 }
 
 # accepted aliases (the assignment spells them with dashes/dots)

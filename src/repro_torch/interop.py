@@ -60,10 +60,19 @@ def param_leaves_from_numpy(tree, device="cpu"):
     return [_t(x, device) for x in layers]
 
 
+def _moment(x, device) -> torch.Tensor:
+    """A reference Adam moment in its own dtype: bf16 (``state_dtype``)
+    through f32, which holds it exactly, else as it is."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return _f32(x, device).to(torch.bfloat16)
+    return _t(x, device)
+
+
 def _adam_from_numpy(opt, flatten, device) -> AdamState:
     return AdamState(count=_t(opt.count, device).to(torch.int32),
-                     m=[_t(x, device) for x in flatten(opt.m)],
-                     v=[_t(x, device) for x in flatten(opt.v)])
+                     m=[_moment(x, device) for x in flatten(opt.m)],
+                     v=[_moment(x, device) for x in flatten(opt.v)])
 
 
 def agent_state_from_numpy(state, device="cpu",
@@ -149,12 +158,13 @@ def backbone_params_from_numpy(cfg: ModelConfig, params, device="cpu") -> backbo
 def train_state_from_numpy(cfg: ModelConfig, state, device="cpu") -> TrainState:
     """Reference token-DQN ``TrainState`` (params, target, Adam count/m/v,
     step) → the port's ``agents.token_dqn.TrainState``, the moments in
-    ``Backbone.parameters()`` order with the same transposes."""
+    ``Backbone.parameters()`` order with the same transposes and in their
+    own dtype (f32, or bf16 with ``state_dtype``)."""
     params = backbone_params_from_numpy(cfg, state.params, device)
     target = backbone_params_from_numpy(cfg, state.target, device).requires_grad_(False)
     names = [n for n, _ in params.named_parameters()]
     opt = AdamState(count=_t(state.opt.count, device).to(torch.int32),
-                    m=[_f32(backbone_leaf(state.opt.m, n), device) for n in names],
-                    v=[_f32(backbone_leaf(state.opt.v, n), device) for n in names])
+                    m=[_moment(backbone_leaf(state.opt.m, n), device) for n in names],
+                    v=[_moment(backbone_leaf(state.opt.v, n), device) for n in names])
     return TrainState(params=params, target=target, opt=opt,
                       step=_t(state.step, device).to(torch.int32))

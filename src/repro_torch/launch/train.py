@@ -56,7 +56,7 @@ import os
 import sys
 import tempfile
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -64,7 +64,7 @@ from repro_torch.agents import token_dqn
 from repro_torch.agents.base import state_tensors
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+from repro_torch.core.replay import PrioritizedReplay, ReplayConfig, ReplayState
 from repro_torch.device import resolve_device
 from repro_torch.envs import token_mdp
 from repro_torch.models import backbone
@@ -151,6 +151,61 @@ def collect(cfg: ModelConfig, params: backbone.Backbone, step_env, env_state, ob
     return env_state, obs, seg
 
 
+# the named generator streams of a token run; stream i is seeded seed * 8 + i
+GEN_NAMES = ("init", "table", "reset", "action", "epsilon", "env", "sample")
+
+
+@dataclasses.dataclass
+class TokenSetup:
+    """What a token-DQN run builds before its loop (``token_setup``)."""
+    gens: Dict[str, torch.Generator]
+    state: token_dqn.TrainState
+    step_env: Callable
+    optimal: Callable[[], float]
+    env_state: token_mdp.TokenMDPState
+    obs: torch.Tensor
+    replay: PrioritizedReplay
+    replay_state: ReplayState
+    mgr: CheckpointManager
+    start: Optional[int]
+
+
+def token_setup(cfg: ModelConfig, tcfg: token_dqn.TokenDQNConfig, replay_config: ReplayConfig,
+                *, n_envs: int, seq: int, seed: int, device: torch.device, ckpt_dir: str,
+                reset_seed: Optional[int] = None) -> TokenSetup:
+    """The set-up both token trainers share (this entry point and
+    ``train_token_dqn``): the generator streams, a fresh train state, the
+    token MDP's ``n_envs`` actors and their first tokens, an empty replay of
+    ``seq``-token segments, and the newest checkpoint restored into the
+    state (``start`` is its step, or None).  ``reset_seed`` replaces the
+    reset stream's seed (a wall-clock worker's own).  The device's peak
+    memory counter is reset last, so ``peak_memory`` reads the run's."""
+    seeds = {name: seed * 8 + i for i, name in enumerate(GEN_NAMES)}
+    if reset_seed is not None:
+        seeds["reset"] = reset_seed
+    gens = {name: torch.Generator(device=device).manual_seed(s) for name, s in seeds.items()}
+    state = token_dqn.init_train_state(cfg, tcfg, gens["init"])
+    reset, step_env, optimal = token_mdp.make(token_mdp.TokenMDPSpec(vocab=cfg.vocab_size),
+                                              gens["table"], n_envs)
+    env_state, obs = reset(gens["reset"])
+    example = {"tokens": torch.zeros((seq,), dtype=torch.int32),
+               "actions": torch.zeros((seq,), dtype=torch.int32),
+               "rewards": torch.zeros((seq,), dtype=torch.float32),
+               "dones": torch.zeros((seq,), dtype=torch.float32)}
+    replay = PrioritizedReplay(replay_config, example, device=device)
+    rst = replay.init()
+    mgr = CheckpointManager(ckpt_dir, keep=2)
+    start, _ = mgr.restore_latest(state_tensors(state))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    return TokenSetup(gens, state, step_env, optimal, env_state, obs, replay, rst, mgr, start)
+
+
+def peak_memory(device: torch.device) -> Optional[int]:
+    """The device's peak allocated bytes since ``token_setup``; None on the CPU."""
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -211,35 +266,20 @@ def run(args: argparse.Namespace) -> dict:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     tcfg = token_config()
     # the workers of a gang share everything but their envs' resets
-    seeds = {name: args.seed * 8 + i for i, name in enumerate(
-        ("init", "table", "reset", "action", "epsilon", "env", "sample"))}
-    seeds["reset"] = shard_seed(seeds["reset"], wc_pid)
-    gens = {name: torch.Generator(device=device).manual_seed(seed)
-            for name, seed in seeds.items()}
-    state = token_dqn.init_train_state(cfg, tcfg, gens["init"])
+    setup = token_setup(cfg, tcfg, ReplayConfig(capacity=CAPACITY, fanout=FANOUT),
+                        n_envs=args.n_envs, seq=args.seq, seed=args.seed, device=device,
+                        ckpt_dir=args.ckpt_dir,
+                        reset_seed=shard_seed(args.seed * 8 + GEN_NAMES.index("reset"), wc_pid))
+    gens, state, step_env, optimal = setup.gens, setup.state, setup.step_env, setup.optimal
+    env_state, obs, replay, rst = setup.env_state, setup.obs, setup.replay, setup.replay_state
+    mgr, start = setup.mgr, setup.start
     n_params = sum(p.numel() for p in state.params.parameters())
     mesh_desc = f"plan:{plan.n_pods}x{plan.n_data}" if plan is not None else args.mesh
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M dtype={cfg.dtype} "
           f"attn_impl={cfg.attn_impl} device={device} mesh={mesh_desc}", flush=True)
-
-    reset, step_env, optimal = token_mdp.make(token_mdp.TokenMDPSpec(vocab=cfg.vocab_size),
-                                              gens["table"], args.n_envs)
-    env_state, obs = reset(gens["reset"])
-    example = {"tokens": torch.zeros((args.seq,), dtype=torch.int32),
-               "actions": torch.zeros((args.seq,), dtype=torch.int32),
-               "rewards": torch.zeros((args.seq,), dtype=torch.float32),
-               "dones": torch.zeros((args.seq,), dtype=torch.float32)}
-    replay = PrioritizedReplay(ReplayConfig(capacity=CAPACITY, fanout=FANOUT), example,
-                               device=device)
-    rst = replay.init()
-
-    mgr = CheckpointManager(args.ckpt_dir, keep=2)
-    start, _ = mgr.restore_latest(state_tensors(state))
     if start is not None:
         print(f"resumed from step {start} (fault-tolerant restart)", flush=True)
 
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
     history = []
     t_run = time.perf_counter()
     for it in range(int(state.step), args.steps):
@@ -275,7 +315,7 @@ def run(args: argparse.Namespace) -> dict:
     root_before = float(rst.tree[0])
     rst = replay.flush(rst)
     root_after = float(rst.tree[0])
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    peak = peak_memory(device)
     secs = time.perf_counter() - t_run
     if lead:
         print(f"trained {args.steps - (start or 0)} steps in {secs:.1f} s; peak device "

@@ -23,13 +23,14 @@ Differences from the reference, each for one card and eager PyTorch:
     and then ``_capture_kv_states`` (two passes).  The numbers are the
     same: the captured K/V are the ones the attention used.  So a
     prefill launches the flash kernel once per attention layer;
-  * ``forward`` is differentiable as it stands and keeps every layer's
-    activations for the backward: there is no remat.  The reference
-    rematerializes each unit (``jax.checkpoint`` when ``cfg.remat``), so
-    its backward runs each layer's forward again, flash kernel included;
-    the port's backward launches only the dQ and dK/dV kernels, one pair
-    per attention layer.  One card holds InternLM2-1.8B's activations at
-    a (8, 256) batch.
+  * remat, as the reference's ``jax.checkpoint`` of each unit: with
+    ``cfg.remat`` and grad enabled, each unit of the stack runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+    unit's input and runs the unit's forward again in the backward, flash
+    kernel included.  So a training forward and backward launches the
+    flash forward twice per attention layer and the dQ and dK/dV kernels
+    once.  No-grad calls (the collect, the target network, ``prefill``
+    and ``decode_step``) run the units as they are.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -135,27 +137,43 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 # ===========================================================================
 
 
+def _unit(cfg: ModelConfig, sub: Tuple[str, ...], unit: nn.ModuleDict,
+          flag_row: List[bool], x: torch.Tensor, positions: torch.Tensor,
+          freqs: torch.Tensor, ks: Optional[list] = None,
+          vs: Optional[list] = None) -> torch.Tensor:
+    """One unit's sub-layers; each attention layer's K and V appended to
+    ``ks`` and ``vs`` when given."""
+    fi = 0
+    for kind in sub:
+        p = unit[kind]
+        h = L.apply_norm(cfg, p.norm, x)
+        if kind == "attn":
+            y, k, v = L.mha_kv(cfg, p.w, h, positions, freqs, flag_row[fi])
+            fi += 1
+            if ks is not None:
+                ks.append(k)
+                vs.append(v)
+            x = x + y
+        else:
+            x = x + L.mlp(cfg, p.w, h)
+    return x
+
+
 def _run_units(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
                positions: torch.Tensor, freqs: torch.Tensor, capture: bool):
-    """The unit stack; with ``capture`` also each attention layer's K/V."""
+    """The unit stack; with ``capture`` also each attention layer's K/V.
+    With ``cfg.remat`` and grad enabled each unit is checkpointed."""
     sub, n_units = unit_structure(cfg)
     flags = _global_flags(cfg, n_units, sub)
-    ks, vs = [], []
+    ks, vs = ([], []) if capture else (None, None)
+    remat = cfg.remat and torch.is_grad_enabled() and not capture
     for unit, flag_row in zip(params.units, flags):
-        fi = 0
-        for kind in sub:
-            p = unit[kind]
-            h = L.apply_norm(cfg, p.norm, x)
-            if kind == "attn":
-                y, k, v = L.mha_kv(cfg, p.w, h, positions, freqs, flag_row[fi])
-                fi += 1
-                if capture:
-                    ks.append(k)
-                    vs.append(v)
-                x = x + y
-            else:
-                x = x + L.mlp(cfg, p.w, h)
-    return x, ks, vs
+        if remat:
+            x = checkpoint(_unit, cfg, sub, unit, flag_row, x, positions, freqs,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _unit(cfg, sub, unit, flag_row, x, positions, freqs, ks, vs)
+    return x, ks or [], vs or []
 
 
 def forward(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor) -> torch.Tensor:

@@ -38,9 +38,11 @@ def _empty(shape, dtype, device) -> nn.Parameter:
 
 @torch.no_grad()
 def dense_init_(w: torch.Tensor, gen: torch.Generator) -> None:
-    """``dense_init``: N(0, 1/d_in) for a weight stored (out, in)."""
+    """``dense_init``: N(0, 1/d_in) for a weight stored (out, in).  The f32
+    draw is scaled in place, so one f32 temporary of the weight is alive
+    (7.8 GiB for Command-R's 256,000 × 8,192 output projection)."""
     z = torch.randn(w.shape, generator=gen, device=w.device, dtype=torch.float32)
-    w.copy_(z * (1.0 / math.sqrt(w.shape[1])))
+    w.copy_(z.mul_(1.0 / math.sqrt(w.shape[1])))
 
 
 # -- norms ----------------------------------------------------------------------
@@ -262,7 +264,7 @@ class Embed(nn.Module):
     def reset_parameters(self, gen: torch.Generator) -> None:
         z = torch.randn(self.tok.shape, generator=gen, device=self.tok.device,
                         dtype=torch.float32)
-        self.tok.copy_(z * 0.02)
+        self.tok.copy_(z.mul_(0.02))
         if self.out is not None:
             dense_init_(self.out, gen)
 

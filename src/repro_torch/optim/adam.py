@@ -17,6 +17,15 @@ step from a bf16 parameter computes in f32 and rounds once.  The EMA
 target ``t·(1-τ) + o·τ`` is bit-exact with the reference's: two f32
 products and their sum, rounded once into the target's dtype, never a
 fused ``add(alpha=)``, which rounds the product and the sum as one.
+
+``AdamConfig.state_dtype`` sets the moments' dtype, as the reference's:
+``None`` (or ``"float32"``) keeps f32 moments, updated in place;
+``"bfloat16"`` halves their memory.  Then ``update`` follows the
+reference's order: new f32 moments from the stored ones, the step from
+those unrounded values, and only then one rounding into bf16.  Each
+product and sum is its own op (no ``alpha=``, no ``addcmul``), and the
+square root is correctly rounded on every device, so that this path is
+the reference's arithmetic bit for bit.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ class AdamConfig:
     eps: float = 1e-8
     weight_decay: float = 0.0
     grad_clip: float = 1.0          # global-norm clip; 0 disables
+    state_dtype: Optional[str] = None   # None → f32 m/v; "bfloat16" halves them
 
 
 class AdamState(NamedTuple):
@@ -45,12 +55,16 @@ class AdamState(NamedTuple):
     v: List[torch.Tensor]
 
 
+STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def init(params: Sequence[torch.Tensor], cfg: AdamConfig) -> AdamState:
     params = list(params)
+    dt = STATE_DTYPES[cfg.state_dtype] if cfg.state_dtype else torch.float32
     return AdamState(
         count=torch.zeros((), dtype=torch.int32, device=params[0].device),
-        m=[torch.zeros_like(p, dtype=torch.float32) for p in params],
-        v=[torch.zeros_like(p, dtype=torch.float32) for p in params])
+        m=[torch.zeros_like(p, dtype=dt) for p in params],
+        v=[torch.zeros_like(p, dtype=dt) for p in params])
 
 
 def _groups(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
@@ -72,12 +86,57 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
                                    for x in tensors]).sum())
 
 
+def _sqrt_(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Correctly rounded f32 square roots, as the reference's: in place on
+    CUDA, whose sqrt is correctly rounded.  torch's vectorized CPU sqrt
+    misses by an ulp on ~1 % of f32 inputs, so CPU tensors go through f64,
+    whose root rounds to the correctly rounded f32 (new tensors)."""
+    if xs[0].device.type == "cpu":
+        return [torch.sqrt(x.double()).float() for x in xs]
+    torch._foreach_sqrt_(xs)
+    return xs
+
+
+def _update_rounded_once(g, m, v, p, cfg: AdamConfig, b1c, b2c) -> None:
+    """One group's step with moments narrower than f32: the reference's
+    ``upd``, op for op, in f32 copies of the moments; the moments rounded
+    once from those copies, and the step taken from the unrounded f32
+    values, in the same buffers.  Empties ``g`` once the moments are
+    taken, so that at most four f32 copies of the group are alive."""
+    m32 = [x.float() for x in m]
+    torch._foreach_mul_(m32, cfg.b1)
+    torch._foreach_add_(m32, torch._foreach_mul(g, 1 - cfg.b1))
+    v32 = [x.float() for x in v]
+    torch._foreach_mul_(v32, cfg.b2)
+    sq = torch._foreach_mul(g, g)
+    g.clear()
+    torch._foreach_mul_(sq, 1 - cfg.b2)
+    torch._foreach_add_(v32, sq)
+    del sq
+    torch._foreach_copy_(m, m32)
+    torch._foreach_copy_(v, v32)
+    # step = lr · (m / b1c) / (sqrt(v / b2c) + eps)
+    torch._foreach_div_(m32, b1c)
+    torch._foreach_mul_(m32, cfg.lr)
+    torch._foreach_div_(v32, b2c)
+    denom = _sqrt_(v32)
+    torch._foreach_add_(denom, cfg.eps)
+    torch._foreach_div_(m32, denom)
+    del denom, v32
+    if cfg.weight_decay:
+        torch._foreach_add_(m32, torch._foreach_mul([x.float() for x in p],
+                                                    cfg.lr * cfg.weight_decay))
+    torch._foreach_sub_(p, m32)
+
+
 @torch.no_grad()
 def update(grads: Sequence[torch.Tensor], state: AdamState,
            params: Sequence[torch.Tensor], cfg: AdamConfig
            ) -> Tuple[AdamState, torch.Tensor]:
     """One Adam step, in place on ``params`` and the moments.  Returns
-    (new state, pre-clip grad norm)."""
+    (new state, pre-clip grad norm).  Moments narrower than f32 (bf16,
+    ``state_dtype``) take the reference's round-once order; f32 moments
+    are updated in place."""
     grads, params = list(grads), list(params)
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -89,8 +148,11 @@ def update(grads: Sequence[torch.Tensor], state: AdamState,
     for group in _groups(params):
         g = [grads[i].float() for i in group]
         if scale is not None:
-            g = torch._foreach_mul(g, scale)
+            g = list(torch._foreach_mul(g, scale))
         m, v, p = ([x[i] for i in group] for x in (state.m, state.v, params))
+        if m[0].dtype != torch.float32:
+            _update_rounded_once(g, m, v, p, cfg, b1c, b2c)
+            continue
         torch._foreach_mul_(m, cfg.b1)
         torch._foreach_add_(m, g, alpha=1 - cfg.b1)
         torch._foreach_mul_(v, cfg.b2)

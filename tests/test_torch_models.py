@@ -3,7 +3,8 @@ against the JAX package's (repro.models), on the CPU.
 
 Parameters are made by the reference's ``init_params`` and carried
 across with ``interop.backbone_params_from_numpy``; inputs come from a
-seeded numpy generator.  Configs: ``granite_8b`` and ``internlm2_1_8b``
+seeded numpy generator.  Configs: ``granite_8b``, ``internlm2_1_8b``,
+``qwen1_5_32b`` (qkv biases) and ``command_r_35b`` (layernorm, GQA 2)
 SMOKE (f32), plus variants that switch on what those two leave off —
 sliding and chunked masks with a global-layer period, qkv biases,
 layernorm, gelu and tied embeddings.  Tolerances: layers atol 1e-5,
@@ -125,7 +126,9 @@ def test_mha_matches(impl, variant, is_global):
 @pytest.mark.parametrize("arch,variant", [("granite_8b", "granite"),
                                           ("internlm2_1_8b", "granite"),
                                           ("granite_8b", "sliding"),
-                                          ("granite_8b", "bias_ln_gelu_tied")])
+                                          ("granite_8b", "bias_ln_gelu_tied"),
+                                          ("qwen1_5_32b", "granite"),
+                                          ("command_r_35b", "granite")])
 def test_forward_prefill_decode_match(arch, variant):
     jcfg, tcfg = configs(arch, variant, window=4)
     params, model = carried(jcfg, tcfg, seed=5)

@@ -166,6 +166,34 @@ def test_continuous_matches_solo_greedy(smoke, both_runs):
         assert done[rid].tokens == solo_greedy(tcfg, model, prompt, budget, MAX_LEN), rid
 
 
+@pytest.mark.parametrize("arch", ["qwen1_5_32b", "command_r_35b"])
+def test_big_dense_configs_serve_as_reference(arch):
+    """Qwen1.5-32B (qkv biases) and Command-R-35B (layernorm, GQA) at
+    SMOKE: the scheduler's greedy tokens, admissions and step log equal
+    the reference's on the same traffic and weights, and each request
+    equals its solo greedy decode."""
+    jcfg, tcfg = jget_config(arch, smoke=True), get_config(arch, smoke=True)
+    params = jax.device_get(jb.init_params(jcfg, jax.random.PRNGKey(3)))
+    model = interop.backbone_params_from_numpy(tcfg, params)
+    runs = {}
+    for name, sched, p in (
+            ("ref", JScheduler(JDecodeEngine(jcfg, slots=SLOTS, max_len=MAX_LEN,
+                                             buckets=JBucketSpec(BUCKETS))), params),
+            ("port", Scheduler(DecodeEngine(tcfg, slots=SLOTS, max_len=MAX_LEN,
+                                            buckets=BucketSpec(BUCKETS), device="cpu")),
+             model)):
+        for prompt, (_, budget) in zip(prompts(), TRAFFIC):
+            sched.submit(prompt, budget)
+        runs[name] = (sched, {c.rid: c for c in drain(sched, p)})
+    (rs, ref), (ps, port) = runs["ref"], runs["port"]
+    assert sorted(port) == sorted(ref) == list(range(len(TRAFFIC)))
+    for rid, (prompt, (_, budget)) in enumerate(zip(prompts(), TRAFFIC)):
+        assert port[rid].tokens == ref[rid].tokens, rid
+        assert port[rid].tokens == solo_greedy(tcfg, model, prompt, budget, MAX_LEN), rid
+    assert list(ps.admission_log) == list(rs.admission_log)
+    assert list(ps.step_log) == list(rs.step_log)
+
+
 def test_per_slot_positions_match_vmapped_reference(smoke):
     """Rows at different depths in one batched decode ≡ the reference's
     batch-of-1 decode of each row."""
@@ -303,6 +331,10 @@ def test_serve_actor_entry_point(capsys, monkeypatch, tmp_path):
     assert "served 5 requests × 3 tokens" in out and "decode:" in out
     assert '"generated_tokens": 15' in report.read_text()
     assert serve_actor.main(["--arch", "hymba_1_5b", "--device", "cpu"]) == 2
+    for arch in ("qwen1_5_32b", "command_r_35b"):
+        assert serve_actor.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests",
+                                 "3", "--slots", "2", "--prompt-len", "5", "--gen", "2"]) == 0
+        assert "served 3 requests × 2 tokens" in capsys.readouterr().out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve_actor.main(["--smoke", "--requests", "1"])

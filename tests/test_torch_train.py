@@ -44,9 +44,11 @@ def test_trains_checkpoints_and_resumes(tmp_path, monkeypatch, capsys):
     res = train.main(ARGS + ckpt + ["--steps", "4"])
     layers = res["cfg"].num_layers
     assert res["start"] is None and [h["step"] for h in res["history"]] == [0, 1, 2, 3]
-    # online + target forward and one backward per attention layer per
-    # step; the collect's 8-token context never takes flash
-    assert calls == {"fwd": 2 * layers * 4, "bwd": layers * 4}
+    # online + target forward, the remat's recompute of the online one
+    # (cfg.remat) and one backward per attention layer per step; the
+    # collect's 8-token context never takes flash
+    assert res["cfg"].remat
+    assert calls == {"fwd": 3 * layers * 4, "bwd": layers * 4}
     for h in res["history"]:
         assert all(torch.isfinite(torch.tensor(h[k])) for k in ("loss", "grad_norm", "q_mean"))
         assert 0.0 <= h["reward"] <= 1.0
