@@ -259,13 +259,34 @@ failure and prints no result):
                 and the update kernel against the plain update on one more
                 32-row insert and 8-row write-back from that tree; then a
                 second call that resumes from step 24.
+ 23. moe, vlm — one model at a time on a card that holds nothing else:
+                (a) Mixtral-8x7B at full width and 24 of 32 layers, (b)
+                Llama-4 Maverick at full width and 2 of 24 units (layers 0-3,
+                global layer 3), each served as 21(b) (launches 24 and 4 a
+                prefill, peak <= 74 GiB; the naive prefill routed as the flash
+                one, moe.routed_as), with the tokens the prefills dropped;
+                Mixtral's exactness check at 2 layers on one prompt of 4,608
+                tokens, past its 4,096 window: the tokens bf16 flash and
+                naive route apart from f32 (at most 10 %), and, routed as the
+                f32 model, phase 21's rule; (d) Llama-4 with 16 slots, 12 on
+                one prompt: the batched decode step against each slot's
+                batch-1 call, the same experts and logits under 1e-2
+                relative l2, no token dropped where a capacity over the slots
+                would drop; (c) Phi-3-vision at full width and depth: 4
+                prompts of 576 patch embeddings + 64 tokens prefilled at S =
+                640 (32 launches), 16 greedy decode steps (pos 656 on every
+                row), flash and naive bf16 against the f32 model (phase 21's
+                rule); then the Hopper forward, held to its plain version,
+                at (32, 4608, 128) sliding 4,096, (40, 512, 128) chunked 8,192
+                local and global, and (32, 640, 96), beside its bound and
+                SDPA with the same mask.
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration.
 Granite-8B's weights and its f32 copy are freed before phase 11; phase 12
 runs before the training state and the 34.3 GB token-MDP table exist, and
-each training run's state is freed before the next.  Phase 21 starts with
-under 1 GiB allocated and frees each model before the next.
+each training run's state is freed before the next.  Phases 21 and 23
+start each model with under 1 GiB allocated and free it before the next.
 
 The line before the last is the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.  The line before that one is
@@ -2741,26 +2762,229 @@ def prefill_logits(torch, backbone, cfg, params, prompt, spec, max_len, dev):
     return logits[0, :len(prompt)].float(), cache
 
 
-def flash_fwd_times(torch, dev, gen, n: int, s: int, hd: int = 128) -> dict:
-    """The Hopper forward at (n, s, hd) bf16 causal: device, plain and SDPA
-    times beside the bound (phase 10's measure)."""
+def flash_fwd_times(torch, dev, gen, n: int, s: int, hd: int = 128, attention: str = "full",
+                    window: int = 0, is_global: bool = True, parity: bool = False) -> dict:
+    """The Hopper forward at (n, s, hd) bf16, causal, under ``attention``'s
+    mask: device, plain and SDPA times beside the bound (phase 10's measure;
+    the bound counts the (query, key) pairs the mask reaches, and SDPA takes
+    the same mask, as ``is_causal`` where it is the causal one).  With
+    ``parity`` the kernel is first held to its plain version in f32 on the
+    same inputs under ``parity.flash_check``."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import parity as par
 
     q, k, v = [(torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(torch.bfloat16)
                for _ in range(3)]
     q4, k4, v4 = q[None], k[None], v[None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    pairs = s * (s + 1) / 2
+    mask_args = (attention, window, True, is_global)
+    pos = torch.arange(s, device=dev)
+    mask = fa.attention_mask(pos, pos, *mask_args)
+    pairs = int(mask.sum())
+    causal = pairs == s * (s + 1) // 2
+    label = ("causal" if causal and attention == "full" else
+             f"causal, {attention} {window}{', global' if is_global else ''}")
+    if causal:
+        def lib():
+            return sdpa(q4, k4, v4, is_causal=True)
+    else:
+        def lib():
+            return sdpa(q4, k4, v4, attn_mask=mask)
     b_ms, b_by = bound(4 * n * s * hd * 2 + n * s * 4, 4 * hd * n * pairs, BF16_OPS_PER_S)
-    t = {"shape": f"({n}, {s}, {hd}) bf16 causal",
-         "ms": device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v)),
-         "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v)),
-         "library_ms": device_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True)),
-         "bound_ms": b_ms, "bound_by": b_by,
-         "call_ms": call_ms(torch, lambda: fa.flash_attention_cuda(q, k, v))}
+    t = {"shape": f"({n}, {s}, {hd}) bf16 {label}", "pairs": pairs}
+    if parity:
+        o, lse = fa.flash_attention_cuda(q, k, v, *mask_args)
+        o_ref, lse_ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), *mask_args)
+        torch.cuda.synchronize()
+        rep = par.flash_check(o, lse, o_ref, lse_ref)
+        check(rep.ok, f"{fa.SM90_NAME} at {t['shape']}: {rep}")
+        t.update(max_abs_err=rep.max_abs_err, bf16_max_ulps_beyond_atol=rep.max_ulps)
+        del o, lse, o_ref, lse_ref
+    t.update(ms=device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, *mask_args)),
+             plain_ms=device_ms(torch, lambda: fa.flash_attention_plain(q, k, v, *mask_args)),
+             library_ms=device_ms(torch, lib), bound_ms=b_ms, bound_by=b_by,
+             call_ms=call_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, *mask_args)))
     check(all(math.isfinite(t[x]) for x in ("ms", "plain_ms", "library_ms")),
-          f"timing of the flash forward at ({n}, {s}, {hd}) is not finite")
+          f"timing of the flash forward at {t['shape']} is not finite")
     return t
+
+
+def empty_card(torch, dev, what: str) -> None:
+    """Free what Python no longer holds and check that under 1 GiB is left
+    allocated before ``what`` is made."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev)
+    check(left < 2**30, f"{left / 2**30:.2f} GiB still allocated before {what}")
+
+
+ROUTED_APART_MAX = 0.10     # 23(a): at most 10 % of the tokens route apart in bf16 and f32
+
+
+def routed_apart(torch, want: list, got: list, n: int):
+    """(n,) bool: which of the first ``n`` tokens some moe call of the run
+    ``got`` sent to other experts than the same call of ``want`` (two
+    ``models/moe.py`` recordings of the same prompt; all False when there is
+    no moe layer)."""
+    apart = torch.zeros(n, dtype=torch.bool)
+    for x, y in zip(want, got, strict=True):
+        apart |= (x["expert_id"][:n] != y["expert_id"][:n]).any(1).cpu()
+    return apart
+
+
+def serve_full_width(torch, dev, card: str, cfg, params, rng, init_s: float, tag: str) -> dict:
+    """21(b) and 23(a)-(b): ``cfg`` (flash) with its weights ``params``
+    through ActorServer (BIG_SERVE, BIG_REQUESTS requests of 1-512 prompt
+    tokens): every request complete, finite prefill logits for every prompt
+    and a finite decode step, the Hopper forward once a prefill per attention
+    layer and no other flash kernel, flash against naive prefill logits on two
+    prompts under 3e-2 relative l2, the rates, the peak memory and one
+    profiled decode step of the slots.  A moe model's naive prefill routes
+    as its flash prefill did (``moe.routed_as``), so that the distance is
+    the attention's and not that of near-tied routes that rounding flips;
+    the tokens that a free naive prefill routes apart are counted, and so
+    are the tokens that the prefills dropped."""
+    import gc
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import backbone
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve import ActorServeConfig, ActorServer, BucketSpec, DecodeEngine
+
+    scfg = ActorServeConfig(**BIG_SERVE)
+    spec = BucketSpec(scfg.buckets)
+    naive_cfg = dataclasses.replace(cfg, attn_impl="naive")
+    others = (fa.NAME, fa.DQ_NAME, fa.DKV_NAME, fa.DQ_SM90_NAME, fa.DKV_SM90_NAME)
+    n_params = sum(p.numel() for p in params.parameters())
+    weights = torch.cuda.memory_allocated(dev)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in [512, 1] + list(rng.randint(2, 513, size=BIG_REQUESTS - 2))]
+    # a first server warms cuBLAS, the allocator and one prefill per bucket
+    server = ActorServer(cfg, params, scfg, device=dev)
+    warm = [server.submit(rng.randint(0, cfg.vocab_size, size=n).astype(np.int32), 2)
+            for n in (100, 200, 400)]
+    server.drain(timeout=900)
+    check(all(len(h.result(0).tokens) == 2 for h in warm), f"{cfg.name}: the warm-up requests")
+    del server, warm
+    gc.collect()
+    server = ActorServer(cfg, params, scfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    handles = [server.submit(p, scfg.max_new_tokens) for p in prompts]
+    t0 = time.perf_counter()
+    server.drain(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = server.stats()
+    done = [h.result(0) for h in handles]
+    per_prefill = backbone.flash_launches_per_prefill(cfg)
+    check(all(len(c.tokens) == scfg.max_new_tokens for c in done)
+          and st["generated_tokens"] == BIG_REQUESTS * scfg.max_new_tokens
+          == st["admissions"] + st["decoded_tokens"],
+          f"{cfg.name}: token accounting, stats {st}")
+    check(all(0 <= t < cfg.vocab_size for c in done for t in c.tokens),
+          f"{cfg.name}: token out of range")
+    check(counts.get(fa.SM90_NAME) == per_prefill * st["admissions"]
+          and st["admissions"] == BIG_REQUESTS and not any(counts.get(k) for k in others),
+          f"{cfg.name}: flash launches {counts}, the code predicts {per_prefill} x "
+          f"{st['admissions']} prefills of {fa.SM90_NAME} and no other flash kernel")
+    del server
+    gc.collect()
+    # every prompt's prefill logits finite; flash against naive on two
+    sums, sums_free, apart_n, compared = [0.0, 0.0], [0.0, 0.0], 0, 0
+    drops = {"real": 0, "real_slots": 0, "all": 0, "all_slots": 0}
+    k = cfg.experts_per_token
+    for i, p in enumerate(prompts):
+        with MOE.recording() as rf:
+            lf, cache = prefill_logits(torch, backbone, cfg, params, p, spec, scfg.max_len, dev)
+        check(bool(torch.isfinite(lf).all()), f"{cfg.name}: request {i}'s prefill logits")
+        for r in rf:
+            drops["real"] += int((~r["keep"][:len(p)]).sum())
+            drops["all"] += int((~r["keep"]).sum())
+            drops["real_slots"] += len(p) * k
+            drops["all_slots"] += r["tokens"] * k
+        if i < 2:
+            with MOE.routed_as(rf):
+                ln = prefill_logits(torch, backbone, naive_cfg, params, p, spec, scfg.max_len,
+                                    dev)[0]
+            check(bool(torch.isfinite(ln).all()), f"{cfg.name}: naive prefill logits")
+            sums = [x + y for x, y in zip(sums, l2_sums(lf, ln))]
+            compared += len(p)
+            if rf:
+                with MOE.recording() as rn:
+                    ln = prefill_logits(torch, backbone, naive_cfg, params, p, spec,
+                                        scfg.max_len, dev)[0]
+                apart_n += int(routed_apart(torch, rf, rn, len(p)).sum())
+                sums_free = [x + y for x, y in zip(sums_free, l2_sums(lf, ln))]
+                del rn
+            del ln
+        if i == len(prompts) - 1:
+            cache["pos"].fill_(len(p))
+            tok = torch.argmax(lf[-1]).reshape(1, 1)
+            lg = backbone.decode_step(cfg, params, cache, tok)[0]
+            check(bool(torch.isfinite(lg).all()), f"{cfg.name}: decode logits not finite")
+        del lf, cache, rf
+    fn_rel = math.sqrt(sums[0] / sums[1])
+    check(fn_rel < 3e-2, f"{cfg.name}: flash vs naive prefill logits differ by {fn_rel:.4g} "
+          "relative l2")
+    # one profiled decode step over the slots, each primed
+    eng = DecodeEngine(cfg, slots=scfg.slots, max_len=scfg.max_len, buckets=spec, device=dev)
+    state = eng.init_state()
+    for slot, p in enumerate(prompts[:scfg.slots]):
+        tok, slot_cache = eng.prime(params, p)
+        state = eng.insert(state, slot, slot_cache, tok)
+        del slot_cache
+    _, state = eng.step(params, state)          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, state = eng.step(params, state)
+        torch.cuda.synchronize()
+        step_us = (time.perf_counter() - t0) * 1e6
+    prof_d = profile_summary(torch, prof, step_us, 1)
+    del eng, state, prof
+    rate = {"params": n_params, "weights_bytes": weights, "init_s": init_s,
+            "requests": BIG_REQUESTS, "new_tokens": scfg.max_new_tokens,
+            "slots": scfg.slots, "buckets": list(scfg.buckets), "max_len": scfg.max_len,
+            "prompt_tokens": int(sum(len(p) for p in prompts)),
+            "first_tokens_per_s": st["admissions"] / st["prefill_s"],
+            "decode_tokens_per_s": st["decoded_tokens"] / st["decode_s"],
+            "latency_p50_ms": st["latency_p50_ms"], "latency_p99_ms": st["latency_p99_ms"],
+            "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+            "decode_steps": st["steps"], "wall_s": wall, "peak_memory_bytes": peak,
+            "flash_launches": counts.get(fa.SM90_NAME, 0), "launches": counts,
+            "launches_per_prefill": per_prefill, "prefill_logits_rel_l2": fn_rel,
+            "decode_step_profile": prof_d}
+    moe_note = ""
+    if cfg.family == "moe":
+        free = math.sqrt(sums_free[0] / sums_free[1])
+        rate.update(prefill_logits_rel_l2_free_routes=free, routed_apart=apart_n,
+                    compared_tokens=compared, prefill_drops=drops)
+        moe_note = (f", naive routed as flash (free: {free:.4g}, {apart_n} of {compared} "
+                    f"tokens routed apart); the prefills dropped {drops['real']} of "
+                    f"{drops['real_slots']} real token-slots and {drops['all']} of "
+                    f"{drops['all_slots']} with the pad")
+    print(f"[{tag}] {cfg.name} ({cfg.num_layers} layers, {n_params / 1e9:.3f} B params, bf16, "
+          f"{weights / 2**30:.2f} GiB of weights, made in {init_s:.1f} s): {BIG_REQUESTS} "
+          f"requests x {scfg.max_new_tokens} tokens on {scfg.slots} slots, "
+          f"{rate['prompt_tokens']} prompt tokens: {rate['first_tokens_per_s']:.2f} "
+          f"first-tokens/s, {rate['decode_tokens_per_s']:.1f} decode tokens/s, p50 "
+          f"{rate['latency_p50_ms']:.0f} ms, p99 {rate['latency_p99_ms']:.0f} ms; peak memory "
+          f"{peak / 2**30:.2f} GiB; {fa.SM90_NAME} launches {rate['flash_launches']} = "
+          f"{per_prefill} x {st['admissions']} prefills, no other flash kernel; prefill logits "
+          f"flash vs naive rel l2 {fn_rel:.4g} on 2 prompts{moe_note}; one decode step of "
+          f"{scfg.slots} slots: {step_us:,.0f} us wall, {prof_d['device_busy_us']:,.0f} us "
+          f"device-busy, {prof_d['device_ops_per_step']:,.0f} device ops | {card}", flush=True)
+    return rate
 
 
 def big_dense_phase(torch, dev, card: str) -> dict:
@@ -2779,29 +3003,22 @@ def big_dense_phase(torch, dev, card: str) -> dict:
     import gc
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.models import backbone
-    from repro_torch.serve import ActorServeConfig, ActorServer, BucketSpec, DecodeEngine
+    from repro_torch.serve import ActorServeConfig, BucketSpec
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
     scfg = ActorServeConfig(**BIG_SERVE)
     spec = BucketSpec(scfg.buckets)
     out = {}
-    others = (fa.NAME, fa.DQ_NAME, fa.DKV_NAME, fa.DQ_SM90_NAME, fa.DKV_SM90_NAME)
     for arch, shape in BIG_DENSE:
-        gc.collect()
-        torch.cuda.empty_cache()
-        left = torch.cuda.memory_allocated(dev)
-        check(left < 2**30, f"{left / 2**30:.2f} GiB still allocated before {arch}")
+        empty_card(torch, dev, arch)
         cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
         check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff,
                cfg.vocab_size, cfg.rope_theta, cfg.qkv_bias, cfg.norm, cfg.dtype)
               == (*shape, "bfloat16"), f"not {arch}'s configured shape: {cfg}")
-        naive_cfg = dataclasses.replace(cfg, attn_impl="naive")
         rng = np.random.RandomState(SEED + 21)
         res = {"model": cfg.name}
 
@@ -2847,105 +3064,8 @@ def big_dense_phase(torch, dev, card: str) -> dict:
         t0 = time.perf_counter()
         params = backbone.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
         torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        n_params = sum(p.numel() for p in params.parameters())
-        weights = torch.cuda.memory_allocated(dev)
-        prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32)
-                   for n in [512, 1] + list(rng.randint(2, 513, size=BIG_REQUESTS - 2))]
-        # a first server warms cuBLAS, the allocator and one prefill per bucket
-        server = ActorServer(cfg, params, scfg, device=dev)
-        warm = [server.submit(rng.randint(0, cfg.vocab_size, size=n).astype(np.int32), 2)
-                for n in (100, 200, 400)]
-        server.drain(timeout=900)
-        check(all(len(h.result(0).tokens) == 2 for h in warm), f"{arch}: the warm-up requests")
-        del server, warm
-        gc.collect()
-        server = ActorServer(cfg, params, scfg, device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        ops.reset_launch_counts()
-        handles = [server.submit(p, scfg.max_new_tokens) for p in prompts]
-        t0 = time.perf_counter()
-        server.drain(timeout=900)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(ops.launch_counts)
-        peak = torch.cuda.max_memory_allocated(dev)
-        st = server.stats()
-        done = [h.result(0) for h in handles]
-        per_prefill = backbone.flash_launches_per_prefill(cfg)
-        check(all(len(c.tokens) == scfg.max_new_tokens for c in done)
-              and st["generated_tokens"] == BIG_REQUESTS * scfg.max_new_tokens
-              == st["admissions"] + st["decoded_tokens"],
-              f"{arch}: token accounting, stats {st}")
-        check(all(0 <= t < cfg.vocab_size for c in done for t in c.tokens),
-              f"{arch}: token out of range")
-        check(counts.get(fa.SM90_NAME) == per_prefill * st["admissions"]
-              and st["admissions"] == BIG_REQUESTS and not any(counts.get(k) for k in others),
-              f"{arch}: flash launches {counts}, the code predicts {per_prefill} x "
-              f"{st['admissions']} prefills of {fa.SM90_NAME} and no other flash kernel")
-        del server
-        gc.collect()
-        # every prompt's prefill logits finite; flash against naive on two
-        sums = [0.0, 0.0]
-        for i, p in enumerate(prompts):
-            lf, cache = prefill_logits(torch, backbone, cfg, params, p, spec, scfg.max_len, dev)
-            check(bool(torch.isfinite(lf).all()), f"{arch}: request {i}'s prefill logits")
-            if i < 2:
-                ln = prefill_logits(torch, backbone, naive_cfg, params, p, spec, scfg.max_len,
-                                    dev)[0]
-                check(bool(torch.isfinite(ln).all()), f"{arch}: naive prefill logits")
-                sums = [x + y for x, y in zip(sums, l2_sums(lf, ln))]
-                del ln
-            if i == len(prompts) - 1:
-                cache["pos"].fill_(len(p))
-                tok = torch.argmax(lf[-1]).reshape(1, 1)
-                lg = backbone.decode_step(cfg, params, cache, tok)[0]
-                check(bool(torch.isfinite(lg).all()), f"{arch}: decode logits not finite")
-            del lf, cache
-        fn_rel = math.sqrt(sums[0] / sums[1])
-        check(fn_rel < 3e-2, f"{arch}: flash vs naive prefill logits differ by {fn_rel:.4g} "
-              "relative l2")
-        # one profiled decode step over the 8 slots, each primed
-        eng = DecodeEngine(cfg, slots=scfg.slots, max_len=scfg.max_len, buckets=spec, device=dev)
-        state = eng.init_state()
-        for slot, p in enumerate(prompts[:scfg.slots]):
-            tok, slot_cache = eng.prime(params, p)
-            state = eng.insert(state, slot, slot_cache, tok)
-            del slot_cache
-        _, state = eng.step(params, state)          # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _, state = eng.step(params, state)
-            torch.cuda.synchronize()
-            step_us = (time.perf_counter() - t0) * 1e6
-        prof_d = profile_summary(torch, prof, step_us, 1)
-        del eng, state, prof
-        rate = {"params": n_params, "weights_bytes": weights, "init_s": init_s,
-                "requests": BIG_REQUESTS, "new_tokens": scfg.max_new_tokens,
-                "slots": scfg.slots, "buckets": list(scfg.buckets), "max_len": scfg.max_len,
-                "prompt_tokens": int(sum(len(p) for p in prompts)),
-                "first_tokens_per_s": st["admissions"] / st["prefill_s"],
-                "decode_tokens_per_s": st["decoded_tokens"] / st["decode_s"],
-                "latency_p50_ms": st["latency_p50_ms"], "latency_p99_ms": st["latency_p99_ms"],
-                "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
-                "decode_steps": st["steps"], "wall_s": wall, "peak_memory_bytes": peak,
-                "flash_launches": counts.get(fa.SM90_NAME, 0), "launches": counts,
-                "launches_per_prefill": per_prefill, "prefill_logits_rel_l2": fn_rel,
-                "decode_step_profile": prof_d}
-        res["serve"] = rate
-        print(f"[big dense b] {cfg.name} ({n_params / 1e9:.3f} B params, bf16, "
-              f"{weights / 2**30:.2f} GiB of weights, made in {init_s:.1f} s): {BIG_REQUESTS} "
-              f"requests x {scfg.max_new_tokens} tokens on {scfg.slots} slots, "
-              f"{rate['prompt_tokens']} prompt tokens: {rate['first_tokens_per_s']:.2f} "
-              f"first-tokens/s, {rate['decode_tokens_per_s']:.1f} decode tokens/s, p50 "
-              f"{rate['latency_p50_ms']:.0f} ms, p99 {rate['latency_p99_ms']:.0f} ms; peak memory "
-              f"{peak / 2**30:.2f} GiB; {fa.SM90_NAME} launches {rate['flash_launches']} = "
-              f"{per_prefill} x {st['admissions']} prefills, no other flash kernel; prefill logits "
-              f"flash vs naive rel l2 {fn_rel:.4g} on 2 prompts; one decode step of 8 slots: "
-              f"{step_us:,.0f} us wall, {prof_d['device_busy_us']:,.0f} us device-busy, "
-              f"{prof_d['device_ops_per_step']:,.0f} device ops | {card}", flush=True)
+        res["serve"] = serve_full_width(torch, dev, card, cfg, params, rng,
+                                        time.perf_counter() - t0, "big dense b")
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3072,6 +3192,340 @@ def token_trainer_phase(torch, dev, card: str) -> dict:
           f"memory {peak / 2**30:.2f} GiB; resumed from {TRAINER_STEPS} with {resume_counts} | "
           f"{card}",
           flush=True)
+    return out
+
+
+# -- phase 23: the moe and vlm families at full width -------------------------------
+
+# (arch, layers served, its published shape: layers, d_model, heads, KV heads, hd, d_ff,
+# vocab, experts, top-k, shared experts, attention, window, global period)
+MOE_SERVE = (("mixtral_8x7b", 24,
+              (32, 4096, 32, 8, 128, 14336, 32000, 8, 2, 0, "sliding", 4096, 0)),
+             ("llama4_maverick_400b_a17b", 4,
+              (48, 5120, 40, 8, 128, 8192, 202048, 128, 1, 1, "chunked", 8192, 4)))
+MOE_CUT = {"mixtral_8x7b": "32 layers are 87.0 GiB of bf16 weights, past the card's 80 GB; "
+                           "24 are 65.4 GiB, under phase 21's Qwen1.5-32B",
+           "llama4_maverick_400b_a17b": "a unit (attn, mlp, attn, moe) is 30.6 GiB with its 128 "
+                                        "experts; 2 units (layers 0-3, global layer 3) are 65.0 "
+                                        "GiB with the 3.9 GiB of embeddings"}
+MOE_PEAK_LIMIT = 74 * 2**30      # 23(a)-(b): phase 21's Qwen1.5-32B peaked at 73.9 GiB
+MIXTRAL_EXACT = (2, 4608)        # 23(a): layers, prompt tokens (36 x 128, past the 4,096 window)
+DECODE_RULE_SLOTS = 16           # 23(d): 12 slots on one prompt, 4 on others
+DECODE_RULE_BOUND = 1e-2         # 23(d): a slot's logits against its batch-1 call, relative l2
+PHI_PROMPTS, PHI_TEXT, PHI_STEPS = 4, 64, 16   # 23(c)
+
+
+def moe_exactness(torch, dev, card: str, cfg) -> dict:
+    """23(a)'s check: Mixtral at full width and MIXTRAL_EXACT's layers on one
+    prompt past the sliding window, through ``backbone.prefill`` outside the
+    engine: bf16 flash, bf16 naive and the same weights in f32 (naive, TF32
+    off).  Free, the bf16 runs route some tokens to other experts than the
+    f32 run (counted; at most ROUTED_APART_MAX of them); routed as the f32
+    run (``moe.routed_as``), phase 21's rule over every token: flash no
+    farther from f32 than 1.1x naive, flash vs naive under 3e-2 relative
+    l2."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import backbone
+    from repro_torch.models import moe as MOE
+
+    layers, n = MIXTRAL_EXACT
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    cut_naive = dataclasses.replace(cut, attn_impl="naive")
+    exact_cfg = dataclasses.replace(cut_naive, dtype="float32")
+    params = backbone.init_params(cut, torch.Generator(device=dev).manual_seed(SEED))
+    exact = backbone.Backbone(exact_cfg, dev)
+    with torch.no_grad():
+        for a, b in zip(exact.parameters(), params.parameters(), strict=True):
+            a.copy_(b)
+    rng = np.random.RandomState(SEED + 23)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(1, n))).to(dev).long()
+
+    def run(c, p, routes=None):
+        ops.reset_launch_counts()
+        with MOE.recording() as rec, (MOE.routed_as(routes) if routes is not None
+                                      else contextlib.nullcontext()):
+            logits = backbone.prefill(c, p, tokens, n)[0][0].float()
+        check(bool(torch.isfinite(logits).all()), f"{c.name} {c.attn_impl} {c.dtype} prefill "
+              "logits not finite")
+        launches = ops.launch_counts[fa.SM90_NAME]
+        check(launches == (layers if c.attn_impl == "flash" else 0),
+              f"{c.name} {c.attn_impl} prefill: {launches} launches of {fa.SM90_NAME}")
+        return logits, rec
+
+    lx, rx = run(exact_cfg, exact)
+    free = {key: run(c, params) for key, c in (("flash", cut), ("naive", cut_naive))}
+    apart = {key: int(routed_apart(torch, rx, rec, n).sum()) for key, (_, rec) in free.items()}
+    free_rel = {key: rel_l2([(lg, lx)]) for key, (lg, _) in free.items()}
+    del free
+    lf, ln = run(cut, params, rx)[0], run(cut_naive, params, rx)[0]
+    del params, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = {key: rel_l2([(a, b)]) for key, a, b in (("fn", lf, ln), ("fx", lf, lx),
+                                                   ("nx", ln, lx))}
+    check(max(apart.values()) <= ROUTED_APART_MAX * n, f"{cfg.name}: of {n} tokens, {apart} "
+          "routed to other experts in bf16 than in f32")
+    check(rel["fx"] <= 1.1 * rel["nx"], f"{cfg.name} at {layers} layers, routed as f32: flash "
+          f"prefill logits are {rel['fx']:.4g} relative l2 from the f32 model, naive's "
+          f"{rel['nx']:.4g}: flash adds error")
+    check(rel["fn"] < 3e-2, f"{cfg.name} at {layers} layers, routed as f32: flash vs naive "
+          f"prefill logits differ by {rel['fn']:.4g} relative l2")
+    out = {"layers": layers, "prompt_tokens": n, "routed_apart_from_f32": apart,
+           "free_routes_rel_l2_from_f32": free_rel, "flash_vs_naive_rel_l2": rel["fn"],
+           "flash_vs_f32_rel_l2": rel["fx"], "naive_vs_f32_rel_l2": rel["nx"]}
+    print(f"[moe a] {cfg.name} at full width, {layers} layers, one prompt of {n} tokens (past the "
+          f"{cfg.window} window): {apart['flash']} tokens routed to other experts in bf16 flash "
+          f"than in f32, {apart['naive']} in bf16 naive (at most {ROUTED_APART_MAX:.0%}), their "
+          f"logits {free_rel['flash']:.4g} and {free_rel['naive']:.4g} from f32; routed as f32: "
+          f"prefill logits flash vs naive rel l2 {rel['fn']:.4g} (< 3e-2), from the f32 model "
+          f"flash {rel['fx']:.4g}, naive {rel['nx']:.4g} (flash <= 1.1x naive) | {card}",
+          flush=True)
+    return out
+
+
+def moe_decode_rule(torch, dev, card: str, cfg, params) -> dict:
+    """23(d): DECODE_RULE_SLOTS slots, 12 of them primed with one prompt, so
+    that more of them pick one expert in a decode step than the capacity of a
+    call over the slots; the batched step (which drops no token) against
+    each slot's own batch-1 call (whose capacity no token can exceed): the
+    same experts on every slot and logits under DECODE_RULE_BOUND relative
+    l2; and the tokens that a capacity-limited batched step would have
+    dropped."""
+    import numpy as np
+
+    from repro_torch.models import backbone
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve import BucketSpec, DecodeEngine
+
+    slots = DECODE_RULE_SLOTS
+    eng = DecodeEngine(cfg, slots=slots, max_len=BIG_SERVE["max_len"],
+                       buckets=BucketSpec(BIG_SERVE["buckets"]), device=dev)
+    rng = np.random.RandomState(SEED + 24)
+    same = rng.randint(0, cfg.vocab_size, size=100).astype(np.int32)
+    batch = [same] * 12 + [rng.randint(0, cfg.vocab_size, size=int(m)).astype(np.int32)
+                           for m in rng.randint(2, 513, size=slots - 12)]
+    state = eng.init_state()
+    for slot, p in enumerate(batch):
+        tok, slot_cache = eng.prime(params, p)
+        state = eng.insert(state, slot, slot_cache, tok)
+        del slot_cache
+    singles = [{"pos": state.cache["pos"][s:s + 1].clone(),
+                "k": state.cache["k"][:, s:s + 1].clone(),
+                "v": state.cache["v"][:, s:s + 1].clone()} for s in range(slots)]
+    tokens = state.tokens.clone()
+    with MOE.recording() as rb:
+        batched = backbone.decode_step(cfg, params, state.cache, tokens)[0][:, 0].float()
+    check(bool(torch.isfinite(batched).all()), f"{cfg.name}: batched decode logits not finite")
+    cap = MOE.capacity(cfg, slots)
+    top = max(int(torch.bincount(r["expert_id"][:, 0]).max()) for r in rb)
+    capped = sum(MOE.dropped_if_capped(cfg, r["expert_id"]) for r in rb)
+    check(top > cap and capped > 0 and all(bool(r["keep"].all()) for r in rb),
+          f"{cfg.name}: the batched step's busiest expert took {top} of {slots} slots against a "
+          f"capacity of {cap}; {capped} would drop; every token kept: "
+          f"{[bool(r['keep'].all()) for r in rb]}")
+    rels, apart, same_tok = [], 0, 0
+    for s in range(slots):
+        with MOE.recording() as r1:
+            one = backbone.decode_step(cfg, params, singles[s], tokens[s:s + 1])[0][0, 0].float()
+        row = [{"expert_id": r["expert_id"][s:s + 1]} for r in rb]
+        apart += int(routed_apart(torch, r1, row, 1).sum())
+        rels.append(rel_l2([(batched[s], one)]))
+        same_tok += int(torch.argmax(batched[s]) == torch.argmax(one))
+    check(apart == 0 and max(rels) <= DECODE_RULE_BOUND,
+          f"{cfg.name}: batched decode against batch-1 calls: {apart} slots routed apart, rel "
+          f"l2 up to {max(rels):.4g} (bound {DECODE_RULE_BOUND})")
+    out = {"slots": slots, "busiest_expert_slots": top, "capacity_of_a_call": cap,
+           "dropped_if_capped": capped, "max_rel_l2": max(rels), "greedy_equal": same_tok}
+    print(f"[moe d] {cfg.name}: one batched decode step over {slots} slots (12 on one prompt): "
+          f"the busiest expert took {top} slots, a capacity-limited step over the slots "
+          f"(capacity {cap}) would have dropped {capped} tokens, this one dropped none; against "
+          f"each slot's batch-1 call: the same experts on every slot, logits rel l2 at most "
+          f"{max(rels):.4g} (bound {DECODE_RULE_BOUND}), greedy token equal on {same_tok} | "
+          f"{card}", flush=True)
+    return out
+
+
+def phi_vision(torch, dev, card: str) -> dict:
+    """23(c): Phi-3-vision at full width and depth, bf16 with flash:
+    PHI_PROMPTS prompts of 576 patch embeddings (from the seed, x 0.1) and
+    PHI_TEXT text tokens prefilled at S = 640 (one Hopper forward a layer,
+    no other flash kernel), then PHI_STEPS greedy decode steps (pos = 640 +
+    steps on every row); the prefill logits of flash and naive bf16 against
+    the same weights in f32 (naive, TF32 off): flash no farther than 1.1x
+    naive, flash vs naive under 3e-2 relative l2."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import backbone
+
+    empty_card(torch, dev, "Phi-3-vision")
+    cfg = dataclasses.replace(get_config("phi_3_vision_4_2b"), attn_impl="flash")
+    check((cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+           cfg.d_ff, cfg.vocab_size, cfg.num_patch_tokens, cfg.dtype)
+          == ("vlm", 32, 3072, 32, 32, 96, 8192, 32064, 576, "bfloat16"),
+          f"not Phi-3-vision's configured shape: {cfg}")
+    naive_cfg = dataclasses.replace(cfg, attn_impl="naive")
+    exact_cfg = dataclasses.replace(naive_cfg, dtype="float32")
+    t0 = time.perf_counter()
+    params = backbone.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated(dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.RandomState(SEED + 23)
+    patches = torch.from_numpy((rng.standard_normal(
+        (PHI_PROMPTS, cfg.num_patch_tokens, cfg.d_model)) * 0.1).astype(np.float32)).to(dev)
+    text = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(PHI_PROMPTS, PHI_TEXT))
+                            ).to(dev).long()
+    s = cfg.num_patch_tokens + PHI_TEXT
+    max_len = s + PHI_STEPS
+    backbone.prefill(cfg, params, text, max_len, patches)        # warm cuBLAS and the kernel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = backbone.prefill(cfg, params, text, max_len, patches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    others = (fa.NAME, fa.DQ_NAME, fa.DKV_NAME, fa.DQ_SM90_NAME, fa.DKV_SM90_NAME)
+    check(counts.get(fa.SM90_NAME) == backbone.flash_launches_per_prefill(cfg) == cfg.num_layers
+          and not any(counts.get(k) for k in others),
+          f"Phi-3-vision prefill: flash launches {counts}, the code predicts {cfg.num_layers} of "
+          f"{fa.SM90_NAME} and no other flash kernel")
+    check(tuple(logits.shape) == (PHI_PROMPTS, s, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"Phi-3-vision prefill logits {logits.shape}")
+    lf = logits.float()
+    tok = torch.argmax(lf[:, -1], dim=-1)
+    decoded = [tok]
+    t0 = time.perf_counter()
+    for _ in range(PHI_STEPS):
+        lg, cache = backbone.decode_step(cfg, params, cache, tok[:, None])
+        check(bool(torch.isfinite(lg).all()), "Phi-3-vision decode logits not finite")
+        tok = torch.argmax(lg[:, -1], dim=-1)
+        decoded.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(cache["pos"].tolist() == [s + PHI_STEPS] * PHI_PROMPTS,
+          f"Phi-3-vision pos after {PHI_STEPS} steps: {cache['pos'].tolist()}")
+    del cache, logits
+    ln = backbone.prefill(naive_cfg, params, text, max_len, patches)[0].float()
+    exact = backbone.Backbone(exact_cfg, dev)
+    with torch.no_grad():
+        for a, b in zip(exact.parameters(), params.parameters(), strict=True):
+            a.copy_(b)
+    del params
+    gc.collect()
+    lx = backbone.prefill(exact_cfg, exact, text, max_len, patches)[0]
+    del exact
+    check(bool(torch.isfinite(ln).all()) and bool(torch.isfinite(lx).all()),
+          "Phi-3-vision naive or f32 prefill logits not finite")
+    rel = {key: rel_l2([(a, b)]) for key, a, b in (("fn", lf, ln), ("fx", lf, lx), ("nx", ln, lx))}
+    first_equal = int((torch.argmax(lf[:, -1], -1) == torch.argmax(lx[:, -1], -1)).sum())
+    del lf, ln, lx
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(rel["fx"] <= 1.1 * rel["nx"], f"Phi-3-vision: flash prefill logits are "
+          f"{rel['fx']:.4g} relative l2 from the f32 model, naive's {rel['nx']:.4g}: flash adds "
+          "error")
+    check(rel["fn"] < 3e-2, f"Phi-3-vision: flash vs naive prefill logits differ by "
+          f"{rel['fn']:.4g} relative l2")
+    out = {"model": cfg.name, "params": n_params, "weights_bytes": weights, "init_s": init_s,
+           "prompts": PHI_PROMPTS, "patches": cfg.num_patch_tokens, "text_tokens": PHI_TEXT,
+           "decode_steps": PHI_STEPS, "prefill_s": prefill_s, "decode_s": decode_s,
+           "prefill_tokens_per_s": PHI_PROMPTS * s / prefill_s,
+           "decode_tokens_per_s": PHI_PROMPTS * PHI_STEPS / decode_s,
+           "peak_memory_bytes": peak, "launches": counts, "flash_vs_naive_rel_l2": rel["fn"],
+           "flash_vs_f32_rel_l2": rel["fx"], "naive_vs_f32_rel_l2": rel["nx"],
+           "first_token_equal_to_f32": first_equal}
+    print(f"[vlm c] {cfg.name} at full width and depth ({n_params / 1e9:.3f} B params, bf16, "
+          f"{weights / 2**30:.2f} GiB of weights, made in {init_s:.1f} s): {PHI_PROMPTS} prompts "
+          f"of {cfg.num_patch_tokens} patches + {PHI_TEXT} tokens prefilled in "
+          f"{prefill_s * 1e3:.1f} ms ({out['prefill_tokens_per_s']:,.0f} tokens/s), {PHI_STEPS} "
+          f"greedy decode steps in {decode_s * 1e3:.1f} ms ({out['decode_tokens_per_s']:.1f} "
+          f"tokens/s), pos {s + PHI_STEPS} on every row; peak memory {peak / 2**30:.2f} GiB; "
+          f"{fa.SM90_NAME} launches {counts.get(fa.SM90_NAME)} a prefill, no other flash kernel; "
+          f"prefill logits flash vs naive rel l2 {rel['fn']:.4g} (< 3e-2), from the f32 model "
+          f"flash {rel['fx']:.4g}, naive {rel['nx']:.4g} (flash <= 1.1x naive); first greedy "
+          f"token equal to f32's on {first_equal} of {PHI_PROMPTS} | {card}", flush=True)
+    return out
+
+
+def moe_vlm_phase(torch, dev, card: str) -> dict:
+    """Phase 23: each of MOE_SERVE at full width and its served layers (the
+    count and the reason printed; peak at most MOE_PEAK_LIMIT), one at a
+    time on a card that holds nothing else, served through ActorServer as
+    phase 21(b) (``serve_full_width``); Mixtral's exactness check past its
+    window (``moe_exactness``), Llama-4's batched-decode rule
+    (``moe_decode_rule``); Phi-3-vision with its patch prefix
+    (``phi_vision``); then the Hopper forward at the new shapes, each held to
+    its plain version first, beside its bound and SDPA with the same mask."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import backbone
+
+    out = {"moe": {}}
+    for arch, layers, shape in MOE_SERVE:
+        empty_card(torch, dev, arch)
+        full = get_config(arch)
+        check((full.num_layers, full.d_model, full.num_heads, full.num_kv_heads, full.hd,
+               full.d_ff, full.vocab_size, full.num_experts, full.experts_per_token,
+               full.num_shared_experts, full.attention, full.window, full.global_layer_period,
+               full.dtype) == (*shape, "bfloat16"), f"not {arch}'s configured shape: {full}")
+        cfg = dataclasses.replace(full, attn_impl="flash", num_layers=layers)
+        print(f"[moe] {cfg.name}: {layers} of {full.num_layers} layers at full width: "
+              f"{MOE_CUT[arch]} | {card}", flush=True)
+        res = {"model": cfg.name, "layers": layers, "of_layers": full.num_layers,
+               "cut": MOE_CUT[arch]}
+        if arch == "mixtral_8x7b":
+            res["exactness"] = moe_exactness(torch, dev, card, cfg)
+            empty_card(torch, dev, f"{arch} at {layers} layers")
+        t0 = time.perf_counter()
+        params = backbone.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        rng = np.random.RandomState(SEED + 23)
+        res["serve"] = serve_full_width(torch, dev, card, cfg, params, rng,
+                                        time.perf_counter() - t0, "moe b")
+        peak = res["serve"]["peak_memory_bytes"]
+        check(peak <= MOE_PEAK_LIMIT, f"{cfg.name} at {layers} layers peaked at "
+              f"{peak / 2**30:.2f} GiB, over {MOE_PEAK_LIMIT / 2**30:.0f}")
+        if arch == "llama4_maverick_400b_a17b":
+            res["decode_rule"] = moe_decode_rule(torch, dev, card, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["moe"][arch] = res
+    out["vlm"] = phi_vision(torch, dev, card)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    out["flash_times"] = {}
+    for what, args in (("Mixtral's exactness prefill", (32, 4608, 128, "sliding", 4096, False)),
+                       ("Llama-4's prefill, a local layer", (40, 512, 128, "chunked", 8192, False)),
+                       ("Llama-4's prefill, the global layer", (40, 512, 128, "chunked", 8192,
+                                                                True)),
+                       ("Phi-3-vision's prefill, one prompt", (32, 640, 96, "full", 0, True))):
+        t = flash_fwd_times(torch, dev, gen, *args, parity=True)
+        out["flash_times"][what] = t
+        print(f"[times] {fa.SM90_NAME} at {what} {t['shape']} ({t['pairs']:,} pairs), against "
+              f"its plain version max |err| {t['max_abs_err']:.3g}: device {t['ms'] * 1e3:.1f} us "
+              f"(plain {t['plain_ms'] * 1e3:.1f} us, SDPA {t['library_ms'] * 1e3:.1f} us, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, call {t['call_ms'] * 1e3:.1f} us)"
+              f" | {card}", flush=True)
+        torch.cuda.empty_cache()
+    print(f"[moe vlm rate] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -3487,6 +3941,11 @@ def main() -> None:
     # 22. the ratio-scheduled token-DQN trainer, its launches counted from 0
     clock("22 (token-DQN trainer)")
     trainer = token_trainer_phase(torch, dev, card)
+    # 23. Mixtral-8x7B and Llama-4 Maverick served at full width, Phi-3-vision
+    # with its patch prefix; the forward's launches counted from 0 over each
+    # one's served requests and over Phi-3-vision's prefill
+    clock("23 (moe and vlm)")
+    moe_vlm = moe_vlm_phase(torch, dev, card)
     for entry in kernels:
         entry["restart_launches"] = restart["launches"].get(entry["name"], 0)
         entry["async_launches"] = async_rate["launches"].get(entry["name"], 0)
@@ -3515,6 +3974,11 @@ def main() -> None:
         if name == fa.SM90_NAME:
             entry["at_big_dense_prefill"] = {r["model"]: r["flash_times"] for r in big.values()}
         entry["token_dqn_trainer_launches"] = trainer["launches"].get(name, 0)
+        entry["moe_vlm_launches"] = {
+            **{r["model"]: r["serve"]["launches"].get(name, 0) for r in moe_vlm["moe"].values()},
+            moe_vlm["vlm"]["model"] + ", one prefill": moe_vlm["vlm"]["launches"].get(name, 0)}
+        if name == fa.SM90_NAME:
+            entry["at_moe_vlm_shapes"] = moe_vlm["flash_times"]
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

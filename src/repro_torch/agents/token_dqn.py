@@ -68,13 +68,19 @@ def _td_loss(cfg: ModelConfig, tcfg: TokenDQNConfig, params: backbone.Backbone,
     """Per-microbatch TD loss → (loss, aux): aux holds the per-sequence
     mean |TD| ``seq_td`` (b,), the mean Q(s, a) ``q_mean``, and the
     per-position ``td`` and ``q_sa`` (b, S), all detached.  mb:
-    tokens/actions/rewards/dones (b, S), is_weights (b,)."""
+    tokens/actions/rewards/dones (b, S), is_weights (b,), optional
+    extra_embeds (b, P, d) (vlm's patches, whose P positions are cut from
+    the logits)."""
     tokens, actions = mb["tokens"].long(), mb["actions"].long()
     rewards, dones, is_w = mb["rewards"], mb["dones"], mb["is_weights"]
-    q = backbone.forward(cfg, params, tokens).float()             # (b, S, V)
+    extra = mb.get("extra_embeds")
+    logits = backbone.forward(cfg, params, tokens, extra)         # (b, P + S, V)
+    off = logits.shape[1] - tokens.shape[1]                       # vlm: patch offset
+    q = logits[:, off:].float()
+    del logits
     q_sa = torch.gather(q, -1, actions[..., None])[..., 0]
     with torch.no_grad():
-        qt = backbone.forward(cfg, target, tokens).float()
+        qt = backbone.forward(cfg, target, tokens, extra)[:, off:].float()
         if tcfg.double_q:   # DDQN: select with online, evaluate with target
             sel = torch.argmax(q, dim=-1)
             v_next_all = torch.gather(qt, -1, sel[..., None])[..., 0]

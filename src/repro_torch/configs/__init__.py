@@ -26,16 +26,14 @@ ARCH_IDS = [
     "phi_3_vision_4_2b",
 ]
 
-PORTED = ("granite_8b", "internlm2_1_8b", "qwen1_5_32b", "command_r_35b")
+PORTED = ("granite_8b", "internlm2_1_8b", "qwen1_5_32b", "command_r_35b",
+          "mixtral_8x7b", "llama4_maverick_400b_a17b", "phi_3_vision_4_2b")
 
 # the ROADMAP Queue 1 item that ports each architecture not ported yet
 NOT_PORTED = {
-    "mixtral_8x7b": "item 11 (moe family)",
-    "llama4_maverick_400b_a17b": "item 11 (moe family)",
     "hymba_1_5b": "item 12 (hybrid family)",
     "xlstm_125m": "item 13 (ssm family)",
     "whisper_medium": "item 14 (audio family)",
-    "phi_3_vision_4_2b": "item 15 (vlm family)",
 }
 
 # accepted aliases (the assignment spells them with dashes/dots)

@@ -1,14 +1,29 @@
-"""Agent-network backbone — port of ``repro.models.backbone``, dense
-family.
+"""Agent-network backbone — port of ``repro.models.backbone``, the dense,
+moe and vlm families.
 
 Paths:
   * ``forward``     — full-sequence (training / prefill) logits
   * ``init_cache`` / ``prefill`` / ``decode_step`` — KV-cached serving
     (the paper's actor ``act()`` at LM scale)
 
-Structure: embed → units[attn → mlp] → norm → unembed, the units an
-``nn.ModuleList``.  The families moe, hybrid, ssm, audio and vlm raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Structure, the units an ``nn.ModuleList`` of ``nn.ModuleDict``s keyed by
+sub-layer kind:
+  dense / vlm      embed(+patches) → units[attn → mlp] → norm → unembed
+  moe (mixtral)    units[attn → moe]
+  moe (llama4)     units[attn → mlp → attn → moe]
+The families hybrid, ssm and audio raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
+
+A Llama-4 unit has two attention sub-layers and ONE set of attention
+weights: the reference's ``_unit_init`` writes ``p[kind]`` for each kind
+of ``("attn", "mlp", "attn", "moe")``, so the second ``"attn"`` replaces
+the first and ``_apply_sub`` reads ``p["attn"]`` for both.  The port
+keeps it so: a unit's ModuleDict holds each kind once, and both
+attention sub-layers read ``unit["attn"]`` (each keeps its own KV cache
+entry).  The moe sub-layers' metrics are discarded, as ``_apply_sub``
+does (``moe.recording()`` reads them).  vlm's ``extra_embeds`` (B, P, d)
+are prepended to the embedded tokens, as the reference's ``forward``
+and ``prefill`` do.
 
 Differences from the reference, each for one card and eager PyTorch:
   * the cache's ``pos`` is a vector, one position per batch row, so each
@@ -17,7 +32,9 @@ Differences from the reference, each for one card and eager PyTorch:
     vmaps a batch of 1 over the slots);
   * ``decode_step`` writes the cache in place and returns it; with
     ``write_mask`` a masked-out row is left exactly as it was, ``pos``
-    included;
+    included.  Its moe layers route with ``drop=False``: each row gets
+    what the reference engine's per-slot call gives it, where a
+    capacity over the batch could drop tokens (``models/moe.py``);
   * ``prefill`` runs the stack once and keeps each attention layer's
     post-RoPE K/V from that pass, where the reference runs ``forward``
     and then ``_capture_kv_states`` (two passes).  The numbers are the
@@ -43,20 +60,22 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
 
 Cache = Dict[str, torch.Tensor]
 
 # the ROADMAP Queue 1 item that ports each family not ported yet
-FAMILY_ITEM = {"moe": "item 11", "hybrid": "item 12", "ssm": "item 13",
-               "audio": "item 14", "vlm": "item 15"}
+FAMILY_ITEM = {"hybrid": "item 12", "ssm": "item 13", "audio": "item 14"}
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to repro_torch "
-            f"yet (ROADMAP Queue 1 {FAMILY_ITEM.get(cfg.family, '?')}); dense only")
+            f"yet (ROADMAP Queue 1 {FAMILY_ITEM.get(cfg.family, '?')}); "
+            f"{', '.join(FAMILIES)} only")
 
 
 # ===========================================================================
@@ -76,7 +95,14 @@ class SubLayer(nn.Module):
 def unit_structure(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
     """(sub-layer kinds per unit, number of units)."""
     _check_family(cfg)
-    return ("attn", "mlp"), cfg.num_layers
+    if cfg.family == "moe":
+        if cfg.moe_layer_period == 1:
+            return ("attn", "moe"), cfg.num_layers
+        if cfg.moe_layer_period != 2:
+            raise ValueError(f"{cfg.name}: moe_layer_period {cfg.moe_layer_period}; the "
+                             "reference builds periods 1 and 2 only")
+        return ("attn", "mlp", "attn", "moe"), cfg.num_layers // 2
+    return ("attn", "mlp"), cfg.num_layers    # dense / vlm
 
 
 def _make_sub(cfg: ModelConfig, kind: str, device) -> SubLayer:
@@ -84,19 +110,23 @@ def _make_sub(cfg: ModelConfig, kind: str, device) -> SubLayer:
         return SubLayer(cfg, L.Attention(cfg, device), device)
     if kind == "mlp":
         return SubLayer(cfg, L.GLU(cfg, device=device), device)
+    if kind == "moe":
+        return SubLayer(cfg, MOE.MoE(cfg, device), device)
     raise ValueError(kind)
 
 
 class Backbone(nn.Module):
     """``embed``, ``units`` (a ModuleList of ModuleDicts keyed by
-    sub-layer kind) and ``final_norm`` — the reference's params tree."""
+    sub-layer kind, each kind once: a Llama-4 unit's two attention
+    sub-layers share ``unit["attn"]``, as in the reference) and
+    ``final_norm`` — the reference's params tree."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         sub, n_units = unit_structure(cfg)
         self.embed = L.Embed(cfg, device)
         self.units = nn.ModuleList(
-            nn.ModuleDict({kind: _make_sub(cfg, kind, device) for kind in sub})
+            nn.ModuleDict({kind: _make_sub(cfg, kind, device) for kind in dict.fromkeys(sub)})
             for _ in range(n_units))
         self.final_norm = L.Norm(cfg, cfg.d_model, device)
 
@@ -105,7 +135,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Backbone
     """Random weights, made on ``device`` (the generator's device) from
     ``gen`` with the reference's distributions: dense weights
     N(0, 1/d_in), the token embedding N(0, 0.02²), norms at scale 1 and
-    bias 0, qkv biases 0."""
+    bias 0, qkv biases 0, the experts as ``moe.MoE.reset_parameters``."""
     device = gen.device if device is None else torch.device(device)
     model = Backbone(cfg, device)
     model.embed.reset_parameters(gen)
@@ -154,6 +184,8 @@ def _unit(cfg: ModelConfig, sub: Tuple[str, ...], unit: nn.ModuleDict,
                 ks.append(k)
                 vs.append(v)
             x = x + y
+        elif kind == "moe":
+            x = x + MOE.moe(cfg, p.w, h)[0]
         else:
             x = x + L.mlp(cfg, p.w, h)
     return x
@@ -176,11 +208,22 @@ def _run_units(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
     return x, ks or [], vs or []
 
 
-def forward(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence logits (B, S, V)."""
+def _embed(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
+           extra_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Embedded tokens, vlm's patch embeddings prepended (B, P + S, d)."""
+    x = L.embed(cfg, params.embed, tokens)
+    if cfg.family == "vlm" and extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def forward(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
+            extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence logits (B, S_total, V); S_total = P + S with vlm's
+    ``extra_embeds`` (B, P, d)."""
     _check_family(cfg)
     freqs = L.rope_freqs(cfg, tokens.device)
-    x = L.embed(cfg, params.embed, tokens)
+    x = _embed(cfg, params, tokens, extra_embeds)
     b, s, _ = x.shape
     x, _, _ = _run_units(cfg, params, x, _positions(b, s, x.device), freqs, False)
     x = L.apply_norm(cfg, params.final_norm, x)
@@ -274,6 +317,8 @@ def decode_step(cfg: ModelConfig, params: Backbone, cache: Cache,
                                      pos, freqs, flag_row[fi], write_mask)
                 fi += 1
                 layer += 1
+            elif kind == "moe":
+                x = x + MOE.moe(cfg, p.w, hdn, drop=False)[0]
             else:
                 x = x + L.mlp(cfg, p.w, hdn)
     step = torch.ones_like(pos) if write_mask is None else write_mask.to(pos.dtype)
@@ -284,14 +329,17 @@ def decode_step(cfg: ModelConfig, params: Backbone, cache: Cache,
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
-            max_len: int) -> Tuple[torch.Tensor, Cache]:
-    """Process full prompts (B, S): logits (B, S, V) and a primed cache
-    with ``pos`` = S on every row."""
+            max_len: int, extra_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Cache]:
+    """Process full prompts (B, S), vlm's ``extra_embeds`` (B, P, d)
+    before them: logits (B, P + S, V) and a primed cache with ``pos`` =
+    P + S on every row."""
     _check_family(cfg)
-    b, s = tokens.shape
+    b = tokens.shape[0]
     freqs = L.rope_freqs(cfg, tokens.device)
     cache = init_cache(cfg, b, max_len, device=tokens.device)
-    x = L.embed(cfg, params.embed, tokens)
+    x = _embed(cfg, params, tokens, extra_embeds)
+    s = x.shape[1]
     x, ks, vs = _capture_kv_states(cfg, params, x, freqs)
     cache["k"][:, :, :s] = ks.to(cache["k"].dtype)
     cache["v"][:, :, :s] = vs.to(cache["v"].dtype)

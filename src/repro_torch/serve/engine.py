@@ -17,9 +17,12 @@ by the slot mask.
 * ``step``   — the decode over all slots, in place: serving holds one
                live KV cache.
 
-Families: dense only in the port (the reference also serves moe, which
-is not ported yet).  Pad-then-rewind needs state that is purely
-position-indexed.
+Families: dense | moe, as the reference's.  Pad-then-rewind needs state
+that is purely position-indexed; vlm prompts carry patch embeddings the
+request queue does not model.  A moe prefill routes its padded bucket in
+one call, the pad after the real tokens, as the reference's; the batched
+decode routes without a capacity, so each slot gets what the
+reference's per-slot call gives it (``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from repro_torch.models import backbone
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.buckets import BucketSpec
 
-SUPPORTED_FAMILIES = ("dense",)
+SUPPORTED_FAMILIES = ("dense", "moe")
 
 
 class DecodeState(NamedTuple):

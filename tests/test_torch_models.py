@@ -4,8 +4,10 @@ against the JAX package's (repro.models), on the CPU.
 Parameters are made by the reference's ``init_params`` and carried
 across with ``interop.backbone_params_from_numpy``; inputs come from a
 seeded numpy generator.  Configs: ``granite_8b``, ``internlm2_1_8b``,
-``qwen1_5_32b`` (qkv biases) and ``command_r_35b`` (layernorm, GQA 2)
-SMOKE (f32), plus variants that switch on what those two leave off —
+``qwen1_5_32b`` (qkv biases), ``command_r_35b`` (layernorm, GQA 2),
+``mixtral_8x7b`` and ``llama4_maverick_400b_a17b`` (moe) and
+``phi_3_vision_4_2b`` (vlm, patch embeddings prepended) SMOKE (f32), plus
+variants that switch on what those two leave off —
 sliding and chunked masks with a global-layer period, qkv biases,
 layernorm, gelu and tied embeddings.  Tolerances: layers atol 1e-5,
 rtol 1e-5; backbone atol 1e-5, rtol 1e-4 (f32 sums taken in another
@@ -128,23 +130,39 @@ def test_mha_matches(impl, variant, is_global):
                                           ("granite_8b", "sliding"),
                                           ("granite_8b", "bias_ln_gelu_tied"),
                                           ("qwen1_5_32b", "granite"),
-                                          ("command_r_35b", "granite")])
+                                          ("command_r_35b", "granite"),
+                                          ("mixtral_8x7b", "granite"),
+                                          ("llama4_maverick_400b_a17b", "granite"),
+                                          ("phi_3_vision_4_2b", "granite")])
 def test_forward_prefill_decode_match(arch, variant):
+    """Mixtral (sliding, window 4) and Llama-4 (chunked, window 4, global
+    every 2nd attention layer) route through their moe layers; Phi-3-vision
+    prepends its patch embeddings (``extra_embeds``, made as
+    tests/test_models.py makes them), and ``pos`` counts them."""
     jcfg, tcfg = configs(arch, variant, window=4)
     params, model = carried(jcfg, tcfg, seed=5)
     rng = np.random.default_rng(6)
-    b, s, max_len = 2, 7, 12
+    b, s = 2, 7
+    n_extra = jcfg.num_patch_tokens if jcfg.family == "vlm" else 0
+    max_len = 12 + n_extra
     tokens = rng.integers(0, jcfg.vocab_size, size=(b, s)).astype(np.int32)
     tt = torch.from_numpy(tokens).long()
+    extra = jextra = None
+    if n_extra:
+        extra = (rng.normal(size=(b, n_extra, jcfg.d_model)) * 0.1).astype(np.float32)
+        jextra = jnp.asarray(extra)
+        extra = torch.from_numpy(extra)
     with torch.no_grad():
-        close(tb.forward(tcfg, model, tt),
-              jb.forward(jcfg, NO_SHARDING, params, jnp.asarray(tokens)), 1e-5, 1e-4)
-    ref_logits, ref_cache = jb.prefill(jcfg, NO_SHARDING, params, jnp.asarray(tokens), max_len)
-    logits, cache = tb.prefill(tcfg, model, tt, max_len)
+        got = tb.forward(tcfg, model, tt, extra)
+        assert got.shape == (b, n_extra + s, jcfg.vocab_size)
+        close(got, jb.forward(jcfg, NO_SHARDING, params, jnp.asarray(tokens), jextra), 1e-5, 1e-4)
+    ref_logits, ref_cache = jb.prefill(jcfg, NO_SHARDING, params, jnp.asarray(tokens), max_len,
+                                       jextra)
+    logits, cache = tb.prefill(tcfg, model, tt, max_len, extra)
     close(logits, ref_logits, 1e-5, 1e-4)
     close(cache["k"], ref_cache["k"], 1e-5, 1e-4)
     close(cache["v"], ref_cache["v"], 1e-5, 1e-4)
-    assert cache["pos"].tolist() == [s] * b == [int(ref_cache["pos"])] * b
+    assert cache["pos"].tolist() == [n_extra + s] * b == [int(ref_cache["pos"])] * b
     for _ in range(3):                       # three decode steps, cache in place
         nxt = rng.integers(0, jcfg.vocab_size, size=(b, 1)).astype(np.int32)
         ref_logits, ref_cache = jb.decode_step(jcfg, NO_SHARDING, params, ref_cache,
@@ -193,14 +211,25 @@ def test_init_params_distributions_and_device():
 
 
 def test_unported_families_and_archs_raise():
-    cfg = dataclasses.replace(get_config("granite_8b", smoke=True), family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        tb.init_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        get_config("hymba_1_5b")
+    """Only the hybrid, ssm and audio families and their archs still raise,
+    each naming its ROADMAP item; the moe and vlm configs are the
+    reference's, field for field."""
+    for family, item in (("hybrid", 12), ("ssm", 13), ("audio", 14)):
+        cfg = dataclasses.replace(get_config("granite_8b", smoke=True), family=family)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+            tb.init_params(cfg, torch.Generator())
+    for arch, item in (("hymba_1_5b", 12), ("xlstm_125m", 13), ("whisper_medium", 14)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+            get_config(arch)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt2")
     ref = jget_config("granite_8b")
     assert dataclasses.asdict(get_config("granite-8b")) == dataclasses.asdict(ref)
     assert dataclasses.asdict(get_config("internlm2_1_8b", smoke=True)) == \
         dataclasses.asdict(jget_config("internlm2_1_8b", smoke=True))
+    for arch in ("mixtral_8x7b", "llama4_maverick_400b_a17b", "phi_3_vision_4_2b"):
+        for smoke in (False, True):
+            assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
+                dataclasses.asdict(jget_config(arch, smoke=smoke)), (arch, smoke)
+        assert tb.unit_structure(get_config(arch)) == jb.unit_structure(jget_config(arch))
+    assert get_config("mixtral-8x7b").name == "mixtral-8x7b"

@@ -10,7 +10,11 @@ the bucket set (the reference's retrace count); one params version per
 decode step; finished slots reused.  The per-slot position vector that
 replaces the reference's vmap is held directly: a batched decode with
 rows at different depths against the reference's batch-of-1 decode of
-each row (atol 1e-5, rtol 1e-4).
+each row (atol 1e-5, rtol 1e-4).  The moe configs serve as the dense
+ones; their batched decode routes without a capacity, so a step where more
+than the capacity's slots pick one expert gives each slot its batch-1
+call's logits (atol 1e-5, rtol 1e-4), where the reference's one call over
+the rows would drop tokens.
 """
 
 import numpy as np
@@ -172,6 +176,18 @@ def test_big_dense_configs_serve_as_reference(arch):
     SMOKE: the scheduler's greedy tokens, admissions and step log equal
     the reference's on the same traffic and weights, and each request
     equals its solo greedy decode."""
+    _serves_as_reference(arch)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "llama4_maverick_400b_a17b"])
+def test_moe_configs_serve_as_reference(arch):
+    """Mixtral-8x7B (top-2, sliding window) and Llama-4 Maverick (top-1 with
+    a shared expert, chunked attention, two attention sub-layers a unit) at
+    SMOKE, as the large dense configs: the reference engine's tokens."""
+    _serves_as_reference(arch)
+
+
+def _serves_as_reference(arch):
     jcfg, tcfg = jget_config(arch, smoke=True), get_config(arch, smoke=True)
     params = jax.device_get(jb.init_params(jcfg, jax.random.PRNGKey(3)))
     model = interop.backbone_params_from_numpy(tcfg, params)
@@ -221,6 +237,70 @@ def test_per_slot_positions_match_vmapped_reference(smoke):
         np.testing.assert_allclose(cache["k"][:, slot, :n].numpy(),
                                    np.asarray(ref_cache["k"][:, 0, :n]), atol=1e-5, rtol=1e-4)
         assert int(cache["pos"][slot]) == n
+
+
+def test_batched_moe_decode_equals_per_slot_calls():
+    """Llama-4 SMOKE at ``capacity_factor=0.01`` (capacity 8) with 16 slots,
+    12 of them on one prompt, so that more than 8 slots pick one expert at
+    a step.  The port's batched decode gives each slot the logits of its
+    own batch-1 call, and the reference's batch-1 call's (the reference
+    engine's vmapped per-slot step); the scheduler's tokens equal the
+    reference engine's.  The reference's decode over the 16 rows in one
+    call drops tokens there and differs: the imbalance is real."""
+    import dataclasses
+
+    from repro_torch.models import moe as tm
+
+    jcfg, tcfg = [dataclasses.replace(c("llama4_maverick_400b_a17b", smoke=True),
+                                      capacity_factor=0.01) for c in (jget_config, get_config)]
+    params = jax.device_get(jb.init_params(jcfg, jax.random.PRNGKey(5)))
+    model = interop.backbone_params_from_numpy(tcfg, params)
+    slots, n, max_len = 16, 6, 16
+    rng = np.random.RandomState(6)
+    same = rng.randint(0, 256, size=n).astype(np.int32)
+    batch = [same] * 12 + [rng.randint(0, 256, size=n).astype(np.int32) for _ in range(4)]
+    eng = DecodeEngine(tcfg, slots=slots, max_len=max_len, buckets=BucketSpec((8,)),
+                       device="cpu")
+    state = eng.init_state()
+    ref_caches = []
+    for slot, prompt in enumerate(batch):
+        tok, slot_cache = eng.prime(model, prompt)
+        state = eng.insert(state, slot, slot_cache, tok)
+        ref_caches.append(jb.prefill(jcfg, NO_SHARDING, params, jnp.asarray(prompt[None]),
+                                     max_len)[1])
+    singles = [{k: v[:, slot:slot + 1].clone() if k in ("k", "v") else v[slot:slot + 1].clone()
+                for k, v in state.cache.items()} for slot in range(slots)]
+    with tm.recording() as rec:
+        logits, _ = tb.decode_step(tcfg, model, state.cache, state.tokens)
+    ids = rec[0]["expert_id"]
+    assert rec[0]["capacity"] == slots and bool(rec[0]["keep"].all())
+    assert int(torch.bincount(ids[:, 0]).max()) >= 12
+    assert tm.dropped_if_capped(tcfg, ids) >= 4
+    for slot in range(slots):
+        one, _ = tb.decode_step(tcfg, model, singles[slot], state.tokens[slot:slot + 1])
+        torch.testing.assert_close(logits[slot], one[0], atol=1e-5, rtol=1e-4)
+        ref_one, _ = jb.decode_step(jcfg, NO_SHARDING, params, ref_caches[slot],
+                                    jnp.asarray(state.tokens[slot:slot + 1].numpy(), jnp.int32))
+        np.testing.assert_allclose(logits[slot].numpy(), np.asarray(ref_one[0]),
+                                   atol=1e-5, rtol=1e-4)
+    # the reference's one call over all 16 rows, capacity 8: tokens dropped
+    ref_batched = jax.tree.map(lambda *x: jnp.concatenate(x, axis=1) if x[0].ndim else x[0],
+                               *ref_caches)
+    ref_logits, _ = jb.decode_step(jcfg, NO_SHARDING, params, ref_batched,
+                                   jnp.asarray(state.tokens.numpy(), jnp.int32))
+    gap = np.abs(np.asarray(ref_logits) - logits.numpy()).max(axis=(1, 2))
+    assert (gap > 1e-3).sum() >= 4, gap
+    # end to end: the scheduler's tokens are the reference engine's
+    runs = {}
+    for name, sched, p in (
+            ("ref", JScheduler(JDecodeEngine(jcfg, slots=slots, max_len=max_len,
+                                             buckets=JBucketSpec((8,)))), params),
+            ("port", Scheduler(DecodeEngine(tcfg, slots=slots, max_len=max_len,
+                                            buckets=BucketSpec((8,)), device="cpu")), model)):
+        for prompt in batch:
+            sched.submit(prompt, 4)
+        runs[name] = {c.rid: c.tokens for c in drain(sched, p)}
+    assert runs["port"] == runs["ref"]
 
 
 def test_slot_mask_freezes_free_slot(smoke):
@@ -338,3 +418,14 @@ def test_serve_actor_entry_point(capsys, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve_actor.main(["--smoke", "--requests", "1"])
+
+
+def test_serve_actor_moe_archs_and_vlm_refused(capsys):
+    """``serve_actor --arch mixtral_8x7b|llama4_maverick_400b_a17b --smoke``
+    serves; the vlm family stays unservable, as in the reference."""
+    for arch in ("mixtral_8x7b", "llama4_maverick_400b_a17b"):
+        assert serve_actor.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests",
+                                 "3", "--slots", "2", "--prompt-len", "5", "--gen", "2"]) == 0
+        assert "served 3 requests × 2 tokens" in capsys.readouterr().out
+    assert serve_actor.main(["--arch", "phi_3_vision_4_2b", "--smoke", "--device", "cpu"]) == 2
+    assert "family 'vlm' is not servable" in capsys.readouterr().err

@@ -109,6 +109,45 @@ def test_train_step_matches_reference(accum, double_q, impl):
                zip(new.params.parameters(), before.params.parameters())) > 1e-5
 
 
+def test_td_loss_with_patch_embeds_matches_reference():
+    """Phi-3-vision SMOKE: ``_td_loss`` with ``extra_embeds`` (vlm's patches,
+    prepended and then cut from the logits at the patch offset) against the
+    reference's: loss, per-sequence |TD|, Q mean and every gradient, the
+    patches' own included (the rules of the module docstring)."""
+    jcfg, cfg = jget_config("phi_3_vision_4_2b", smoke=True), tget_config("phi_3_vision_4_2b",
+                                                                          smoke=True)
+    jt = jdqn.TokenDQNConfig()
+    jstate = jdqn.init_train_state(jcfg, jt, jax.random.PRNGKey(3))
+    jstate = jstate._replace(target=jdqn.init_train_state(jcfg, jt, jax.random.PRNGKey(4)).params)
+    batch = _batch(jcfg, b=2, s=120)
+    batch["extra_embeds"] = (np.random.default_rng(5).normal(
+        size=(2, jcfg.num_patch_tokens, jcfg.d_model)) * 0.1).astype(np.float32)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def loss_fn(params, extra):
+        return jdqn._td_loss(jcfg, jt, params, jstate.target, NO_SHARDING,
+                             dict(jbatch, extra_embeds=extra))
+
+    (jloss, (jseq_td, jq)), (jgrads, jgx) = jax.value_and_grad(
+        loss_fn, argnums=(0, 1), has_aux=True)(jstate.params, jbatch["extra_embeds"])
+    jgrads = jax.device_get(jgrads)
+
+    state = interop.train_state_from_numpy(cfg, jax.device_get(jstate))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tb["extra_embeds"].requires_grad_(True)
+    loss, aux = tdqn._td_loss(cfg, tdqn.TokenDQNConfig(), state.params, state.target, tb)
+    params = list(state.params.parameters())
+    grads = torch.autograd.grad(loss, params + [tb["extra_embeds"]])
+    assert aux["td"].shape == (2, 120)
+    _close(float(loss.detach()), float(jloss), 1e-5, 1e-6, "loss")
+    _close(aux["seq_td"].numpy(), np.asarray(jseq_td), 1e-5, 1e-6, "per-sequence |TD|")
+    _close(float(aux["q_mean"]), float(jq), 1e-5, 1e-6, "q mean")
+    for (name, _), g in zip(state.params.named_parameters(), grads):
+        _close_scaled(g.numpy(), interop.backbone_leaf(jgrads, name), f"grad {name}")
+    _close_scaled(grads[-1].numpy(), np.asarray(jgx), "grad of the patch embeddings")
+    assert float(grads[-1].abs().max()) > 0
+
+
 def test_double_q_and_max_targets_differ():
     """With a target other than the online network, DDQN's loss is not the
     max rule's (at init the two coincide: target = online)."""
