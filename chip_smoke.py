@@ -144,7 +144,7 @@ failure and prints no result):
                 and every state tensor bit for bit; (b) publish interval 4
                 over 12 iterations, the ages [1, 2, 3, 0] x 3 and the acting
                 copy byte-identical between publishes; (c) publish interval
-                4 for 700 iterations at the main path's settings: return
+                4 for 448 iterations at the main path's settings: return
                 above 30, one descent and one gather launch per learner
                 call, no host sync in a step;
  17. actor-critic — DDPG, TD3 and SAC on Pendulum x 8 at the settings of
@@ -171,7 +171,7 @@ failure and prints no result):
                 over gloo: gloo's all_reduce and broadcast on CUDA tensors,
                 pod_data_mesh(2, 1) = data_mesh(2) bit for bit over 40
                 iterations, then phase 4's settings split over 2 shards (4 envs,
-                capacity 10,000 and batch 32 a shard, K=128), 700 iterations:
+                capacity 10,000 and batch 32 a shard, K=128), 448 iterations:
                 return above 30, one descent and one gather launch per learner
                 call on each rank, parameters, target, Adam state and step
                 byte-identical on both ranks, #1 and #2 against their plain
@@ -248,9 +248,9 @@ failure and prints no result):
                 slots; (c) the Hopper forward at the prefill shape (heads,
                 512, 128) bf16 causal beside its bound and SDPA;
  22. token-DQN — `python -m repro_torch.train_token_dqn`'s main at its
-                39.9 M-parameter config (f32, naive attention), --steps 24
-                --update-interval 64 --ckpt-every 12 --backend cuda: the
-                printed schedule (every 2 collects, 1 update), 12 learn events
+                39.9 M-parameter config (f32, naive attention), --steps 16
+                --update-interval 64 --ckpt-every 8 --backend cuda: the
+                printed schedule (every 2 collects, 1 update), 8 learn events
                 with finite losses, the sample and gather kernels once a learn
                 call and the update kernel twice an insert and once a priority
                 write-back; the sample and gather kernels against their plain
@@ -258,7 +258,7 @@ failure and prints no result):
                 eagerly written tree against the plain rebuild of its leaves,
                 and the update kernel against the plain update on one more
                 32-row insert and 8-row write-back from that tree; then a
-                second call that resumes from step 24.
+                second call that resumes from step 16.
  23. moe, vlm — one model at a time on a card that holds nothing else:
                 (a) Mixtral-8x7B at full width and 24 of 32 layers, (b)
                 Llama-4 Maverick at full width and 2 of 24 units (layers 0-3,
@@ -280,6 +280,33 @@ failure and prints no result):
                 at (32, 4608, 128) sliding 4,096, (40, 512, 128) chunked 8,192
                 local and global, and (32, 640, 96), beside its bound and
                 SDPA with the same mask.
+ 24. hybrid, ssm — one model at a time on a card that holds nothing else:
+                (a) Hymba-1.5B at full width and depth, bf16 with flash: 4
+                prompts of 2,048 tokens (past its 1,024 window, 16 SSM chunks)
+                prefilled (32 launches a prefill, no other flash kernel), 16
+                greedy decode steps (pos 2,064); each decode step's logits
+                against one forward over the prompt and the tokens fed (padded
+                to 2,176 past them): relative l2 under 1e-3 with the same
+                weights in f32 (fed the bf16 run's tokens), and in bf16 no
+                farther from the f32 forward than 1.5x the bf16 forward; the
+                prefill logits flash no farther from the f32 model than 1.1x
+                naive bf16 (phase 21's rule; flash vs naive reported, since
+                this family's bf16 arm lies ~6 % from f32, as the
+                reference's does); the first greedy token against f32's, the
+                peak memory, prefill and decode tokens/s;
+                (b) `python -m repro_torch.launch.train --arch hymba_1_5b
+                --attn-impl flash` at full width and depth, 2 steps of 16
+                actors x 128 tokens, replay 8,192 x K=128, batch 8, remat: a
+                finite loss, grad norm and Q mean at every step (the
+                reference's gradient is NaN here: ROADMAP Queue 3 item 13),
+                one #1 and one #2 launch a step, 96 #5 and 32 each of #6 and
+                #7 a step, none of the f32 kernels; (c) xLSTM-125M trained so
+                at 64-token segments (#1 and #2 only) and served as (a) at 4
+                prompts of 256 tokens, its bf16 prefill logits within 0.25
+                relative l2 of the f32 model (no flash arm); (d) #5 held to
+                its plain version and timed at Hymba's prefill (100, 2048, 64)
+                local and global and its training shape (200, 128, 64), and
+                #6 and #7 there, beside their bounds, plain times and SDPA.
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration.
@@ -1593,8 +1620,8 @@ LEARN_RTOL, LEARN_ATOL = 1e-4, 1e-5
 PENDULUM_ITERS = 300
 # 16(c) and 18(b): the return passes 30 by iteration 256 on both paths and
 # stays above 110 from iteration 448 on (their returns a chunk, recorded in
-# the rate lines)
-ASYNC_ITERS = 700
+# the rate lines); 700 until the hybrid and ssm phase (24) needed the time
+ASYNC_ITERS = 448
 
 
 def differing(torch, a: dict, b: dict) -> list:
@@ -1872,7 +1899,7 @@ def actor_critic_phase(torch, dev, card: str, iterations: int = PENDULUM_ITERS) 
 
 # -- phase 18: the sharded runtime, its shards as ranks on the one card -----------
 
-SHARDED_ITERS = 700        # 18(b): see ASYNC_ITERS
+SHARDED_ITERS = 448        # 18(b): see ASYNC_ITERS
 POD_ITERS = 128            # 18(c): each of the 2×2 runs
 
 
@@ -3086,15 +3113,15 @@ def big_dense_phase(torch, dev, card: str) -> dict:
 
 # -- phase 22: the ratio-scheduled token-DQN trainer ----------------------------
 
-TRAINER_ARGS = ["--update-interval", "64", "--ckpt-every", "12", "--backend", "cuda"]
-TRAINER_STEPS = 24
+TRAINER_ARGS = ["--update-interval", "64", "--ckpt-every", "8", "--backend", "cuda"]
+TRAINER_STEPS = 16      # 24 (--ckpt-every 12) until the hybrid and ssm phase (24)
 
 
 def token_trainer_phase(torch, dev, card: str) -> dict:
     """Phase 22: ``python -m repro_torch.train_token_dqn``'s main at its
     39.9 M-parameter config (f32, 32 actors x 64 tokens, replay 4,096 x
-    K=128, batch 8), 24 collects at update interval 64: the printed
-    schedule (every 2 collects, 1 update), 12 learn events with finite
+    K=128, batch 8), 16 collects at update interval 64: the printed
+    schedule (every 2 collects, 1 update), 8 learn events with finite
     losses, the sample and gather kernels once a learn call, the update
     kernel twice an insert and once a priority write-back; the three
     kernels against their plain versions on the run's own tree and rows;
@@ -3120,7 +3147,7 @@ def token_trainer_phase(torch, dev, card: str) -> dict:
         check("ratio schedule: learn every 2 collect(s), 1 update(s) per event (64 segments per "
               "update)" in printed.getvalue() and (res["schedule"].period, res["schedule"].learns)
               == (2, 1), f"the trainer's schedule: {res['schedule']}")
-        check(len(learns) == 12 and all(math.isfinite(e[k]) for e in learns
+        check(len(learns) == TRAINER_STEPS // 2 and all(math.isfinite(e[k]) for e in learns
                                         for k in ("loss", "grad_norm", "q_mean")),
               f"{len(learns)} learn events, losses {[e['loss'] for e in learns]}")
         want = {"sumtree_sample": len(learns), "gather": len(learns),
@@ -3128,7 +3155,8 @@ def token_trainer_phase(torch, dev, card: str) -> dict:
         check(all(counts.get(k) == v for k, v in want.items())
               and not counts.get("sample_gather"), f"the trainer launched {counts}, the code "
               f"predicts {want} (two update launches an eager insert, one a write-back)")
-        check(res["checkpoints"] == [12, 24], f"checkpoints {res['checkpoints']}")
+        check(res["checkpoints"] == [TRAINER_STEPS // 2, TRAINER_STEPS],
+              f"checkpoints {res['checkpoints']}")
         # the kernels against their plain versions at the trainer's shapes:
         # the sample and gather on its tree and 64-token rows; the tree its
         # eager writes left against the plain rebuild of the same leaves;
@@ -3526,6 +3554,369 @@ def moe_vlm_phase(torch, dev, card: str) -> dict:
               f" | {card}", flush=True)
         torch.cuda.empty_cache()
     print(f"[moe vlm rate] {json.dumps(out)}", flush=True)
+    return out
+
+
+# -- phase 24: the hybrid and ssm families at full width -----------------------------
+
+# its published shape: family, layers, d_model, heads, KV heads, hd, d_ff, vocab, attention,
+# window, global layers, SSM state, dtype
+HYMBA_SHAPE = ("hybrid", 32, 1600, 25, 5, 64, 5504, 32001, "sliding", 1024, (0, 15, 31), 16,
+               "bfloat16")
+# family, blocks, d_model, heads, vocab, sLSTM blocks, tied embeddings, dtype
+XLSTM_SHAPE = ("ssm", 12, 768, 4, 50304, (1, 7), True, "bfloat16")
+RECURRENT_PROMPTS = {"hymba_1_5b": (4, 2048), "xlstm_125m": (4, 256)}   # 24(a), 24(c)
+RECURRENT_STEPS = 16
+# 24(a), 24(c): decode step t's logits against the forward's over the prompt and the t
+# tokens fed, relative l2 over every prompt and step: in f32 at most DECODE_F32_BOUND; in
+# bf16 the decode no farther from the f32 forward than DECODE_BF16_RATIO x the bf16
+# forward is.  These families' bf16 arm lies far from its f32 arm in the reference too
+# (tests/test_torch_models.py::test_bf16_rounding_as_the_references), so the bf16 rules
+# are relative (phase 21's flash <= 1.1x naive for Hymba); xLSTM, which has no flash arm,
+# holds its bf16 prefill logits within XLSTM_BF16_BOUND of the f32 model's
+DECODE_F32_BOUND = 1e-3
+DECODE_BF16_RATIO = 1.5
+XLSTM_BF16_BOUND = 0.25
+# 24(b), 24(c): 16 actors, batch 8; segments of 128 tokens (Hymba's, the shortest its
+# flash path takes) and 64 (xLSTM's), since a collect is that many host-bound forwards:
+# at 256 tokens one took 26-36 s for Hymba and 8-15 s for xLSTM, whose Python-loop train
+# step took 7.8 s; the script has to end inside 1,200 s
+RECURRENT_SEQ = {"hymba_1_5b": 128, "xlstm_125m": 64}
+RECURRENT_TRAIN = ["--batch", "8", "--n-envs", "16", "--steps", "2", "--ckpt-every", "0"]
+
+
+def decode_against_forward(torch, backbone, cfg, params, prompts, dev, feed=None) -> dict:
+    """Prefill ``prompts`` (B, S), decode RECURRENT_STEPS steps (greedy, or
+    the tokens ``feed`` (B, steps), so that two models run the same
+    sequences), and hold each step's logits against ``forward`` over the
+    prompt and the tokens fed so far (one forward over the prompt, the fed tokens and a
+    filler up to a multiple of 128, which a causal model's earlier positions
+    do not see, so that the SSM's chunk rule holds).  → {"prefill_logits",
+    "decode_logits" (B, steps, V) and the forward's "forward_logits" at the
+    same positions (all f32), "fed" tokens (B, steps), "decode_rel_l2",
+    "prefill_s", "decode_s", "pos", "forward_tokens"}."""
+    b, s = prompts.shape
+    steps = RECURRENT_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = backbone.prefill(cfg, params, prompts, s + steps)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    lp = logits.float()
+    del logits
+    tok = torch.argmax(lp[:, -1], dim=-1) if feed is None else feed[:, 0]
+    fed, dec = [], []
+    t0 = time.perf_counter()
+    for t in range(steps):
+        fed.append(tok)
+        lg, cache = backbone.decode_step(cfg, params, cache, tok[:, None])
+        dec.append(lg[:, 0].float())
+        tok = (torch.argmax(lg[:, 0], dim=-1) if feed is None
+               else feed[:, min(t + 1, steps - 1)])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    pos = cache["pos"].tolist()
+    del cache
+    fed = torch.stack(fed, dim=1)
+    total = s + steps
+    if cfg.family == "hybrid" and total > 128:
+        total = -(-total // 128) * 128
+    seq = torch.cat([prompts, fed, torch.zeros((b, total - s - steps), dtype=prompts.dtype,
+                                               device=dev)], dim=1)
+    with torch.no_grad():
+        lf = backbone.forward(cfg, params, seq)[:, s:s + steps].float()
+    dec = torch.stack(dec, dim=1)
+    check(bool(torch.isfinite(dec).all()) and bool(torch.isfinite(lf).all())
+          and bool(torch.isfinite(lp).all()), f"{cfg.name} {cfg.dtype}: logits not finite")
+    return {"prefill_logits": lp, "decode_logits": dec, "forward_logits": lf, "fed": fed,
+            "decode_rel_l2": rel_l2([(dec, lf)]), "prefill_s": prefill_s,
+            "decode_s": decode_s, "pos": pos, "forward_tokens": total}
+
+
+def f32_copy(torch, backbone, cfg, params, dev):
+    """The same weights in f32, naive attention."""
+    exact_cfg = dataclasses.replace(cfg, attn_impl="naive", dtype="float32")
+    exact = backbone.Backbone(exact_cfg, dev)
+    with torch.no_grad():
+        for a, b in zip(exact.parameters(), params.parameters(), strict=True):
+            a.copy_(b)
+    return exact_cfg, exact
+
+
+def recurrent_serve(torch, dev, card: str, arch: str) -> dict:
+    """24(a) and 24(c): ``arch`` at full width and depth in bf16 (Hymba with
+    flash), RECURRENT_PROMPTS prompts prefilled and RECURRENT_STEPS greedy
+    decode steps: the flash launches the code predicts a prefill and no other
+    flash kernel, ``pos`` after the steps, decode against forward in f32
+    (DECODE_F32_BOUND) and in bf16 (DECODE_BF16_RATIO); Hymba's prefill
+    logits under phase 21's rule (flash no farther from the f32 model than
+    1.1x naive bf16; flash vs naive reported), xLSTM's bf16 logits within
+    XLSTM_BF16_BOUND of f32; the first greedy token against f32's, the peak
+    memory, prefill and decode tokens/s."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import backbone
+
+    empty_card(torch, dev, arch)
+    cfg = get_config(arch)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
+        shape = (cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                 cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.attention, cfg.window,
+                 cfg.global_layers, cfg.ssm_state, cfg.dtype)
+        check(shape == HYMBA_SHAPE, f"not Hymba-1.5B's configured shape: {cfg}")
+    else:
+        shape = (cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.vocab_size,
+                 cfg.slstm_at, cfg.tie_embeddings, cfg.dtype)
+        check(shape == XLSTM_SHAPE, f"not xLSTM-125M's configured shape: {cfg}")
+    n, s = RECURRENT_PROMPTS[arch]
+    t0 = time.perf_counter()
+    params = backbone.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated(dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.RandomState(SEED + 24)
+    prompts = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(n, s))).to(dev).long()
+    backbone.prefill(cfg, params, prompts, s)              # warm cuBLAS and the kernel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    backbone.prefill(cfg, params, prompts, s)
+    counts = dict(ops.launch_counts)
+    per_prefill = backbone.flash_launches_per_prefill(cfg)
+    others = (fa.NAME, fa.DQ_NAME, fa.DKV_NAME, fa.DQ_SM90_NAME, fa.DKV_SM90_NAME)
+    check(counts.get(fa.SM90_NAME, 0) == per_prefill
+          == (cfg.num_layers if cfg.family == "hybrid" else 0)
+          and not any(counts.get(k) for k in others),
+          f"{cfg.name} prefill: flash launches {counts}, the code predicts {per_prefill} of "
+          f"{fa.SM90_NAME} and no other flash kernel")
+    run = decode_against_forward(torch, backbone, cfg, params, prompts, dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(run["pos"] == [s + RECURRENT_STEPS] * n, f"{cfg.name} pos after the steps: "
+          f"{run['pos']}")
+    lf = run.pop("prefill_logits")
+    ln = None
+    if cfg.family == "hybrid":
+        ln = backbone.prefill(dataclasses.replace(cfg, attn_impl="naive"), params, prompts,
+                              s)[0].float()
+    exact_cfg, exact = f32_copy(torch, backbone, cfg, params, dev)
+    del params
+    gc.collect()
+    xrun = decode_against_forward(torch, backbone, exact_cfg, exact, prompts, dev, run["fed"])
+    del exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    lx = xrun.pop("prefill_logits")
+    check(xrun["decode_rel_l2"] <= DECODE_F32_BOUND, f"{cfg.name} f32: decode logits "
+          f"{xrun['decode_rel_l2']:.4g} relative l2 from the forward's (bound "
+          f"{DECODE_F32_BOUND})")
+    # bf16: the decode and the forward each against the f32 forward
+    dec_x = rel_l2([(run.pop("decode_logits"), xrun["forward_logits"])])
+    fwd_x = rel_l2([(run.pop("forward_logits"), xrun.pop("forward_logits"))])
+    del xrun["decode_logits"]
+    check(dec_x <= DECODE_BF16_RATIO * fwd_x, f"{cfg.name} bf16: decode logits {dec_x:.4g} "
+          f"relative l2 from the f32 forward's, the bf16 forward's {fwd_x:.4g}: decode adds "
+          f"error (bound {DECODE_BF16_RATIO}x)")
+    first_equal = int((torch.argmax(lf[:, -1], -1) == torch.argmax(lx[:, -1], -1)).sum())
+    out = {"model": cfg.name, "params": n_params, "weights_bytes": weights, "init_s": init_s,
+           "prompts": n, "prompt_tokens": s, "decode_steps": RECURRENT_STEPS,
+           "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+           "prefill_tokens_per_s": n * s / run["prefill_s"],
+           "decode_tokens_per_s": n * RECURRENT_STEPS / run["decode_s"],
+           "peak_memory_bytes": peak, "launches": counts, "launches_per_prefill": per_prefill,
+           "decode_vs_forward_rel_l2": run["decode_rel_l2"],
+           "decode_vs_forward_rel_l2_f32": xrun["decode_rel_l2"],
+           "decode_vs_f32_forward_rel_l2": dec_x, "forward_vs_f32_forward_rel_l2": fwd_x,
+           "forward_tokens": run["forward_tokens"], "first_token_equal_to_f32": first_equal}
+    if ln is not None:
+        rel = {key: rel_l2([(a, b)]) for key, a, b in (("fn", lf, ln), ("fx", lf, lx),
+                                                       ("nx", ln, lx))}
+        check(rel["fx"] <= 1.1 * rel["nx"], f"{cfg.name}: flash prefill logits are "
+              f"{rel['fx']:.4g} relative l2 from the f32 model, naive's {rel['nx']:.4g}: flash "
+              "adds error")
+        out.update(flash_vs_naive_rel_l2=rel["fn"], flash_vs_f32_rel_l2=rel["fx"],
+                   naive_vs_f32_rel_l2=rel["nx"])
+        exact_note = (f"prefill logits from the f32 model flash {rel['fx']:.4g}, naive "
+                      f"{rel['nx']:.4g} (flash <= 1.1x naive), flash vs naive {rel['fn']:.4g}")
+    else:
+        bf = rel_l2([(lf, lx)])
+        check(bf <= XLSTM_BF16_BOUND, f"{cfg.name}: bf16 prefill logits are {bf:.4g} relative "
+              f"l2 from the f32 model (bound {XLSTM_BF16_BOUND})")
+        out["bf16_vs_f32_rel_l2"] = bf
+        exact_note = (f"prefill logits bf16 vs f32 rel l2 {bf:.4g} (bound "
+                      f"{XLSTM_BF16_BOUND})")
+    del lf, ln, lx
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{'hybrid a' if cfg.family == 'hybrid' else 'ssm c'}] {cfg.name} at full width and "
+          f"depth ({n_params / 1e9:.3f} B params, bf16, {weights / 2**30:.2f} GiB of weights, "
+          f"made in {init_s:.1f} s): {n} prompts of {s} tokens prefilled in "
+          f"{run['prefill_s'] * 1e3:.1f} ms ({out['prefill_tokens_per_s']:,.0f} tokens/s), "
+          f"{RECURRENT_STEPS} greedy decode steps in {run['decode_s'] * 1e3:.1f} ms "
+          f"({out['decode_tokens_per_s']:.1f} tokens/s), pos {s + RECURRENT_STEPS}; peak memory "
+          f"{peak / 2**30:.2f} GiB; {fa.SM90_NAME} launches {counts.get(fa.SM90_NAME, 0)} a "
+          f"prefill, no other flash kernel; decode vs forward over {run['forward_tokens']} "
+          f"tokens rel l2 {xrun['decode_rel_l2']:.4g} f32 (bound {DECODE_F32_BOUND}), "
+          f"{run['decode_rel_l2']:.4g} bf16; from the f32 forward bf16 decode {dec_x:.4g}, bf16 "
+          f"forward {fwd_x:.4g} (decode <= {DECODE_BF16_RATIO}x forward); {exact_note}; "
+          f"first greedy token equal to f32's on {first_equal} of {n} | {card}", flush=True)
+    return out
+
+
+def recurrent_train(torch, dev, card: str, arch: str) -> dict:
+    """24(b) and 24(c): ``python -m repro_torch.launch.train`` at full width
+    and depth for RECURRENT_TRAIN's 2 steps (16 actors x RECURRENT_SEQ
+    tokens, replay 8,192 x K=128, batch 8, remat; Hymba with flash): a finite loss, grad
+    norm (so finite gradients) and Q mean at every step, finite parameters,
+    and the launches the code predicts: one descent (#1) and one gather (#2)
+    a step, and for Hymba three flash forwards (online, target, the remat's
+    recompute) and one dQ and one dK/dV a layer a step, none of the f32
+    kernels; none for xLSTM."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    empty_card(torch, dev, f"{arch} training")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_recurrent_")
+    seq = RECURRENT_SEQ[arch]
+    argv = ["--arch", arch, "--seq", str(seq), *RECURRENT_TRAIN, "--ckpt-dir", ckpt,
+            "--seed", str(SEED)]
+    if arch == "hymba_1_5b":
+        argv += ["--attn-impl", "flash"]
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = train.main(argv)
+        counts = dict(ops.launch_counts)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    cfg, hist, state = res["cfg"], res["history"], res["state"]
+    steps = len(hist)
+    layers = cfg.num_layers if cfg.family == "hybrid" else 0
+    want = {"sumtree_sample": steps, "gather": steps, fa.SM90_NAME: 3 * layers * steps,
+            fa.DQ_SM90_NAME: layers * steps, fa.DKV_SM90_NAME: layers * steps,
+            fa.NAME: 0, fa.DQ_NAME: 0, fa.DKV_NAME: 0, "sample_gather": 0, "sumtree_update": 0}
+    check(steps == 2 and all(counts.get(k, 0) == v for k, v in want.items()),
+          f"{cfg.name} training: {steps} steps, launches {counts}, the code predicts {want}")
+    check(all(math.isfinite(h[k]) for h in hist for k in ("loss", "grad_norm", "q_mean")),
+          f"{cfg.name} training: a non-finite loss, grad norm or Q mean: {hist}")
+    check(all(bool(torch.isfinite(p).all()) for p in state.params.parameters()),
+          f"{cfg.name} training: non-finite parameters after the steps")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    out = {"model": cfg.name, "params": n_params, "steps": steps, "seq": seq,
+           "collect_s": [h["collect_s"] for h in hist], "train_s": [h["train_s"] for h in hist],
+           "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
+           "peak_memory_bytes": res["peak_memory_bytes"] or 0, "launches": counts,
+           "seconds": res["seconds"], "flash_layers": layers}
+    del res, state
+    print(f"[{'hybrid b' if cfg.family == 'hybrid' else 'ssm c'}] launch.train --arch {arch} at "
+          f"full width and depth ({n_params / 1e9:.3f} B params, bf16{', flash' if layers else ''}"
+          f", remat), 16 actors x {seq} tokens, batch 8: {steps} steps, collect "
+          f"{', '.join(f'{x:.2f}' for x in out['collect_s'])} s, train step "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in out['train_s'])} ms; losses "
+          f"{out['loss']}, grad norms {out['grad_norm']} (finite); launches {counts} as predicted; "
+          f"peak memory {out['peak_memory_bytes'] / 2**30:.2f} GiB | {card}", flush=True)
+    return out
+
+
+def flash_bwd_times(torch, dev, gen, n: int, s: int, hd: int, attention: str, window: int,
+                    is_global: bool) -> dict:
+    """The Hopper dQ and dK/dV kernels at (n, s, hd) bf16, causal, under
+    ``attention``'s mask, first held to the plain backward in f32 on the same
+    inputs (``parity.flash_bwd_check``), then timed beside their bounds
+    (phase 14's: 3 and 4 products of 2·hd flops a reachable pair), their
+    plain versions and one SDPA backward call (causal: the mask reaches the
+    causal pairs only when the window does not bite, which the caller
+    picks)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import parity as par
+
+    q, k, v, do = [(torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+                   for _ in range(4)]
+    mask_args = (attention, window, True, is_global)
+    pos = torch.arange(s, device=dev)
+    pairs = int(fa.attention_mask(pos, pos, *mask_args).sum())
+    check(pairs == s * (s + 1) // 2, f"flash_bwd_times at ({n}, {s}, {hd}): the mask must be "
+          "the causal one for SDPA's causal backward to compute the same function")
+    o, lse = fa.flash_attention_cuda(q, k, v, *mask_args)
+    delta = fa.flash_delta(o, do)
+    args = (q, k, v, do, lse, delta, *mask_args)
+    got = (fa.flash_attention_dq_sm90_cuda(*args), *fa.flash_attention_dkv_sm90_cuda(*args))
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                       do.float(), *mask_args)
+    torch.cuda.synchronize()
+    rep = par.flash_bwd_check(*got, *ref)
+    shape = f"({n}, {s}, {hd}) bf16 causal, {attention} {window}"
+    check(rep.ok, f"the Hopper backward pair at {shape}: {rep}")
+    del got, ref
+    backend, lib = sdpa_backward(torch, q[None], k[None], v[None], do[None])
+    lib_ms = device_ms(torch, lib)
+    reads = 4 * n * s * hd * 2 + 2 * n * s * 4
+    out = {}
+    for name, kern, plain, grads, work, nout in (
+            (fa.DQ_SM90_NAME, fa.flash_attention_dq_sm90_cuda, fa.flash_attention_dq_plain,
+             ("dq",), 3, 1),
+            (fa.DKV_SM90_NAME, fa.flash_attention_dkv_sm90_cuda, fa.flash_attention_dkv_plain,
+             ("dk", "dv"), 4, 2)):
+        b_ms, b_by = bound(reads + nout * n * s * hd * 2, work * 2 * hd * pairs, BF16_OPS_PER_S)
+        t = {"shape": shape, "ms": device_ms(torch, lambda: kern(*args)),
+             "plain_ms": device_ms(torch, lambda: plain(*args)), "library_ms": lib_ms,
+             "library": f"one SDPA {backend} backward call (dQ, dK and dV together)",
+             "bound_ms": b_ms, "bound_by": b_by, "call_ms": call_ms(torch, lambda: kern(*args)),
+             "max_abs_err": max(rep.per[g][0] for g in grads),
+             "bf16_max_ulps_beyond_atol": max(rep.per[g][1] for g in grads)}
+        check(all(math.isfinite(t[x]) for x in ("ms", "plain_ms", "library_ms")),
+              f"timing of {name} at {shape} is not finite")
+        out[name] = t
+    return out
+
+
+def hybrid_ssm_phase(torch, dev, card: str) -> dict:
+    """Phase 24: (a) Hymba-1.5B served at full width and depth
+    (``recurrent_serve``), (b) trained by ``launch.train`` for 2 steps
+    (``recurrent_train``), (c) xLSTM-125M trained and served the same way,
+    each alone on the card; then (d) the Hopper forward at Hymba's prefill
+    shape (100, 2048, 64), local (sliding 1,024) and global, and the forward
+    and the backward pair at its training shape (200, 128, 64) local, each
+    held to its plain version first, beside its bound, plain time and SDPA."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {"hymba_serve": recurrent_serve(torch, dev, card, "hymba_1_5b"),
+           "hymba_train": recurrent_train(torch, dev, card, "hymba_1_5b"),
+           "xlstm_train": recurrent_train(torch, dev, card, "xlstm_125m"),
+           "xlstm_serve": recurrent_serve(torch, dev, card, "xlstm_125m")}
+    empty_card(torch, dev, "the hd-64 kernel times")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    out["flash_times"] = {}
+    for what, args in (("Hymba's prefill, a local layer", (100, 2048, 64, "sliding", 1024, False)),
+                       ("Hymba's prefill, a global layer", (100, 2048, 64, "sliding", 1024, True)),
+                       ("Hymba's training, a local layer", (200, 128, 64, "sliding", 1024, False))):
+        t = flash_fwd_times(torch, dev, gen, *args, parity=True)
+        out["flash_times"][what] = t
+        print(f"[times] {fa.SM90_NAME} at {what} {t['shape']} ({t['pairs']:,} pairs), against "
+              f"its plain version max |err| {t['max_abs_err']:.3g}: device {t['ms'] * 1e3:.1f} us "
+              f"(plain {t['plain_ms'] * 1e3:.1f} us, SDPA {t['library_ms'] * 1e3:.1f} us, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, call {t['call_ms'] * 1e3:.1f} us)"
+              f" | {card}", flush=True)
+        torch.cuda.empty_cache()
+    out["bwd_times"] = flash_bwd_times(torch, dev, gen, 200, 128, 64, "sliding", 1024, False)
+    for name, t in out["bwd_times"].items():
+        print(f"[times] {name} at Hymba's training, a local layer {t['shape']}, against the plain "
+              f"backward max |err| {t['max_abs_err']:.3g}: device {t['ms'] * 1e3:.1f} us (plain "
+              f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} us by "
+              f"{t['bound_by']}, call {t['call_ms'] * 1e3:.1f} us); {t['library']} "
+              f"{t['library_ms'] * 1e3:.1f} us | {card}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"[hybrid ssm rate] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -3946,6 +4337,11 @@ def main() -> None:
     # one's served requests and over Phi-3-vision's prefill
     clock("23 (moe and vlm)")
     moe_vlm = moe_vlm_phase(torch, dev, card)
+    # 24. Hymba-1.5B and xLSTM-125M at full width and depth, each alone on the
+    # card: the forward's launches counted from 0 over Hymba's prefill, and
+    # every kernel's over each training run
+    clock("24 (hybrid and ssm)")
+    recurrent = hybrid_ssm_phase(torch, dev, card)
     for entry in kernels:
         entry["restart_launches"] = restart["launches"].get(entry["name"], 0)
         entry["async_launches"] = async_rate["launches"].get(entry["name"], 0)
@@ -3979,6 +4375,15 @@ def main() -> None:
             moe_vlm["vlm"]["model"] + ", one prefill": moe_vlm["vlm"]["launches"].get(name, 0)}
         if name == fa.SM90_NAME:
             entry["at_moe_vlm_shapes"] = moe_vlm["flash_times"]
+        entry["hybrid_ssm_launches"] = {
+            "Hymba-1.5B, one prefill": recurrent["hymba_serve"]["launches"].get(name, 0),
+            "Hymba-1.5B, 2 train steps": recurrent["hymba_train"]["launches"].get(name, 0),
+            "xLSTM-125M, 2 train steps": recurrent["xlstm_train"]["launches"].get(name, 0),
+            "xLSTM-125M, one prefill": recurrent["xlstm_serve"]["launches"].get(name, 0)}
+        if name == fa.SM90_NAME:
+            entry["at_hybrid_shapes"] = recurrent["flash_times"]
+        if name in recurrent["bwd_times"]:
+            entry["at_hybrid_train_shape"] = recurrent["bwd_times"][name]
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

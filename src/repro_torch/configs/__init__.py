@@ -27,12 +27,11 @@ ARCH_IDS = [
 ]
 
 PORTED = ("granite_8b", "internlm2_1_8b", "qwen1_5_32b", "command_r_35b",
-          "mixtral_8x7b", "llama4_maverick_400b_a17b", "phi_3_vision_4_2b")
+          "mixtral_8x7b", "llama4_maverick_400b_a17b", "phi_3_vision_4_2b",
+          "hymba_1_5b", "xlstm_125m")
 
 # the ROADMAP Queue 1 item that ports each architecture not ported yet
 NOT_PORTED = {
-    "hymba_1_5b": "item 12 (hybrid family)",
-    "xlstm_125m": "item 13 (ssm family)",
     "whisper_medium": "item 14 (audio family)",
 }
 

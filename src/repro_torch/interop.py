@@ -127,22 +127,24 @@ def env_state_from_numpy(state, device="cpu") -> EnvState:
 def backbone_leaf(tree, name: str) -> np.ndarray:
     """The reference's array for the port's ``Backbone`` parameter
     ``name`` (``embed.tok``, ``units.3.attn.w.wq``, ``units.1.moe.w.router``,
-    ``units.1.moe.w.shared.w_up``, ``final_norm.scale`` …) in the port's
-    layout: ``units`` un-stacked, dense weights (the shared expert's
-    included) and the output projection transposed to (out, in); the
-    router (d, E) and the expert stacks (E, d, f) / (E, f, d) as the
-    reference keeps them.  A unit's duplicate kinds (Llama-4's two
-    ``attn``) are one entry in both trees.  ``tree`` is a params tree or
-    an Adam moment tree of the same structure."""
+    ``units.1.moe.w.shared.w_up``, ``units.0.hybrid.ssm.w_x``,
+    ``blocks.1.slstm.rz``, ``final_norm.scale`` …) in the port's layout:
+    ``units`` un-stacked, dense weights (the shared expert's, a hybrid
+    layer's attention and SSM, an xLSTM block's included) and the output
+    projection transposed to (out, in); the router (d, E), the expert
+    stacks (E, d, f) / (E, f, d) and the sLSTM's recurrent (H, hd, hd) as
+    the reference keeps them.  A unit's duplicate kinds (Llama-4's two
+    ``attn``) are one entry in both trees; the xLSTM ``blocks`` are a
+    list in the reference.  ``tree`` is a params tree or an Adam moment
+    tree of the same structure."""
     parts = name.split(".")
-    if parts[0] == "units":
+    if parts[0] in ("units", "blocks"):
         i, path = int(parts[1]), parts[2:]
-        x = tree["units"]
+        x = tree["units"] if parts[0] == "units" else tree["blocks"][i]
         for key in path:
             x = x[key]
-        x = np.asarray(x)[i]
-        dense = path[1] == "w" and x.ndim == 2 and path[-1] != "router"
-        return x.T if dense else x
+        x = np.asarray(x)[i] if parts[0] == "units" else np.asarray(x)
+        return x.T if x.ndim == 2 and path[-1] != "router" else x
     x = np.asarray(tree[parts[0]][parts[1]])
     return x.T if name == "embed.out" else x
 

@@ -1,9 +1,9 @@
 """Agent-network backbone — port of ``repro.models.backbone``, the dense,
-moe and vlm families.
+moe, vlm, hybrid and ssm families.
 
 Paths:
   * ``forward``     — full-sequence (training / prefill) logits
-  * ``init_cache`` / ``prefill`` / ``decode_step`` — KV-cached serving
+  * ``init_cache`` / ``prefill`` / ``decode_step`` — KV/state-cached serving
     (the paper's actor ``act()`` at LM scale)
 
 Structure, the units an ``nn.ModuleList`` of ``nn.ModuleDict``s keyed by
@@ -11,8 +11,12 @@ sub-layer kind:
   dense / vlm      embed(+patches) → units[attn → mlp] → norm → unembed
   moe (mixtral)    units[attn → moe]
   moe (llama4)     units[attn → mlp → attn → moe]
-The families hybrid, ssm and audio raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+  hybrid (hymba)   units[(attn ∥ mamba) → mlp]   (parallel heads, averaged)
+  ssm (xlstm)      blocks[norm → mLSTM | sLSTM → mlp] (sLSTM at cfg.slstm_at)
+The audio family raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.  A hybrid unit's cache holds its attention's K/V and its
+SSM state (``"ssm"``, (n_units, B, H, N, P) f32); an ssm model's cache
+holds each block's recurrent state (``"blocks"``, as the reference's).
 
 A Llama-4 unit has two attention sub-layers and ONE set of attention
 weights: the reference's ``_unit_init`` writes ``p[kind]`` for each kind
@@ -47,27 +51,33 @@ Differences from the reference, each for one card and eager PyTorch:
     kernel included.  So a training forward and backward launches the
     flash forward twice per attention layer and the dQ and dK/dV kernels
     once.  No-grad calls (the collect, the target network, ``prefill``
-    and ``decode_step``) run the units as they are.
+    and ``decode_step``) run the units as they are.  The xLSTM blocks are
+    not units: the reference runs them unrolled without a checkpoint, and
+    so does the port;
+  * a decode step's ``write_mask`` holds back a row's recurrent state (the
+    hybrid SSM state, the xLSTM block states) as it holds back its KV entry.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig
 
-Cache = Dict[str, torch.Tensor]
+Cache = Dict[str, Any]
 
 # the ROADMAP Queue 1 item that ports each family not ported yet
-FAMILY_ITEM = {"hybrid": "item 12", "ssm": "item 13", "audio": "item 14"}
-FAMILIES = ("dense", "moe", "vlm")
+FAMILY_ITEM = {"audio": "item 14"}
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -91,10 +101,36 @@ class SubLayer(nn.Module):
         self.norm = L.Norm(cfg, cfg.d_model, device)
         self.w = w
 
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.w.reset_parameters(gen)
+
+
+class HybridSub(nn.Module):
+    """Hymba's ``hybrid`` sub-layer, the reference's tree: ``norm``, the
+    attention ``attn`` (no ``w`` level), the SSM ``ssm`` and the norms of
+    their outputs, ``norm_attn`` and ``norm_ssm``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.norm = L.Norm(cfg, cfg.d_model, device)
+        self.attn = L.Attention(cfg, device)
+        self.ssm = M.Mamba(cfg, device)
+        self.norm_attn = L.Norm(cfg, cfg.d_model, device)
+        self.norm_ssm = L.Norm(cfg, cfg.d_model, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.attn.reset_parameters(gen)
+        self.ssm.reset_parameters(gen)
+
 
 def unit_structure(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
-    """(sub-layer kinds per unit, number of units)."""
+    """(sub-layer kinds per unit, number of units); an ssm model has no
+    units (its layers are ``Backbone.blocks``)."""
     _check_family(cfg)
+    if cfg.family == "ssm":
+        return (), 0
+    if cfg.family == "hybrid":
+        return ("hybrid", "mlp"), cfg.num_layers
     if cfg.family == "moe":
         if cfg.moe_layer_period == 1:
             return ("attn", "moe"), cfg.num_layers
@@ -112,22 +148,47 @@ def _make_sub(cfg: ModelConfig, kind: str, device) -> SubLayer:
         return SubLayer(cfg, L.GLU(cfg, device=device), device)
     if kind == "moe":
         return SubLayer(cfg, MOE.MoE(cfg, device), device)
+    if kind == "hybrid":
+        return HybridSub(cfg, device)
     raise ValueError(kind)
+
+
+def _make_block(cfg: ModelConfig, i: int, device) -> nn.ModuleDict:
+    """xLSTM block ``i``: ``norm``, an ``slstm`` (at ``cfg.slstm_at``) or an
+    ``mlstm``, and an ``mlp`` sub-layer of width (4·d)//3 or 2·d."""
+    d = cfg.d_model
+    if i in cfg.slstm_at:
+        kind, cell, d_ff = "slstm", X.SLSTM(cfg, device), (d * 4) // 3
+    else:
+        kind, cell, d_ff = "mlstm", X.MLSTM(cfg, device), d * 2
+    return nn.ModuleDict({"norm": L.Norm(cfg, d, device), kind: cell,
+                          "mlp": SubLayer(cfg, L.GLU(cfg, d_ff=d_ff, device=device), device)})
+
+
+def _block_kind(block: nn.ModuleDict) -> str:
+    return "slstm" if "slstm" in block else "mlstm"
 
 
 class Backbone(nn.Module):
     """``embed``, ``units`` (a ModuleList of ModuleDicts keyed by
     sub-layer kind, each kind once: a Llama-4 unit's two attention
-    sub-layers share ``unit["attn"]``, as in the reference) and
-    ``final_norm`` — the reference's params tree."""
+    sub-layers share ``unit["attn"]``, as in the reference) or, for the
+    ssm family, ``blocks`` (a ModuleList of ModuleDicts ``norm``,
+    ``mlstm``|``slstm``, ``mlp``), and ``final_norm`` — the reference's
+    params tree."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         sub, n_units = unit_structure(cfg)
         self.embed = L.Embed(cfg, device)
-        self.units = nn.ModuleList(
-            nn.ModuleDict({kind: _make_sub(cfg, kind, device) for kind in dict.fromkeys(sub)})
-            for _ in range(n_units))
+        if cfg.family == "ssm":
+            self.blocks = nn.ModuleList(_make_block(cfg, i, device)
+                                        for i in range(cfg.num_layers))
+        else:
+            self.units = nn.ModuleList(
+                nn.ModuleDict({kind: _make_sub(cfg, kind, device)
+                               for kind in dict.fromkeys(sub)})
+                for _ in range(n_units))
         self.final_norm = L.Norm(cfg, cfg.d_model, device)
 
 
@@ -135,13 +196,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Backbone
     """Random weights, made on ``device`` (the generator's device) from
     ``gen`` with the reference's distributions: dense weights
     N(0, 1/d_in), the token embedding N(0, 0.02²), norms at scale 1 and
-    bias 0, qkv biases 0, the experts as ``moe.MoE.reset_parameters``."""
+    bias 0, qkv biases 0, the experts as ``moe.MoE.reset_parameters``,
+    the SSM's A_log 0 and the sLSTM's recurrent matrices N(0, 1/hd)."""
     device = gen.device if device is None else torch.device(device)
     model = Backbone(cfg, device)
     model.embed.reset_parameters(gen)
-    for unit in model.units:
-        for s in unit.values():
-            s.w.reset_parameters(gen)
+    for layer in (model.blocks if cfg.family == "ssm" else model.units):
+        for s in layer.values():
+            if not isinstance(s, L.Norm):
+                s.reset_parameters(gen)
     return model
 
 
@@ -169,20 +232,26 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def _unit(cfg: ModelConfig, sub: Tuple[str, ...], unit: nn.ModuleDict,
           flag_row: List[bool], x: torch.Tensor, positions: torch.Tensor,
-          freqs: torch.Tensor, ks: Optional[list] = None,
-          vs: Optional[list] = None) -> torch.Tensor:
-    """One unit's sub-layers; each attention layer's K and V appended to
-    ``ks`` and ``vs`` when given."""
+          freqs: torch.Tensor, cap: Optional[Dict[str, list]] = None) -> torch.Tensor:
+    """One unit's sub-layers; with ``cap`` each attention layer's K and V
+    are appended to ``cap["k"]`` and ``cap["v"]``, and each hybrid
+    layer's final SSM state to ``cap["ssm"]``."""
     fi = 0
     for kind in sub:
         p = unit[kind]
         h = L.apply_norm(cfg, p.norm, x)
-        if kind == "attn":
-            y, k, v = L.mha_kv(cfg, p.w, h, positions, freqs, flag_row[fi])
+        if kind in ("attn", "hybrid"):
+            y, k, v = L.mha_kv(cfg, p.w if kind == "attn" else p.attn, h, positions, freqs,
+                               flag_row[fi])
             fi += 1
-            if ks is not None:
-                ks.append(k)
-                vs.append(v)
+            if cap is not None:
+                cap["k"].append(k)
+                cap["v"].append(v)
+            if kind == "hybrid":    # Hymba: parallel attention + mamba heads, averaged
+                s, st = M.mamba_scan(cfg, p.ssm, h, return_state=True)
+                if cap is not None:
+                    cap["ssm"].append(st)
+                y = 0.5 * (L.apply_norm(cfg, p.norm_attn, y) + L.apply_norm(cfg, p.norm_ssm, s))
             x = x + y
         elif kind == "moe":
             x = x + MOE.moe(cfg, p.w, h)[0]
@@ -192,20 +261,43 @@ def _unit(cfg: ModelConfig, sub: Tuple[str, ...], unit: nn.ModuleDict,
 
 
 def _run_units(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
-               positions: torch.Tensor, freqs: torch.Tensor, capture: bool):
-    """The unit stack; with ``capture`` also each attention layer's K/V.
-    With ``cfg.remat`` and grad enabled each unit is checkpointed."""
+               positions: torch.Tensor, freqs: torch.Tensor,
+               cap: Optional[Dict[str, list]] = None) -> torch.Tensor:
+    """The unit stack; with ``cap`` also what ``_unit`` captures.  With
+    ``cfg.remat`` and grad enabled each unit is checkpointed."""
     sub, n_units = unit_structure(cfg)
     flags = _global_flags(cfg, n_units, sub)
-    ks, vs = ([], []) if capture else (None, None)
-    remat = cfg.remat and torch.is_grad_enabled() and not capture
+    remat = cfg.remat and torch.is_grad_enabled() and cap is None
     for unit, flag_row in zip(params.units, flags):
         if remat:
             x = checkpoint(_unit, cfg, sub, unit, flag_row, x, positions, freqs,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _unit(cfg, sub, unit, flag_row, x, positions, freqs, ks, vs)
-    return x, ks or [], vs or []
+            x = _unit(cfg, sub, unit, flag_row, x, positions, freqs, cap)
+    return x
+
+
+def _run_blocks(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
+                states: Optional[list] = None) -> torch.Tensor:
+    """The xLSTM blocks (the reference's ``_xlstm_forward``).  With
+    ``states`` each block's final recurrent state is appended as
+    ``{kind: state}`` and every mLSTM block takes the exact scan, as the
+    reference's ``prefill``; without, ``cfg.mlstm_chunked`` picks the
+    chunkwise mLSTM."""
+    for block in params.blocks:
+        kind = _block_kind(block)
+        h = L.apply_norm(cfg, block["norm"], x)
+        if kind == "mlstm" and cfg.mlstm_chunked and states is None:
+            y = X.mlstm_forward_chunked(cfg, block[kind], h)
+        else:
+            fwd = X.slstm_forward if kind == "slstm" else X.mlstm_forward
+            y, st = fwd(cfg, block[kind], h, return_state=True)
+            if states is not None:
+                states.append({kind: st})
+        x = x + y
+        mlp = block["mlp"]
+        x = x + L.mlp(cfg, mlp.w, L.apply_norm(cfg, mlp.norm, x))
+    return x
 
 
 def _embed(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
@@ -222,38 +314,58 @@ def forward(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
     """Full-sequence logits (B, S_total, V); S_total = P + S with vlm's
     ``extra_embeds`` (B, P, d)."""
     _check_family(cfg)
-    freqs = L.rope_freqs(cfg, tokens.device)
     x = _embed(cfg, params, tokens, extra_embeds)
-    b, s, _ = x.shape
-    x, _, _ = _run_units(cfg, params, x, _positions(b, s, x.device), freqs, False)
+    if cfg.family == "ssm":
+        x = _run_blocks(cfg, params, x)
+    else:
+        b, s, _ = x.shape
+        x = _run_units(cfg, params, x, _positions(b, s, x.device),
+                       L.rope_freqs(cfg, tokens.device))
     x = L.apply_norm(cfg, params.final_norm, x)
     return L.unembed(cfg, params.embed, x)
 
 
 def _capture_kv_states(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
                        freqs: torch.Tensor):
-    """One pass of the stack over embeddings ``x`` → (final hidden state,
-    K and V of every attention layer, each stacked (n_attn, B, S, KV, hd))."""
+    """One pass of the unit stack over embeddings ``x`` → (final hidden
+    state, K and V of every attention layer, each stacked (n_attn, B, S,
+    KV, hd), and for the hybrid family each unit's final SSM state stacked
+    (n_units, B, H, N, P), else None)."""
     b, s, _ = x.shape
-    x, ks, vs = _run_units(cfg, params, x, _positions(b, s, x.device), freqs, True)
-    return x, torch.stack(ks), torch.stack(vs)
+    cap = {"k": [], "v": [], "ssm": []}
+    x = _run_units(cfg, params, x, _positions(b, s, x.device), freqs, cap)
+    ssm = torch.stack(cap["ssm"]) if cap["ssm"] else None
+    return x, torch.stack(cap["k"]), torch.stack(cap["v"]), ssm
 
 
 # ===========================================================================
-# Serving: KV caches, prefill, decode_step (the paper's actor act())
+# Serving: KV/state caches, prefill, decode_step (the paper's actor act())
 # ===========================================================================
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> Cache:
-    """{"pos": (batch,) int64, "k"/"v": (n_attn, batch, max_len, KV, hd)}."""
+    """{"pos": (batch,) int64, "k"/"v": (n_attn, batch, max_len, KV, hd)};
+    a hybrid model's also "ssm" (n_units, batch, H, N, P) f32; an ssm
+    model's "pos" and "blocks", one {"mlstm" | "slstm": state} a block."""
     sub, n_units = unit_structure(cfg)
+    cache: Cache = {"pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
+    if cfg.family == "ssm":
+        cache["blocks"] = [{"slstm": X.slstm_decode_init(cfg, batch, device)}
+                           if i in cfg.slstm_at else
+                           {"mlstm": X.mlstm_decode_init(cfg, batch, device)}
+                           for i in range(cfg.num_layers)]
+        return cache
     n_attn = n_units * sum(1 for k in sub if k in ("attn", "hybrid"))
     dt = dtype or L.param_dtype(cfg)
     shape = (n_attn, batch, max_len, cfg.num_kv_heads, cfg.hd)
-    return {"pos": torch.zeros((batch,), dtype=torch.int64, device=device),
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    cache["k"] = torch.zeros(shape, dtype=dt, device=device)
+    cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    if cfg.family == "hybrid":
+        h, pd = M.mamba_heads(cfg)
+        cache["ssm"] = torch.zeros((n_units, batch, h, cfg.ssm_state, pd),
+                                   dtype=torch.float32, device=device)
+    return cache
 
 
 def _decode_mask(cfg: ModelConfig, k_pos: torch.Tensor, pos: torch.Tensor,
@@ -294,33 +406,69 @@ def _attn_decode(cfg: ModelConfig, p: L.Attention, x: torch.Tensor,
     return torch.nn.functional.linear(out, p.wo)
 
 
+def _write_state(old: torch.Tensor, new: torch.Tensor,
+                 write_mask: Optional[torch.Tensor]) -> None:
+    """``old`` (B, ...) ← ``new`` in place, on the rows of ``write_mask``
+    only (every row without one)."""
+    if write_mask is not None:
+        new = torch.where(write_mask.reshape(-1, *(1,) * (new.dim() - 1)), new, old)
+    old.copy_(new)
+
+
+def _decode_blocks(cfg: ModelConfig, params: Backbone, cache: Cache, x: torch.Tensor,
+                   write_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The xLSTM blocks' decode step, each block's state updated in place."""
+    for block, state in zip(params.blocks, cache["blocks"]):
+        kind = _block_kind(block)
+        h = L.apply_norm(cfg, block["norm"], x)
+        step = X.slstm_decode_step if kind == "slstm" else X.mlstm_decode_step
+        y, new = step(cfg, block[kind], h, state[kind])
+        for old_t, new_t in zip(state[kind], new):
+            _write_state(old_t, new_t, write_mask)
+        x = x + y
+        mlp = block["mlp"]
+        x = x + L.mlp(cfg, mlp.w, L.apply_norm(cfg, mlp.norm, x))
+    return x
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Backbone, cache: Cache,
                 tokens: torch.Tensor, write_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One autoregressive step: logits (B, 1, V) for the next token, and
     the cache, updated in place (``pos`` advanced by one on every row, or
-    on the rows of ``write_mask`` only)."""
+    on the rows of ``write_mask`` only; the other rows' K/V entries and
+    recurrent states stay as they were)."""
     sub, n_units = unit_structure(cfg)
-    flags = _global_flags(cfg, n_units, sub)
-    freqs = L.rope_freqs(cfg, tokens.device)
     pos = cache["pos"]
     x = L.embed(cfg, params.embed, tokens)
-    layer = 0
-    for unit, flag_row in zip(params.units, flags):
-        fi = 0
-        for kind in sub:
-            p = unit[kind]
-            hdn = L.apply_norm(cfg, p.norm, x)
-            if kind == "attn":
-                x = x + _attn_decode(cfg, p.w, hdn, cache["k"][layer], cache["v"][layer],
-                                     pos, freqs, flag_row[fi], write_mask)
-                fi += 1
-                layer += 1
-            elif kind == "moe":
-                x = x + MOE.moe(cfg, p.w, hdn, drop=False)[0]
-            else:
-                x = x + L.mlp(cfg, p.w, hdn)
+    if cfg.family == "ssm":
+        x = _decode_blocks(cfg, params, cache, x, write_mask)
+    else:
+        flags = _global_flags(cfg, n_units, sub)
+        freqs = L.rope_freqs(cfg, tokens.device)
+        layer = 0
+        for u, (unit, flag_row) in enumerate(zip(params.units, flags)):
+            fi = 0
+            for kind in sub:
+                p = unit[kind]
+                hdn = L.apply_norm(cfg, p.norm, x)
+                if kind in ("attn", "hybrid"):
+                    y = _attn_decode(cfg, p.w if kind == "attn" else p.attn, hdn,
+                                     cache["k"][layer], cache["v"][layer], pos, freqs,
+                                     flag_row[fi], write_mask)
+                    fi += 1
+                    layer += 1
+                    if kind == "hybrid":
+                        ys, new_ssm = M.mamba_decode_step(cfg, p.ssm, hdn, cache["ssm"][u])
+                        _write_state(cache["ssm"][u], new_ssm, write_mask)
+                        y = 0.5 * (L.apply_norm(cfg, p.norm_attn, y)
+                                   + L.apply_norm(cfg, p.norm_ssm, ys))
+                    x = x + y
+                elif kind == "moe":
+                    x = x + MOE.moe(cfg, p.w, hdn, drop=False)[0]
+                else:
+                    x = x + L.mlp(cfg, p.w, hdn)
     step = torch.ones_like(pos) if write_mask is None else write_mask.to(pos.dtype)
     cache["pos"] = pos + step
     x = L.apply_norm(cfg, params.final_norm, x)
@@ -333,16 +481,22 @@ def prefill(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, Cache]:
     """Process full prompts (B, S), vlm's ``extra_embeds`` (B, P, d)
     before them: logits (B, P + S, V) and a primed cache with ``pos`` =
-    P + S on every row."""
+    P + S on every row (and each SSM or xLSTM state after the prompt)."""
     _check_family(cfg)
     b = tokens.shape[0]
-    freqs = L.rope_freqs(cfg, tokens.device)
     cache = init_cache(cfg, b, max_len, device=tokens.device)
     x = _embed(cfg, params, tokens, extra_embeds)
     s = x.shape[1]
-    x, ks, vs = _capture_kv_states(cfg, params, x, freqs)
-    cache["k"][:, :, :s] = ks.to(cache["k"].dtype)
-    cache["v"][:, :, :s] = vs.to(cache["v"].dtype)
+    if cfg.family == "ssm":
+        states = []
+        x = _run_blocks(cfg, params, x, states)
+        cache["blocks"] = states
+    else:
+        x, ks, vs, ssm = _capture_kv_states(cfg, params, x, L.rope_freqs(cfg, tokens.device))
+        cache["k"][:, :, :s] = ks.to(cache["k"].dtype)
+        cache["v"][:, :, :s] = vs.to(cache["v"].dtype)
+        if ssm is not None:
+            cache["ssm"].copy_(ssm)
     cache["pos"].fill_(s)
     x = L.apply_norm(cfg, params.final_norm, x)
     return L.unembed(cfg, params.embed, x), cache
@@ -350,7 +504,7 @@ def prefill(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
 
 def flash_launches_per_prefill(cfg: ModelConfig) -> int:
     """Flash-kernel launches of one ``prefill`` with ``attn_impl="flash"``
-    at a length that is a multiple of 128: one per attention layer, one
-    pass."""
+    at a length that is a multiple of 128: one per attention layer (a
+    hybrid layer's included), one pass; none for the ssm family."""
     sub, n_units = unit_structure(cfg)
-    return n_units * sum(1 for k in sub if k == "attn")
+    return n_units * sum(1 for k in sub if k in ("attn", "hybrid"))

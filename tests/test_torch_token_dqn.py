@@ -7,7 +7,11 @@ numpy-seeded inputs.
 256) from one ``TrainState`` carried over by
 ``interop.train_state_from_numpy``, on a (4, 128) batch, for accum 1 and
 2, DDQN and max, naive and flash attention (the reference's Pallas
-kernels in interpret mode, the port's plain version).  Tolerances: the
+kernels in interpret mode, the port's plain version); and at Hymba-1.5B
+SMOKE (hybrid, naive and flash; ``A_log`` set to −1 on both sides, so a
+128-token chunk's decay span stays under f32's exp limit, past which the
+reference's gradient is NaN: ROADMAP Queue 3 item 13) and xLSTM-125M
+SMOKE (ssm).  Tolerances: the
 two sides sum f32 products in different orders, so loss, grad norm, Q
 mean and the per-sequence |TD| are held at rtol 1e-5 (atol 1e-6).  The
 Adam moments carry the gradients, whose entries that cancel in their sums
@@ -79,7 +83,38 @@ def test_train_step_matches_reference(accum, double_q, impl):
                                            {k: jnp.asarray(v) for k, v in batch.items()})
 
     cfg = dataclasses.replace(tget_config("internlm2_1_8b", smoke=True), attn_impl=impl)
-    tcfg = tdqn.TokenDQNConfig(double_q=double_q, accum=accum)
+    check_step(cfg, tdqn.TokenDQNConfig(double_q=double_q, accum=accum), jstate, batch,
+               jnew, jmetrics, jtds)
+
+
+@pytest.mark.parametrize("arch,impl", [("hymba_1_5b", "naive"), ("hymba_1_5b", "flash"),
+                                       ("xlstm_125m", "naive")])
+def test_train_step_matches_reference_hybrid_and_ssm(arch, impl):
+    jcfg = dataclasses.replace(jget_config(arch, smoke=True), attn_impl=impl)
+    tcfg_j = jdqn.TokenDQNConfig()
+    jstate = jdqn.init_train_state(jcfg, tcfg_j, jax.random.PRNGKey(3))
+    target = jdqn.init_train_state(jcfg, tcfg_j, jax.random.PRNGKey(4)).params
+    if jcfg.family == "hybrid":
+        def calm(params):
+            ssm = dict(params["units"]["hybrid"]["ssm"])
+            ssm["A_log"] = jnp.full_like(ssm["A_log"], -1.0)
+            hybrid = dict(params["units"]["hybrid"], ssm=ssm)
+            return dict(params, units=dict(params["units"], hybrid=hybrid))
+
+        jstate, target = jstate._replace(params=calm(jstate.params)), calm(target)
+    jstate = jstate._replace(target=target)
+    batch = _batch(jcfg)
+    jnew, jmetrics, jtds = jdqn.train_step(jcfg, NO_SHARDING, tcfg_j, jstate,
+                                           {k: jnp.asarray(v) for k, v in batch.items()})
+    assert all(np.isfinite(np.asarray(x)).all() for x in jax.tree.leaves(jnew.params))
+    cfg = dataclasses.replace(tget_config(arch, smoke=True), attn_impl=impl)
+    check_step(cfg, tdqn.TokenDQNConfig(), jstate, batch, jnew, jmetrics, jtds)
+
+
+def check_step(cfg, tcfg, jstate, batch, jnew, jmetrics, jtds):
+    """The port's ``train_step`` from the reference's ``jstate`` on ``batch``
+    against the reference's result, under the rules of the module
+    docstring."""
     state = interop.train_state_from_numpy(cfg, jax.device_get(jstate))
     new, metrics, tds = tdqn.train_step(cfg, tcfg, state,
                                         {k: torch.from_numpy(v) for k, v in batch.items()})

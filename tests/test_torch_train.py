@@ -1,7 +1,8 @@
 """The port's training entry point (``python -m repro_torch.launch.train``)
 on the CPU at SMOKE size: it trains through the flash path, checkpoints,
 resumes from its checkpoint, applies a planner's plan, and refuses model
-sharding (``--mesh``), which is not ported.  ``--wall-clock`` is in
+sharding (``--mesh``), which is not ported; it trains the hybrid
+(Hymba, flash) and ssm (xLSTM) families.  ``--wall-clock`` is in
 tests/test_torch_gang.py."""
 
 import pytest
@@ -71,6 +72,27 @@ def test_trains_checkpoints_and_resumes(tmp_path, monkeypatch, capsys):
     assert res2["start"] == 4 and [h["step"] for h in res2["history"]] == [4, 5]
     assert int(res2["state"].step) == 6
     assert CheckpointManager(str(tmp_path)).all_steps() == [4, 6]
+
+
+@pytest.mark.parametrize("arch,flash_layers", [("hymba_1_5b", 2), ("xlstm_125m", 0)])
+def test_trains_the_hybrid_and_ssm_families(arch, flash_layers, tmp_path, monkeypatch):
+    """Three steps at SMOKE from the entry point: finite losses, a moved
+    online network, the final checkpoint; Hymba's attention through the
+    flash path as the code predicts (online, target and the remat's
+    recompute forward, one backward, a layer a step), xLSTM with none."""
+    calls = counting(monkeypatch)
+    res = train.main(["--arch", arch, "--smoke", "--device", "cpu", "--seq", "128",
+                      "--attn-impl", "flash", "--n-envs", "4", "--batch", "4", "--steps", "3",
+                      "--ckpt-dir", str(tmp_path)])
+    assert res["cfg"].family == ("hybrid" if arch == "hymba_1_5b" else "ssm")
+    assert [h["step"] for h in res["history"]] == [0, 1, 2]
+    for h in res["history"]:
+        assert all(torch.isfinite(torch.tensor(h[k])) for k in ("loss", "grad_norm", "q_mean"))
+    assert calls == {"fwd": 3 * flash_layers * 3, "bwd": flash_layers * 3}
+    state = res["state"]
+    assert any(not torch.equal(p.detach(), t) for p, t in
+               zip(state.params.parameters(), state.target.parameters()))
+    assert CheckpointManager(str(tmp_path)).all_steps() == [3]
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "16x16"]])
