@@ -47,7 +47,7 @@ failure and prints no result):
   6. times    — the launch floor (torch.cuda._sleep(0)); each kernel, its
                 plain version and the library call (searchsorted on the
                 leaves' CDF for the descent, index_select for the gather):
-                device time, the median of 60 calls queued back to back
+                device time, the median of 30 calls queued back to back
                 behind a GPU sleep, one CUDA-event pair each (the update
                 kernel, and beside it ops.sumtree_update, the replay's call:
                 wrapper_ms); gather_items over every leaf;
@@ -107,7 +107,7 @@ failure and prints no result):
                 gradients with remat off too, reported against remat on (bit
                 for bit, or the largest difference) and held to the same gate;
  13. train    — `python -m repro_torch.launch.train`'s main at InternLM2-1.8B's
-                full width and depth with remat, flash, --seq 256 --batch 8
+                full width and depth with remat, flash, --seq 128 --batch 8
                 --n-envs 16 --steps 2 --ckpt-every 1: 72 Hopper forward, 24
                 Hopper dQ and 24 Hopper dK/dV launches per train step (none of
                 the f32 forward and backward kernels) and the sample and
@@ -144,13 +144,14 @@ failure and prints no result):
                 and every state tensor bit for bit; (b) publish interval 4
                 over 12 iterations, the ages [1, 2, 3, 0] x 3 and the acting
                 copy byte-identical between publishes; (c) publish interval
-                4 for 448 iterations at the main path's settings: return
+                4 for 384 iterations at the main path's settings: return
                 above 30, one descent and one gather launch per learner
                 call, no host sync in a step;
  17. actor-critic — DDPG, TD3 and SAC on Pendulum x 8 at the settings of
                 benchmarks/fig10_scalability.py (hidden (256, 256), capacity
                 50,000 K=128, batch 64, warmup 64, epsilon 0.1), 300
-                iterations each: finite losses and priorities, actions in
+                iterations each, the three at once, each in a process of its
+                own on this card: finite losses and priorities, actions in
                 [-2, 2], one descent and one gather launch per learner call,
                 no host sync in a step; then the descent, the gathers and
                 the fused kernel against their plain versions on the run's
@@ -171,7 +172,7 @@ failure and prints no result):
                 over gloo: gloo's all_reduce and broadcast on CUDA tensors,
                 pod_data_mesh(2, 1) = data_mesh(2) bit for bit over 40
                 iterations, then phase 4's settings split over 2 shards (4 envs,
-                capacity 10,000 and batch 32 a shard, K=128), 448 iterations:
+                capacity 10,000 and batch 32 a shard, K=128), 384 iterations:
                 return above 30, one descent and one gather launch per learner
                 call on each rank, parameters, target, Adam state and step
                 byte-identical on both ranks, #1 and #2 against their plain
@@ -197,9 +198,9 @@ failure and prints no result):
                 descent (#1) and one gather (#2) a sample and no other kernel,
                 the wall per learn step; (b) 2 shards (10,000 each, round
                 robin) sampled by the fused sample+gather (#3), the learner
-                exiting at 300 learn steps and a fresh one resuming from its
-                checkpoint to 600: two #3 launches a sample and no #1 or #2,
-                RESUMED_FROM 300, the band; (c) in process: ServiceExecutor (1
+                exiting at 200 learn steps and a fresh one resuming from its
+                checkpoint to 400: two #3 launches a sample and no #1 or #2,
+                RESUMED_FROM 200, the band; (c) in process: ServiceExecutor (1
                 shard, RateLimiter.from_schedule) against FusedExecutor for 200
                 iterations at the main path's settings, every state tensor,
                 metric, the tree and the storage bit for bit, one #1 and one #2
@@ -214,7 +215,7 @@ failure and prints no result):
                 Eq. 5 at a budget of 8 lanes and update interval 1 and 4, the
                 planner's plan from those curves built by executor_from_plan on
                 the card at the main path's width (DQN (4, 256, 256, 2), replay
-                20,000 x K=128, batch 64, warmup 64) and run 200 iterations:
+                20,000 x K=128, batch 64, warmup 64) and run 100 iterations:
                 one descent and one gather launch a learner call, no host sync
                 in a step, the realized env-steps/s beside the predicted; then
                 (b), (d) and (e) with their processes started together, and (c)
@@ -248,9 +249,9 @@ failure and prints no result):
                 slots; (c) the Hopper forward at the prefill shape (heads,
                 512, 128) bf16 causal beside its bound and SDPA;
  22. token-DQN — `python -m repro_torch.train_token_dqn`'s main at its
-                39.9 M-parameter config (f32, naive attention), --steps 16
-                --update-interval 64 --ckpt-every 8 --backend cuda: the
-                printed schedule (every 2 collects, 1 update), 8 learn events
+                39.9 M-parameter config (f32, naive attention), --steps 8
+                --update-interval 64 --ckpt-every 4 --backend cuda: the
+                printed schedule (every 2 collects, 1 update), 4 learn events
                 with finite losses, the sample and gather kernels once a learn
                 call and the update kernel twice an insert and once a priority
                 write-back; the sample and gather kernels against their plain
@@ -295,7 +296,7 @@ failure and prints no result):
                 reference's does); the first greedy token against f32's, the
                 peak memory, prefill and decode tokens/s;
                 (b) `python -m repro_torch.launch.train --arch hymba_1_5b
-                --attn-impl flash` at full width and depth, 2 steps of 16
+                --attn-impl flash` at full width and depth, 1 step of 16
                 actors x 128 tokens, replay 8,192 x K=128, batch 8, remat: a
                 finite loss, grad norm and Q mean at every step (the
                 reference's gradient is NaN here: ROADMAP Queue 3 item 13),
@@ -307,6 +308,27 @@ failure and prints no result):
                 its plain version and timed at Hymba's prefill (100, 2048, 64)
                 local and global and its training shape (200, 128, 64), and
                 #6 and #7 there, beside their bounds, plain times and SDPA.
+ 25. audio    — one model at a time on a card that holds nothing else:
+                (a) Whisper-medium at full width and depth (24 + 24 layers, d
+                1,024, 960,865,280 params), bf16 with flash: 4 prompts of 128
+                tokens, each behind 1,500 frames drawn from the seed,
+                prefilled (the encoder and the decoder once; 24 #5 launches
+                a prefill, the decoder's: 1,500 frames and the
+                cross-attention take the naive path) and 16 greedy decode
+                steps, held as 24(a) (f32 decode against forward under 1e-3,
+                the bf16 decode no farther from the f32 forward than 1.5x the
+                bf16 forward, fed the bf16 run's tokens; flash no farther
+                from the f32 model than 1.1x naive); prefill tokens/s and
+                frames/s, decode tokens/s, the peak memory;
+                (b) 2 steps of agents.token_dqn.train_step at full width and
+                depth, 8 rows x 128 tokens behind their frames, remat, flash:
+                finite losses and grad norms, every parameter tensor moved,
+                72 #5, 24 #6 and 24 #7 launches a step and no f32 kernel; (c)
+                #5, #6 and #7 at the encoder's width (64, 1536, 64)
+                non-causal, a ragged (3, 1000, 64) non-causal and the
+                decoder's (128, 128, 64) causal, held to their plain
+                versions, beside their bounds, plain times and SDPA (phases
+                7 and 11 hold the three cases too).
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration.
@@ -342,10 +364,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 SEED = 0
-N_TIMED = 60
+N_TIMED = 30            # 60 until the audio phase (25) needed the time
 GATE_BATCHES = 4
 SERVE_REQUESTS = 8      # phase 8's Granite-8B requests (phase 21 serves the larger models)
 TRAIN_STEPS = 2         # phase 13's steps before the restart's one
+TRAIN_SEQ = 128         # phase 13's segment length (256 until the audio phase (25))
 # (n, s, hd, attention, window, causal, is_global, dtype) of the flash
 # kernels' parity phases (7 and 11): the five mask cases of
 # tests/test_flash_attention.py, hd 16/96/128, a ragged S = 200, bf16
@@ -360,13 +383,19 @@ FLASH_CASES = [
     (32, 128, 128, "full", 0, True, True, "bfloat16"),
     (32, 512, 128, "full", 0, True, True, "bfloat16")]
 # phase 7's further bf16 cases, of the Hopper forward: the serve and train
-# shapes at full size, hd 96 at a ragged S, sliding and chunked at hd 128
+# shapes at full size, hd 96 at a ragged S, sliding and chunked at hd 128;
+# non-causal at Whisper's encoder width (16 heads x 4 rows, 1,536 frames: the
+# multiple of 128 next to its 1,500) and at a ragged S, and Whisper's decoder
+# in a train step (16 heads x 8 rows, 128 tokens) causal
 FLASH_SM90_CASES = [
     (32, 4096, 128, "full", 0, True, True, "bfloat16"),
     (128, 256, 128, "full", 0, True, True, "bfloat16"),
     (3, 1000, 96, "full", 0, True, True, "bfloat16"),
     (4, 512, 128, "sliding", 128, True, False, "bfloat16"),
-    (4, 512, 128, "chunked", 128, True, False, "bfloat16")]
+    (4, 512, 128, "chunked", 128, True, False, "bfloat16"),
+    (64, 1536, 64, "full", 0, False, True, "bfloat16"),
+    (3, 1000, 64, "full", 0, False, True, "bfloat16"),
+    (128, 128, 64, "full", 0, True, True, "bfloat16")]
 
 
 def fail(msg: str) -> None:
@@ -1050,23 +1079,25 @@ def flash_phases(torch, dev, card: str) -> list:
 # -- phases 11-14: the flash backward and the token-DQN training path ----------
 
 
-def sdpa_backward(torch, q4, k4, v4, do4):
-    """One PyTorch call that computes dQ, dK and dV of causal attention (the
-    library yardstick of the dQ + dK/dV pair, never called by the port):
-    the flash backend's backward, or the efficient one if flash refuses."""
+def sdpa_backward(torch, q4, k4, v4, do4, causal: bool = True):
+    """One PyTorch call that computes dQ, dK and dV of causal (or full)
+    attention (the library yardstick of the dQ + dK/dV pair, never called
+    by the port): the flash backend's backward, or the efficient one if
+    flash refuses."""
     aten = torch.ops.aten
     try:
-        out = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, True)
+        out = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, causal)
         o, lse, cq, ck, mq, mk, seed, offset = out[:8]
         call = lambda: aten._scaled_dot_product_flash_attention_backward(  # noqa: E731
-            do4, q4, k4, v4, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+            do4, q4, k4, v4, o, lse, cq, ck, mq, mk, 0.0, causal, seed, offset)
         call()
         return "flash", call
     except RuntimeError:
         o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
-            q4, k4, v4, None, True, 0.0, True)
+            q4, k4, v4, None, True, 0.0, causal)
         return "efficient", lambda: aten._scaled_dot_product_efficient_attention_backward(
-            do4, q4, k4, v4, None, o, lse, seed, offset, 0.0, [True, True, True, False], True)
+            do4, q4, k4, v4, None, o, lse, seed, offset, 0.0, [True, True, True, False],
+            causal)
 
 
 def same_td_grads(torch, on: dict, off: dict) -> dict:
@@ -1266,8 +1297,9 @@ def train_phases(torch, dev, card: str) -> list:
     clock("13 (train)")
     # 13. the training path through its entry point, at full width and depth
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    argv = ["--arch", "internlm2_1_8b", "--attn-impl", "flash", "--seq", "256", "--batch", "8",
-            "--n-envs", "16", "--ckpt-every", "1", "--ckpt-dir", ckpt, "--seed", str(SEED)]
+    argv = ["--arch", "internlm2_1_8b", "--attn-impl", "flash", "--seq", str(TRAIN_SEQ),
+            "--batch", "8", "--n-envs", "16", "--ckpt-every", "1", "--ckpt-dir", ckpt,
+            "--seed", str(SEED)]
     try:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -1355,7 +1387,8 @@ def train_phases(torch, dev, card: str) -> list:
         shutil.rmtree(ckpt, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    rate = {"model": cfg.name, "params": n_params, "steps": steps, "seq": 256, "batch": 8, "n_envs": 16,
+    rate = {"model": cfg.name, "params": n_params, "steps": steps, "seq": TRAIN_SEQ, "batch": 8,
+            "n_envs": 16,
             "collect_s": [h["collect_s"] for h in hist], "train_s": [h["train_s"] for h in hist],
             "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
             "reward": [h["reward"] for h in hist], "optimal_reward": optimal,
@@ -1364,7 +1397,8 @@ def train_phases(torch, dev, card: str) -> list:
             "peak_memory_bytes": peak, "first_call_peak_memory_bytes": train_peak,
             "launches": train_counts, "profile": step_prof, "grad_gate": gate,
             "remat_on_vs_off": remat_check}
-    print(f"[train] {cfg.name} ({n_params / 1e9:.3f} B params) bf16, flash, (8 x 256) batch, 16 "
+    print(f"[train] {cfg.name} ({n_params / 1e9:.3f} B params) bf16, flash, (8 x {TRAIN_SEQ}) "
+          f"batch, 16 "
           f"actors: {steps} steps, collect {statistics.median(rate['collect_s']):.2f} s and train "
           f"step {statistics.median(rate['train_s']) * 1e3:.1f} ms (medians), "
           f"{rate['train_steps_per_s']:.3f} train steps/s of train-step time; launches "
@@ -1618,10 +1652,12 @@ LEARN_RTOL, LEARN_ATOL = 1e-4, 1e-5
 # short enough for the script to stay well inside its time limit (the
 # Pendulum returns are reported, not gated)
 PENDULUM_ITERS = 300
-# 16(c) and 18(b): the return passes 30 by iteration 256 on both paths and
-# stays above 110 from iteration 448 on (their returns a chunk, recorded in
-# the rate lines); 700 until the hybrid and ssm phase (24) needed the time
-ASYNC_ITERS = 448
+AC_AGENTS = ("ddpg", "td3", "sac")
+# 16(c) and 18(b): the return passes 30 by iteration 256 on both paths (their
+# returns a chunk, recorded in the rate lines: 40.4 and 47.6 at 256, 75.0 and
+# 128.2 at 384); 700 until the hybrid and ssm phase (24), 448 until the audio
+# phase (25) needed the time
+ASYNC_ITERS = 384
 
 
 def differing(torch, a: dict, b: dict) -> list:
@@ -1781,8 +1817,8 @@ def copy_state(torch, agent, state, device):
     return fresh
 
 
-def actor_critic_phase(torch, dev, card: str, iterations: int = PENDULUM_ITERS) -> dict:
-    """Phase 17: DDPG, TD3 and SAC on Pendulum at the settings of
+def actor_critic_run(torch, dev, card: str, name: str, iterations: int) -> dict:
+    """Phase 17 for one of DDPG, TD3 and SAC on Pendulum at the settings of
     benchmarks/fig10_scalability.py with 8 envs."""
     from repro_torch.agents import ddpg, sac, td3
     from repro_torch.agents.base import state_tensors
@@ -1794,100 +1830,120 @@ def actor_critic_phase(torch, dev, card: str, iterations: int = PENDULUM_ITERS) 
     from repro_torch.runtime.executors import FusedExecutor
     from repro_torch.runtime.loop import LoopConfig
 
-    makers = {"ddpg": lambda s: ddpg.make_ddpg(s, ddpg.DDPGConfig()),
-              "td3": lambda s: td3.make_td3(s, td3.TD3Config()),
-              "sac": lambda s: sac.make_sac(s, sac.SACConfig())}
+    make = {"ddpg": lambda s: ddpg.make_ddpg(s, ddpg.DDPGConfig()),
+            "td3": lambda s: td3.make_td3(s, td3.TD3Config()),
+            "sac": lambda s: sac.make_sac(s, sac.SACConfig())}[name]
     env_fn = lambda n: make_vec("pendulum", n)  # noqa: E731
     spec, _, _ = env_fn(1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17 + AC_AGENTS.index(name))
+    agent = make(spec)
+    replay = PrioritizedReplay(ReplayConfig(capacity=50_000, fanout=128),
+                               transition_example(spec), device="cuda")
+    cfg = LoopConfig(batch_size=64, warmup=64, epsilon=0.1)
+    # one chunk an iteration: the history keeps every iteration's loss
+    ex = FusedExecutor(agent, replay, env_fn, cfg, n_envs=8, scan_chunk=1)
+    st, hist, secs, counts, calls = counted_run(torch, ex, ex.init(SEED), iterations, name)
+    learner_calls = calls["learner_calls"]
+    check(counts.get("sumtree_sample", 0) == counts.get("gather", 0) == learner_calls > 0
+          and not counts.get("sample_gather") and not counts.get("sumtree_update"),
+          f"{name}: launches {counts} for {learner_calls} learner calls")
+    check(bool(torch.isfinite(hist["loss"]).all()), f"{name}: a non-finite loss")
+    rst = replay.flush(st.replay)
+    check(bool(torch.isfinite(rst.tree).all()) and bool(torch.isfinite(rst.max_priority))
+          and sumtree.check_invariant(replay.spec, rst.tree),
+          f"{name}: the priorities (|TD|) are not finite or the tree is broken")
+    acts = rst.storage["action"][:rst.count]
+    check(acts.shape == (rst.count, 1) and acts.dtype == torch.float32
+          and bool((acts.abs() <= 2.0).all()),
+          f"{name}: stored actions {tuple(acts.shape)} {acts.dtype} outside [-2, 2]")
+    # the replay kernels on the run's own tree and 12/4/4/12/4-byte rows
+    rows = {k: tuple(v.shape[1:]) for k, v in rst.storage.items()}
+    for draws in (64, 65_536):
+        u = torch.rand((draws,), generator=gen, device=dev)
+        ki, kp = ops.sumtree_sample(replay.spec, rst.tree, u)
+        pi, pp = sumtree.sample(replay.spec, rst.tree, u)
+        fi, fp, fused = ops.sumtree_sample_gather(replay.spec, rst.tree, u, rst.storage)
+        items = ops.gather_items(rst.storage, ki)
+        torch.cuda.synchronize()
+        for which, idx in (("sumtree_sample", ki), ("sample_gather", fi)):
+            rep = parity.sample_ties(replay.spec, rst.tree, u, idx, pi)
+            check(rep.ok, f"{name}: {which} on the run's tree, {draws} draws: {rep}")
+        agree = ki == pi
+        torch.testing.assert_close(kp[agree], pp[agree], rtol=1e-5, atol=0)
+        check(torch.equal(fi, ki) and torch.equal(fp, kp),
+              f"{name}: sample_gather's indices differ from the descent's")
+        for key, buf in rst.storage.items():
+            check(same_bytes(torch, ops.prioritized_gather(buf, ki), buf[ki])
+                  and same_bytes(torch, items[key], buf[ki])
+                  and same_bytes(torch, fused[key], buf[ki]),
+                  f"{name}: the run's {key} rows {tuple(buf.shape)} through the gathers")
+    # one learn step on the card against the same step on the CPU
+    _, batch, is_w = replay.sample(rst, gen, cfg.batch_size)
+    cpu_gen = torch.Generator().manual_seed(SEED + 18)
+    noise = {"ddpg": None, "td3": torch.randn((64, 1), generator=cpu_gen),
+             "sac": tuple(torch.randn((64, 1), generator=cpu_gen) for _ in range(2))}[name]
+    results = []            # the card's, then the CPU's
+    for where in (dev, torch.device("cpu")):
+        kw = {} if noise is None else {"noise": (
+            noise.to(where) if name == "td3" else tuple(x.to(where) for x in noise))}
+        s_copy = copy_state(torch, agent, st.agent, where)
+        s_copy, m, td = agent.learn(s_copy, {k: v.to(where) for k, v in batch.items()},
+                                    is_w.to(where), **kw)
+        results.append((s_copy, m, td))
+    (cs, cm, ctd), (hs, hm, htd) = results
+    # every tensor the step writes (params, target, Adam count and moments,
+    # step, SAC's log_alpha and its Adam state); not the generators' states
+    hts = state_tensors(hs)
+    pairs = [("loss", cm["loss"], hm["loss"]), ("|td|", ctd, htd)] + [
+        (k, t, hts[k]) for k, t in state_tensors(cs).items() if t.dtype != torch.uint8]
+    worst = {}
+    for key, a, b in pairs:
+        a, b = a.detach().cpu(), b.detach()
+        far = ~torch.isclose(a, b, rtol=LEARN_RTOL, atol=LEARN_ATOL)
+        worst[key] = (int(far.sum()), float((a - b).abs().max()))
+    bad = {k: v for k, v in worst.items() if v[0]}
+    check(not bad, f"{name}: a learn step on the card differs from the CPU's beyond rtol "
+          f"{LEARN_RTOL} / atol {LEARN_ATOL}: {bad}")
+    final = float(hist["mean_episode_return"][-1])
+    res = {"iterations": iterations, "seconds": secs, "iterations_per_s": iterations / secs,
+           "wall_us_per_iteration": secs / iterations * 1e6,
+           "env_steps_per_s": st.env_steps / secs, "learner_calls": learner_calls,
+           "mean_return": final, "launches": counts, "rows": rows,
+           "card_vs_cpu_tensors": len(pairs),
+           "card_vs_cpu_max_abs": max(v[1] for v in worst.values()),
+           "card_vs_cpu_grad_norm": [float(cm["grad_norm"]), float(hm["grad_norm"])]}
+    print(f"[actor-critic] {name} on Pendulum x 8 (hidden 256, 256), capacity 50,000 K=128, "
+          f"batch 64: {iterations} iterations in {secs:.2f} s ({res['iterations_per_s']:.2f} "
+          f"iterations/s, {res['wall_us_per_iteration']:,.0f} us each), {learner_calls} "
+          f"learner calls, mean return {final:.1f}; launches {counts}; rows {rows}; kernels "
+          f"vs plain on the run's tree and rows hold; one learn step card vs CPU on loss, "
+          f"|TD| and {len(pairs) - 2} state tensors within rtol "
+          f"{LEARN_RTOL} / atol {LEARN_ATOL} (max |diff| {res['card_vs_cpu_max_abs']:.3g}) "
+          f"| {card}", flush=True)
+    return res
+
+
+def _actor_critic_rank(rank: int, card: str, iterations: int) -> dict:
+    """One agent of phase 17 in a rank of its own (``launch/mesh.py::spawn``),
+    TF32 off as ``main`` sets it."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return actor_critic_run(torch, torch.device("cuda", 0), card, AC_AGENTS[rank], iterations)
+
+
+def actor_critic_phase(torch, dev, card: str, iterations: int = PENDULUM_ITERS) -> dict:
+    """Phase 17: DDPG, TD3 and SAC on Pendulum, each in a process of its own
+    on this card, the three at once (their loops are host-bound: one after
+    the other they took 80-122 s); then the sampling chain on Pendulum's
+    five leaves in this process."""
+    from repro_torch.launch import mesh as meshlib
+
+    runs = meshlib.spawn(_actor_critic_rank, len(AC_AGENTS), card, iterations,
+                         backend="gloo", device="cuda:0", timeout_s=600)
+    out = dict(zip(AC_AGENTS, runs))
     gen = torch.Generator(device=dev).manual_seed(SEED + 17)
-    out = {}
-    for name, make in makers.items():
-        agent = make(spec)
-        replay = PrioritizedReplay(ReplayConfig(capacity=50_000, fanout=128),
-                                   transition_example(spec), device="cuda")
-        cfg = LoopConfig(batch_size=64, warmup=64, epsilon=0.1)
-        # one chunk an iteration: the history keeps every iteration's loss
-        ex = FusedExecutor(agent, replay, env_fn, cfg, n_envs=8, scan_chunk=1)
-        st, hist, secs, counts, calls = counted_run(torch, ex, ex.init(SEED), iterations, name)
-        learner_calls = calls["learner_calls"]
-        check(counts.get("sumtree_sample", 0) == counts.get("gather", 0) == learner_calls > 0
-              and not counts.get("sample_gather") and not counts.get("sumtree_update"),
-              f"{name}: launches {counts} for {learner_calls} learner calls")
-        check(bool(torch.isfinite(hist["loss"]).all()), f"{name}: a non-finite loss")
-        rst = replay.flush(st.replay)
-        check(bool(torch.isfinite(rst.tree).all()) and bool(torch.isfinite(rst.max_priority))
-              and sumtree.check_invariant(replay.spec, rst.tree),
-              f"{name}: the priorities (|TD|) are not finite or the tree is broken")
-        acts = rst.storage["action"][:rst.count]
-        check(acts.shape == (rst.count, 1) and acts.dtype == torch.float32
-              and bool((acts.abs() <= 2.0).all()),
-              f"{name}: stored actions {tuple(acts.shape)} {acts.dtype} outside [-2, 2]")
-        # the replay kernels on the run's own tree and 12/4/4/12/4-byte rows
-        rows = {k: tuple(v.shape[1:]) for k, v in rst.storage.items()}
-        for draws in (64, 65_536):
-            u = torch.rand((draws,), generator=gen, device=dev)
-            ki, kp = ops.sumtree_sample(replay.spec, rst.tree, u)
-            pi, pp = sumtree.sample(replay.spec, rst.tree, u)
-            fi, fp, fused = ops.sumtree_sample_gather(replay.spec, rst.tree, u, rst.storage)
-            items = ops.gather_items(rst.storage, ki)
-            torch.cuda.synchronize()
-            for which, idx in (("sumtree_sample", ki), ("sample_gather", fi)):
-                rep = parity.sample_ties(replay.spec, rst.tree, u, idx, pi)
-                check(rep.ok, f"{name}: {which} on the run's tree, {draws} draws: {rep}")
-            agree = ki == pi
-            torch.testing.assert_close(kp[agree], pp[agree], rtol=1e-5, atol=0)
-            check(torch.equal(fi, ki) and torch.equal(fp, kp),
-                  f"{name}: sample_gather's indices differ from the descent's")
-            for key, buf in rst.storage.items():
-                check(same_bytes(torch, ops.prioritized_gather(buf, ki), buf[ki])
-                      and same_bytes(torch, items[key], buf[ki])
-                      and same_bytes(torch, fused[key], buf[ki]),
-                      f"{name}: the run's {key} rows {tuple(buf.shape)} through the gathers")
-        # one learn step on the card against the same step on the CPU
-        _, batch, is_w = replay.sample(rst, gen, cfg.batch_size)
-        cpu_gen = torch.Generator().manual_seed(SEED + 18)
-        noise = {"ddpg": None, "td3": torch.randn((64, 1), generator=cpu_gen),
-                 "sac": tuple(torch.randn((64, 1), generator=cpu_gen) for _ in range(2))}[name]
-        results = []            # the card's, then the CPU's
-        for where in (dev, torch.device("cpu")):
-            kw = {} if noise is None else {"noise": (
-                noise.to(where) if name == "td3" else tuple(x.to(where) for x in noise))}
-            s_copy = copy_state(torch, agent, st.agent, where)
-            s_copy, m, td = agent.learn(s_copy, {k: v.to(where) for k, v in batch.items()},
-                                        is_w.to(where), **kw)
-            results.append((s_copy, m, td))
-        (cs, cm, ctd), (hs, hm, htd) = results
-        # every tensor the step writes (params, target, Adam count and moments,
-        # step, SAC's log_alpha and its Adam state); not the generators' states
-        hts = state_tensors(hs)
-        pairs = [("loss", cm["loss"], hm["loss"]), ("|td|", ctd, htd)] + [
-            (k, t, hts[k]) for k, t in state_tensors(cs).items() if t.dtype != torch.uint8]
-        worst = {}
-        for key, a, b in pairs:
-            a, b = a.detach().cpu(), b.detach()
-            far = ~torch.isclose(a, b, rtol=LEARN_RTOL, atol=LEARN_ATOL)
-            worst[key] = (int(far.sum()), float((a - b).abs().max()))
-        bad = {k: v for k, v in worst.items() if v[0]}
-        check(not bad, f"{name}: a learn step on the card differs from the CPU's beyond rtol "
-              f"{LEARN_RTOL} / atol {LEARN_ATOL}: {bad}")
-        final = float(hist["mean_episode_return"][-1])
-        res = {"iterations": iterations, "seconds": secs, "iterations_per_s": iterations / secs,
-               "wall_us_per_iteration": secs / iterations * 1e6,
-               "env_steps_per_s": st.env_steps / secs, "learner_calls": learner_calls,
-               "mean_return": final, "launches": counts, "rows": rows,
-               "card_vs_cpu_tensors": len(pairs),
-               "card_vs_cpu_max_abs": max(v[1] for v in worst.values()),
-               "card_vs_cpu_grad_norm": [float(cm["grad_norm"]), float(hm["grad_norm"])]}
-        print(f"[actor-critic] {name} on Pendulum x 8 (hidden 256, 256), capacity 50,000 K=128, "
-              f"batch 64: {iterations} iterations in {secs:.2f} s ({res['iterations_per_s']:.2f} "
-              f"iterations/s, {res['wall_us_per_iteration']:,.0f} us each), {learner_calls} "
-              f"learner calls, mean return {final:.1f}; launches {counts}; rows {rows}; kernels "
-              f"vs plain on the run's tree and rows hold; one learn step card vs CPU on loss, "
-              f"|TD| and {len(pairs) - 2} state tensors within rtol "
-              f"{LEARN_RTOL} / atol {LEARN_ATOL} (max |diff| {res['card_vs_cpu_max_abs']:.3g}) "
-              f"| {card}", flush=True)
-        out[name] = res
-        del ex, st, hist, rst, replay, results
     chain = sampling_chain(torch, dev, gen, 50_000, 64,
                            storage=pendulum_storage(torch, dev, gen, 50_000))
     print(f"[sampling chain] Pendulum's 5 leaves (12/4/4/12/4 bytes), 50,000/K=128/B=64: "
@@ -1899,7 +1955,7 @@ def actor_critic_phase(torch, dev, card: str, iterations: int = PENDULUM_ITERS) 
 
 # -- phase 18: the sharded runtime, its shards as ranks on the one card -----------
 
-SHARDED_ITERS = 448        # 18(b): see ASYNC_ITERS
+SHARDED_ITERS = 384        # 18(b): see ASYNC_ITERS
 POD_ITERS = 128            # 18(c): each of the 2×2 runs
 
 
@@ -2266,7 +2322,7 @@ def sharded_phase(torch, dev, card: str) -> dict:
 # -- phase 19: the replay service, its roles as processes on the one card ------
 
 SERVICE_LEARN_STEPS = 1400     # 19(a): the reference's run length, never shortened
-SERVICE_RESTART_STEPS = 600    # 19(b): the 2-shard fused gang, restarted at 300
+SERVICE_RESTART_STEPS = 400    # 19(b): the 2-shard fused gang, restarted at 200 (600 until PR 25)
 SERVICE_EXEC_ITERS = 200       # 19(c): ServiceExecutor against FusedExecutor
 SERVICE_GANG = dict(n_actors=2, samples_per_insert=8.0, batch_size=64, warmup=400,
                     n_envs=8, actor_chunk=8, epsilon=0.2, seed=1, device="cuda")
@@ -2475,7 +2531,7 @@ def service_phase(torch, dev, card: str) -> dict:
 # -- phase 20: the DSE, the planner and the wall-clock gang on the one card ------
 
 DSE_LANES = (1, 2, 4, 8)        # 20(a): the profiled lane counts (fig12_dse's)
-DSE_ITERS = 200                 # 20(a): the plan-built executor's run
+DSE_ITERS = 100                 # 20(a): the plan-built executor's run (200 until PR 25)
 GANG_FUSED_ITERS = 30           # 20(b): tests/test_multiprocess.py's degenerate launch
 GANG_BENCH = ["--mode", "bench", "--n-data", "2", "--n-envs", "8", "--iters", "24",
               "--repeats", "3", "--scan-chunk", "20"]      # 20(c)
@@ -2790,11 +2846,13 @@ def prefill_logits(torch, backbone, cfg, params, prompt, spec, max_len, dev):
 
 
 def flash_fwd_times(torch, dev, gen, n: int, s: int, hd: int = 128, attention: str = "full",
-                    window: int = 0, is_global: bool = True, parity: bool = False) -> dict:
-    """The Hopper forward at (n, s, hd) bf16, causal, under ``attention``'s
-    mask: device, plain and SDPA times beside the bound (phase 10's measure;
-    the bound counts the (query, key) pairs the mask reaches, and SDPA takes
-    the same mask, as ``is_causal`` where it is the causal one).  With
+                    window: int = 0, is_global: bool = True, parity: bool = False,
+                    causal: bool = True) -> dict:
+    """The Hopper forward at (n, s, hd) bf16, causal (or not), under
+    ``attention``'s mask: device, plain and SDPA times beside the bound
+    (phase 10's measure; the bound counts the (query, key) pairs the mask
+    reaches, and SDPA takes the same mask, as ``is_causal`` where it is the
+    causal one and none where every pair is reached).  With
     ``parity`` the kernel is first held to its plain version in f32 on the
     same inputs under ``parity.flash_check``."""
     from repro_torch.kernels import flash_attention as fa
@@ -2804,14 +2862,18 @@ def flash_fwd_times(torch, dev, gen, n: int, s: int, hd: int = 128, attention: s
                for _ in range(3)]
     q4, k4, v4 = q[None], k[None], v[None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    mask_args = (attention, window, True, is_global)
+    mask_args = (attention, window, causal, is_global)
     pos = torch.arange(s, device=dev)
     mask = fa.attention_mask(pos, pos, *mask_args)
     pairs = int(mask.sum())
-    causal = pairs == s * (s + 1) // 2
-    label = ("causal" if causal and attention == "full" else
+    full = pairs == s * s
+    is_causal = pairs == s * (s + 1) // 2
+    label = ("causal" if is_causal and attention == "full" else "non-causal" if full else
              f"causal, {attention} {window}{', global' if is_global else ''}")
-    if causal:
+    if full:
+        def lib():
+            return sdpa(q4, k4, v4)
+    elif is_causal:
         def lib():
             return sdpa(q4, k4, v4, is_causal=True)
     else:
@@ -3113,15 +3175,16 @@ def big_dense_phase(torch, dev, card: str) -> dict:
 
 # -- phase 22: the ratio-scheduled token-DQN trainer ----------------------------
 
-TRAINER_ARGS = ["--update-interval", "64", "--ckpt-every", "8", "--backend", "cuda"]
-TRAINER_STEPS = 16      # 24 (--ckpt-every 12) until the hybrid and ssm phase (24)
+TRAINER_ARGS = ["--update-interval", "64", "--ckpt-every", "4", "--backend", "cuda"]
+# 24 (--ckpt-every 12) until the hybrid and ssm phase (24), 16 (8) until the audio phase (25)
+TRAINER_STEPS = 8
 
 
 def token_trainer_phase(torch, dev, card: str) -> dict:
     """Phase 22: ``python -m repro_torch.train_token_dqn``'s main at its
     39.9 M-parameter config (f32, 32 actors x 64 tokens, replay 4,096 x
-    K=128, batch 8), 16 collects at update interval 64: the printed
-    schedule (every 2 collects, 1 update), 8 learn events with finite
+    K=128, batch 8), 8 collects at update interval 64: the printed
+    schedule (every 2 collects, 1 update), 4 learn events with finite
     losses, the sample and gather kernels once a learn call, the update
     kernel twice an insert and once a priority write-back; the three
     kernels against their plain versions on the run's own tree and rows;
@@ -3565,8 +3628,15 @@ HYMBA_SHAPE = ("hybrid", 32, 1600, 25, 5, 64, 5504, 32001, "sliding", 1024, (0, 
                "bfloat16")
 # family, blocks, d_model, heads, vocab, sLSTM blocks, tied embeddings, dtype
 XLSTM_SHAPE = ("ssm", 12, 768, 4, 50304, (1, 7), True, "bfloat16")
-RECURRENT_PROMPTS = {"hymba_1_5b": (4, 2048), "xlstm_125m": (4, 256)}   # 24(a), 24(c)
-RECURRENT_STEPS = 16
+# family, decoder and encoder layers, frames, d_model, heads, KV heads, hd, d_ff, vocab, norm,
+# act, tied embeddings, dtype
+WHISPER_SHAPE = ("audio", 24, 24, 1500, 1024, 16, 16, 64, 4096, 51865, "layernorm", "gelu", True,
+                 "bfloat16")
+SHAPES = {"hymba_1_5b": HYMBA_SHAPE, "xlstm_125m": XLSTM_SHAPE, "whisper_medium": WHISPER_SHAPE}
+WHISPER_PARAMS = 960_865_280     # the reference's init_params, counted with jax.eval_shape
+# 24(a), 24(c), 25(a): prompts x tokens (Whisper's each behind its 1,500 frames)
+DECODE_PROMPTS = {"hymba_1_5b": (4, 2048), "xlstm_125m": (4, 256), "whisper_medium": (4, 128)}
+DECODE_STEPS = 16
 # 24(a), 24(c): decode step t's logits against the forward's over the prompt and the t
 # tokens fed, relative l2 over every prompt and step: in f32 at most DECODE_F32_BOUND; in
 # bf16 the decode no farther from the f32 forward than DECODE_BF16_RATIO x the bf16
@@ -3582,11 +3652,16 @@ XLSTM_BF16_BOUND = 0.25
 # at 256 tokens one took 26-36 s for Hymba and 8-15 s for xLSTM, whose Python-loop train
 # step took 7.8 s; the script has to end inside 1,200 s
 RECURRENT_SEQ = {"hymba_1_5b": 128, "xlstm_125m": 64}
-RECURRENT_TRAIN = ["--batch", "8", "--n-envs", "16", "--steps", "2", "--ckpt-every", "0"]
+# one step each (two until the audio phase (25) needed the time)
+RECURRENT_TRAIN_STEPS = 1
+RECURRENT_TRAIN = ["--batch", "8", "--n-envs", "16", "--steps", str(RECURRENT_TRAIN_STEPS),
+                   "--ckpt-every", "0"]
 
 
-def decode_against_forward(torch, backbone, cfg, params, prompts, dev, feed=None) -> dict:
-    """Prefill ``prompts`` (B, S), decode RECURRENT_STEPS steps (greedy, or
+def decode_against_forward(torch, backbone, cfg, params, prompts, dev, feed=None,
+                           extra=None) -> dict:
+    """Prefill ``prompts`` (B, S) (behind Whisper's frames ``extra``),
+    decode DECODE_STEPS steps (greedy, or
     the tokens ``feed`` (B, steps), so that two models run the same
     sequences), and hold each step's logits against ``forward`` over the
     prompt and the tokens fed so far (one forward over the prompt, the fed tokens and a
@@ -3596,10 +3671,10 @@ def decode_against_forward(torch, backbone, cfg, params, prompts, dev, feed=None
     same positions (all f32), "fed" tokens (B, steps), "decode_rel_l2",
     "prefill_s", "decode_s", "pos", "forward_tokens"}."""
     b, s = prompts.shape
-    steps = RECURRENT_STEPS
+    steps = DECODE_STEPS
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = backbone.prefill(cfg, params, prompts, s + steps)
+    logits, cache = backbone.prefill(cfg, params, prompts, s + steps, extra)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     lp = logits.float()
@@ -3624,7 +3699,7 @@ def decode_against_forward(torch, backbone, cfg, params, prompts, dev, feed=None
     seq = torch.cat([prompts, fed, torch.zeros((b, total - s - steps), dtype=prompts.dtype,
                                                device=dev)], dim=1)
     with torch.no_grad():
-        lf = backbone.forward(cfg, params, seq)[:, s:s + steps].float()
+        lf = backbone.forward(cfg, params, seq, extra)[:, s:s + steps].float()
     dec = torch.stack(dec, dim=1)
     check(bool(torch.isfinite(dec).all()) and bool(torch.isfinite(lf).all())
           and bool(torch.isfinite(lp).all()), f"{cfg.name} {cfg.dtype}: logits not finite")
@@ -3643,16 +3718,32 @@ def f32_copy(torch, backbone, cfg, params, dev):
     return exact_cfg, exact
 
 
-def recurrent_serve(torch, dev, card: str, arch: str) -> dict:
-    """24(a) and 24(c): ``arch`` at full width and depth in bf16 (Hymba with
-    flash), RECURRENT_PROMPTS prompts prefilled and RECURRENT_STEPS greedy
-    decode steps: the flash launches the code predicts a prefill and no other
-    flash kernel, ``pos`` after the steps, decode against forward in f32
-    (DECODE_F32_BOUND) and in bf16 (DECODE_BF16_RATIO); Hymba's prefill
-    logits under phase 21's rule (flash no farther from the f32 model than
-    1.1x naive bf16; flash vs naive reported), xLSTM's bf16 logits within
+def model_shape(cfg) -> tuple:
+    """The fields of ``cfg`` that SHAPES pins, by family."""
+    if cfg.family == "hybrid":
+        return (cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.attention, cfg.window,
+                cfg.global_layers, cfg.ssm_state, cfg.dtype)
+    if cfg.family == "ssm":
+        return (cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.vocab_size,
+                cfg.slstm_at, cfg.tie_embeddings, cfg.dtype)
+    return (cfg.family, cfg.num_layers, cfg.encoder_layers, cfg.encoder_seq, cfg.d_model,
+            cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.norm,
+            cfg.act, cfg.tie_embeddings, cfg.dtype)
+
+
+def prefill_and_decode(torch, dev, card: str, arch: str) -> dict:
+    """24(a), 24(c) and 25(a): ``arch`` at full width and depth in bf16
+    (Hymba and Whisper with flash), DECODE_PROMPTS prompts prefilled (Whisper's
+    each behind 1,500 frames drawn from the seed, bf16-representable, so that
+    the f32 copy reads the same) and DECODE_STEPS greedy decode steps: the
+    flash launches the code predicts a prefill and no other flash kernel,
+    ``pos`` after the steps, decode against forward in f32
+    (DECODE_F32_BOUND) and in bf16 (DECODE_BF16_RATIO); Hymba's and Whisper's
+    prefill logits under phase 21's rule (flash no farther from the f32 model
+    than 1.1x naive bf16; flash vs naive reported), xLSTM's bf16 logits within
     XLSTM_BF16_BOUND of f32; the first greedy token against f32's, the peak
-    memory, prefill and decode tokens/s."""
+    memory, prefill (tokens and frames apart) and decode tokens/s."""
     import gc
 
     import numpy as np
@@ -3664,51 +3755,53 @@ def recurrent_serve(torch, dev, card: str, arch: str) -> dict:
 
     empty_card(torch, dev, arch)
     cfg = get_config(arch)
-    if cfg.family == "hybrid":
+    flash = cfg.family in ("hybrid", "audio")
+    if flash:
         cfg = dataclasses.replace(cfg, attn_impl="flash")
-        shape = (cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                 cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.attention, cfg.window,
-                 cfg.global_layers, cfg.ssm_state, cfg.dtype)
-        check(shape == HYMBA_SHAPE, f"not Hymba-1.5B's configured shape: {cfg}")
-    else:
-        shape = (cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.vocab_size,
-                 cfg.slstm_at, cfg.tie_embeddings, cfg.dtype)
-        check(shape == XLSTM_SHAPE, f"not xLSTM-125M's configured shape: {cfg}")
-    n, s = RECURRENT_PROMPTS[arch]
+    check(model_shape(cfg) == SHAPES[arch], f"not {cfg.name}'s configured shape: {cfg}")
+    n, s = DECODE_PROMPTS[arch]
     t0 = time.perf_counter()
     params = backbone.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weights = torch.cuda.memory_allocated(dev)
     n_params = sum(p.numel() for p in params.parameters())
+    check(cfg.family != "audio" or n_params == WHISPER_PARAMS,
+          f"{cfg.name}: {n_params:,} params, the reference builds {WHISPER_PARAMS:,}")
     rng = np.random.RandomState(SEED + 24)
     prompts = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(n, s))).to(dev).long()
-    backbone.prefill(cfg, params, prompts, s)              # warm cuBLAS and the kernel
+    frames = None
+    if cfg.family == "audio":
+        frames = (torch.randn((n, cfg.encoder_seq, cfg.d_model), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 25))
+                  * 0.1).to(torch.bfloat16).float()
+    backbone.prefill(cfg, params, prompts, s, frames)      # warm cuBLAS and the kernel
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
-    backbone.prefill(cfg, params, prompts, s)
+    backbone.prefill(cfg, params, prompts, s, frames)
     counts = dict(ops.launch_counts)
     per_prefill = backbone.flash_launches_per_prefill(cfg)
     others = (fa.NAME, fa.DQ_NAME, fa.DKV_NAME, fa.DQ_SM90_NAME, fa.DKV_SM90_NAME)
     check(counts.get(fa.SM90_NAME, 0) == per_prefill
-          == (cfg.num_layers if cfg.family == "hybrid" else 0)
+          == (cfg.num_layers if flash else 0)
           and not any(counts.get(k) for k in others),
           f"{cfg.name} prefill: flash launches {counts}, the code predicts {per_prefill} of "
           f"{fa.SM90_NAME} and no other flash kernel")
-    run = decode_against_forward(torch, backbone, cfg, params, prompts, dev)
+    run = decode_against_forward(torch, backbone, cfg, params, prompts, dev, extra=frames)
     peak = torch.cuda.max_memory_allocated(dev)
-    check(run["pos"] == [s + RECURRENT_STEPS] * n, f"{cfg.name} pos after the steps: "
+    check(run["pos"] == [s + DECODE_STEPS] * n, f"{cfg.name} pos after the steps: "
           f"{run['pos']}")
     lf = run.pop("prefill_logits")
     ln = None
-    if cfg.family == "hybrid":
+    if flash:
         ln = backbone.prefill(dataclasses.replace(cfg, attn_impl="naive"), params, prompts,
-                              s)[0].float()
+                              s, frames)[0].float()
     exact_cfg, exact = f32_copy(torch, backbone, cfg, params, dev)
     del params
     gc.collect()
-    xrun = decode_against_forward(torch, backbone, exact_cfg, exact, prompts, dev, run["fed"])
+    xrun = decode_against_forward(torch, backbone, exact_cfg, exact, prompts, dev, run["fed"],
+                                  frames)
     del exact
     gc.collect()
     torch.cuda.empty_cache()
@@ -3725,10 +3818,12 @@ def recurrent_serve(torch, dev, card: str, arch: str) -> dict:
           f"error (bound {DECODE_BF16_RATIO}x)")
     first_equal = int((torch.argmax(lf[:, -1], -1) == torch.argmax(lx[:, -1], -1)).sum())
     out = {"model": cfg.name, "params": n_params, "weights_bytes": weights, "init_s": init_s,
-           "prompts": n, "prompt_tokens": s, "decode_steps": RECURRENT_STEPS,
+           "prompts": n, "prompt_tokens": s, "decode_steps": DECODE_STEPS,
            "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
            "prefill_tokens_per_s": n * s / run["prefill_s"],
-           "decode_tokens_per_s": n * RECURRENT_STEPS / run["decode_s"],
+           "prefill_frames_per_s": n * cfg.encoder_seq / run["prefill_s"] if frames is not None
+           else None,
+           "decode_tokens_per_s": n * DECODE_STEPS / run["decode_s"],
            "peak_memory_bytes": peak, "launches": counts, "launches_per_prefill": per_prefill,
            "decode_vs_forward_rel_l2": run["decode_rel_l2"],
            "decode_vs_forward_rel_l2_f32": xrun["decode_rel_l2"],
@@ -3754,12 +3849,16 @@ def recurrent_serve(torch, dev, card: str, arch: str) -> dict:
     del lf, ln, lx
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[{'hybrid a' if cfg.family == 'hybrid' else 'ssm c'}] {cfg.name} at full width and "
-          f"depth ({n_params / 1e9:.3f} B params, bf16, {weights / 2**30:.2f} GiB of weights, "
-          f"made in {init_s:.1f} s): {n} prompts of {s} tokens prefilled in "
-          f"{run['prefill_s'] * 1e3:.1f} ms ({out['prefill_tokens_per_s']:,.0f} tokens/s), "
-          f"{RECURRENT_STEPS} greedy decode steps in {run['decode_s'] * 1e3:.1f} ms "
-          f"({out['decode_tokens_per_s']:.1f} tokens/s), pos {s + RECURRENT_STEPS}; peak memory "
+    tag = {"hybrid": "hybrid a", "ssm": "ssm c", "audio": "audio a"}[cfg.family]
+    behind = (f" behind {cfg.encoder_seq} frames each" if frames is not None else "")
+    frame_rate = (f", {out['prefill_frames_per_s']:,.0f} frames/s" if frames is not None else "")
+    print(f"[{tag}] {cfg.name} at full width and "
+          f"depth ({n_params:,} params, bf16, {weights / 2**30:.2f} GiB of weights, "
+          f"made in {init_s:.1f} s): {n} prompts of {s} tokens{behind} prefilled in "
+          f"{run['prefill_s'] * 1e3:.1f} ms ({out['prefill_tokens_per_s']:,.0f} tokens/s"
+          f"{frame_rate}), "
+          f"{DECODE_STEPS} greedy decode steps in {run['decode_s'] * 1e3:.1f} ms "
+          f"({out['decode_tokens_per_s']:.1f} tokens/s), pos {s + DECODE_STEPS}; peak memory "
           f"{peak / 2**30:.2f} GiB; {fa.SM90_NAME} launches {counts.get(fa.SM90_NAME, 0)} a "
           f"prefill, no other flash kernel; decode vs forward over {run['forward_tokens']} "
           f"tokens rel l2 {xrun['decode_rel_l2']:.4g} f32 (bound {DECODE_F32_BOUND}), "
@@ -3771,7 +3870,7 @@ def recurrent_serve(torch, dev, card: str, arch: str) -> dict:
 
 def recurrent_train(torch, dev, card: str, arch: str) -> dict:
     """24(b) and 24(c): ``python -m repro_torch.launch.train`` at full width
-    and depth for RECURRENT_TRAIN's 2 steps (16 actors x RECURRENT_SEQ
+    and depth for RECURRENT_TRAIN_STEPS steps (16 actors x RECURRENT_SEQ
     tokens, replay 8,192 x K=128, batch 8, remat; Hymba with flash): a finite loss, grad
     norm (so finite gradients) and Q mean at every step, finite parameters,
     and the launches the code predicts: one descent (#1) and one gather (#2)
@@ -3805,7 +3904,7 @@ def recurrent_train(torch, dev, card: str, arch: str) -> dict:
     want = {"sumtree_sample": steps, "gather": steps, fa.SM90_NAME: 3 * layers * steps,
             fa.DQ_SM90_NAME: layers * steps, fa.DKV_SM90_NAME: layers * steps,
             fa.NAME: 0, fa.DQ_NAME: 0, fa.DKV_NAME: 0, "sample_gather": 0, "sumtree_update": 0}
-    check(steps == 2 and all(counts.get(k, 0) == v for k, v in want.items()),
+    check(steps == RECURRENT_TRAIN_STEPS and all(counts.get(k, 0) == v for k, v in want.items()),
           f"{cfg.name} training: {steps} steps, launches {counts}, the code predicts {want}")
     check(all(math.isfinite(h[k]) for h in hist for k in ("loss", "grad_norm", "q_mean")),
           f"{cfg.name} training: a non-finite loss, grad norm or Q mean: {hist}")
@@ -3829,24 +3928,25 @@ def recurrent_train(torch, dev, card: str, arch: str) -> dict:
 
 
 def flash_bwd_times(torch, dev, gen, n: int, s: int, hd: int, attention: str, window: int,
-                    is_global: bool) -> dict:
-    """The Hopper dQ and dK/dV kernels at (n, s, hd) bf16, causal, under
-    ``attention``'s mask, first held to the plain backward in f32 on the same
+                    is_global: bool, causal: bool = True) -> dict:
+    """The Hopper dQ and dK/dV kernels at (n, s, hd) bf16, causal (or not),
+    under ``attention``'s mask, first held to the plain backward in f32 on the same
     inputs (``parity.flash_bwd_check``), then timed beside their bounds
     (phase 14's: 3 and 4 products of 2·hd flops a reachable pair), their
-    plain versions and one SDPA backward call (causal: the mask reaches the
-    causal pairs only when the window does not bite, which the caller
-    picks)."""
+    plain versions and one SDPA backward call, causal or not (the mask
+    reaches the causal pairs, or all, only when the window does not bite,
+    which the caller picks)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import parity as par
 
     q, k, v, do = [(torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(torch.bfloat16)
                    for _ in range(4)]
-    mask_args = (attention, window, True, is_global)
+    mask_args = (attention, window, causal, is_global)
     pos = torch.arange(s, device=dev)
     pairs = int(fa.attention_mask(pos, pos, *mask_args).sum())
-    check(pairs == s * (s + 1) // 2, f"flash_bwd_times at ({n}, {s}, {hd}): the mask must be "
-          "the causal one for SDPA's causal backward to compute the same function")
+    check(pairs == (s * (s + 1) // 2 if causal else s * s), f"flash_bwd_times at ({n}, {s}, "
+          f"{hd}): the mask must be the {'causal' if causal else 'full'} one for SDPA's "
+          "backward to compute the same function")
     o, lse = fa.flash_attention_cuda(q, k, v, *mask_args)
     delta = fa.flash_delta(o, do)
     args = (q, k, v, do, lse, delta, *mask_args)
@@ -3855,10 +3955,10 @@ def flash_bwd_times(torch, dev, gen, n: int, s: int, hd: int, attention: str, wi
                                        do.float(), *mask_args)
     torch.cuda.synchronize()
     rep = par.flash_bwd_check(*got, *ref)
-    shape = f"({n}, {s}, {hd}) bf16 causal, {attention} {window}"
+    shape = f"({n}, {s}, {hd}) bf16 {'causal' if causal else 'non-causal'}, {attention} {window}"
     check(rep.ok, f"the Hopper backward pair at {shape}: {rep}")
     del got, ref
-    backend, lib = sdpa_backward(torch, q[None], k[None], v[None], do[None])
+    backend, lib = sdpa_backward(torch, q[None], k[None], v[None], do[None], causal)
     lib_ms = device_ms(torch, lib)
     reads = 4 * n * s * hd * 2 + 2 * n * s * 4
     out = {}
@@ -3867,7 +3967,8 @@ def flash_bwd_times(torch, dev, gen, n: int, s: int, hd: int, attention: str, wi
              ("dq",), 3, 1),
             (fa.DKV_SM90_NAME, fa.flash_attention_dkv_sm90_cuda, fa.flash_attention_dkv_plain,
              ("dk", "dv"), 4, 2)):
-        b_ms, b_by = bound(reads + nout * n * s * hd * 2, work * 2 * hd * pairs, BF16_OPS_PER_S)
+        b_ms, b_by = bound(reads + nout * n * s * hd * 2, work * 2 * hd * n * pairs,
+                           BF16_OPS_PER_S)
         t = {"shape": shape, "ms": device_ms(torch, lambda: kern(*args)),
              "plain_ms": device_ms(torch, lambda: plain(*args)), "library_ms": lib_ms,
              "library": f"one SDPA {backend} backward call (dQ, dK and dV together)",
@@ -3882,7 +3983,7 @@ def flash_bwd_times(torch, dev, gen, n: int, s: int, hd: int, attention: str, wi
 
 def hybrid_ssm_phase(torch, dev, card: str) -> dict:
     """Phase 24: (a) Hymba-1.5B served at full width and depth
-    (``recurrent_serve``), (b) trained by ``launch.train`` for 2 steps
+    (``prefill_and_decode``), (b) trained by ``launch.train`` for one step
     (``recurrent_train``), (c) xLSTM-125M trained and served the same way,
     each alone on the card; then (d) the Hopper forward at Hymba's prefill
     shape (100, 2048, 64), local (sliding 1,024) and global, and the forward
@@ -3890,10 +3991,10 @@ def hybrid_ssm_phase(torch, dev, card: str) -> dict:
     held to its plain version first, beside its bound, plain time and SDPA."""
     from repro_torch.kernels import flash_attention as fa
 
-    out = {"hymba_serve": recurrent_serve(torch, dev, card, "hymba_1_5b"),
+    out = {"hymba_serve": prefill_and_decode(torch, dev, card, "hymba_1_5b"),
            "hymba_train": recurrent_train(torch, dev, card, "hymba_1_5b"),
            "xlstm_train": recurrent_train(torch, dev, card, "xlstm_125m"),
-           "xlstm_serve": recurrent_serve(torch, dev, card, "xlstm_125m")}
+           "xlstm_serve": prefill_and_decode(torch, dev, card, "xlstm_125m")}
     empty_card(torch, dev, "the hd-64 kernel times")
     gen = torch.Generator(device=dev).manual_seed(SEED + 24)
     out["flash_times"] = {}
@@ -3917,6 +4018,135 @@ def hybrid_ssm_phase(torch, dev, card: str) -> dict:
               f"{t['library_ms'] * 1e3:.1f} us | {card}", flush=True)
     torch.cuda.empty_cache()
     print(f"[hybrid ssm rate] {json.dumps(out)}", flush=True)
+    return out
+
+
+# -- phase 25: the audio family at full width ---------------------------------------
+
+# 25(b): rows x text tokens of a train step, each row behind its 1,500 frames
+WHISPER_TRAIN = (8, 128)
+WHISPER_TRAIN_STEPS = 2
+
+
+def whisper_train(torch, dev, card: str) -> dict:
+    """25(b): ``agents.token_dqn.train_step`` on Whisper-medium at full width
+    and depth (bf16, flash, remat, f32 Adam moments), WHISPER_TRAIN_STEPS
+    steps on one batch of WHISPER_TRAIN rows x tokens and their frames: a
+    finite loss, grad norm and Q mean each step, every parameter tensor moved,
+    finite parameters, and each step's launches as the code predicts: three
+    #5 a decoder layer (online, target, the remat's recompute; the encoder's
+    1,500 frames and the cross-attention take the naive path) and one #6 and
+    one #7, none of the f32 kernels; each step's seconds and the peak memory."""
+    import numpy as np
+
+    from repro_torch.agents import token_dqn
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    empty_card(torch, dev, "Whisper-medium training")
+    cfg = dataclasses.replace(get_config("whisper_medium"), attn_impl="flash")
+    check(cfg.remat and model_shape(cfg) == WHISPER_SHAPE, f"not Whisper-medium with remat: {cfg}")
+    tcfg = token_dqn.TokenDQNConfig()
+    t0 = time.perf_counter()
+    state = token_dqn.init_train_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated(dev)
+    b, s = WHISPER_TRAIN
+    rng = np.random.RandomState(SEED + 25)
+    dones = np.zeros((b, s), np.float32)
+    dones[:, s // 2 - 1] = 1.0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in {
+        "tokens": rng.randint(0, cfg.vocab_size, (b, s)).astype(np.int64),
+        "actions": rng.randint(0, cfg.vocab_size, (b, s)).astype(np.int64),
+        "rewards": rng.uniform(0, 1, (b, s)).astype(np.float32), "dones": dones,
+        "is_weights": rng.uniform(0.5, 1, b).astype(np.float32)}.items()}
+    batch["extra_embeds"] = (torch.randn((b, cfg.encoder_seq, cfg.d_model), device=dev,
+                                         generator=torch.Generator(device=dev).manual_seed(
+                                             SEED + 26)) * 0.1).to(torch.bfloat16)
+    before = [p.detach().clone() for p in state.params.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    layers = cfg.num_layers
+    want = {fa.SM90_NAME: 3 * layers, fa.DQ_SM90_NAME: layers, fa.DKV_SM90_NAME: layers,
+            fa.NAME: 0, fa.DQ_NAME: 0, fa.DKV_NAME: 0}
+    steps = []
+    for _ in range(WHISPER_TRAIN_STEPS):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics, tds = token_dqn.train_step(cfg, tcfg, state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(ops.launch_counts)
+        rec = {"seconds": secs, "launches": counts,
+               **{k: float(metrics[k]) for k in ("loss", "grad_norm", "q_mean")}}
+        check(all(counts.get(k, 0) == v for k, v in want.items()),
+              f"Whisper-medium train step: launches {counts}, the code predicts {want}")
+        check(all(math.isfinite(rec[k]) for k in ("loss", "grad_norm", "q_mean"))
+              and tds.shape == (b,) and bool(torch.isfinite(tds).all()),
+              f"Whisper-medium train step: a non-finite loss, grad norm, Q mean or |TD|: {rec}")
+        steps.append(rec)
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = sum(not torch.equal(a, p.detach()) for a, p in zip(before, state.params.parameters()))
+    n_tensors = len(before)
+    check(moved == n_tensors and all(bool(torch.isfinite(p).all())
+                                     for p in state.params.parameters()),
+          f"Whisper-medium training: {moved} of {n_tensors} parameter tensors moved, or a "
+          "parameter is not finite")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    del state, before, batch
+    out = {"model": cfg.name, "params": n_params, "init_s": init_s, "rows": b, "tokens": s,
+           "frames": cfg.encoder_seq, "steps": steps, "resident_bytes": resident,
+           "peak_memory_bytes": peak, "tensors_moved": moved}
+    secs = ", ".join(f"{r['seconds']:.3f}" for r in steps)
+    print(f"[audio b] token_dqn.train_step on {cfg.name} at full width and depth "
+          f"({n_params:,} params, bf16, flash, remat; state {resident / 2**30:.2f} GiB made in "
+          f"{init_s:.1f} s), {b} rows x {s} tokens behind {cfg.encoder_seq} frames each: steps "
+          f"{secs} s, losses "
+          f"{[r['loss'] for r in steps]}, grad norms {[r['grad_norm'] for r in steps]} "
+          f"(finite); {moved} of {n_tensors} parameter tensors moved; launches a step "
+          f"{steps[-1]['launches']} as predicted; peak memory {peak / 2**30:.2f} GiB | {card}",
+          flush=True)
+    return out
+
+
+def audio_phase(torch, dev, card: str) -> dict:
+    """Phase 25: (a) Whisper-medium prefilled and decoded at full width and
+    depth (``prefill_and_decode``), (b) trained for 2 steps
+    (``whisper_train``), each alone on the card; then (c) the Hopper forward
+    and backward pair at Whisper's shapes: the encoder's width at 1,536
+    frames non-causal (the path an ``encoder_seq`` that is a multiple of 128
+    takes), a ragged (3, 1000, 64) non-causal and the decoder's train step
+    (128, 128, 64) causal, each held to its plain version first, beside its
+    bound, plain time and SDPA."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {"serve": prefill_and_decode(torch, dev, card, "whisper_medium"),
+           "train": whisper_train(torch, dev, card)}
+    empty_card(torch, dev, "the Whisper kernel times")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    out["flash_times"], out["bwd_times"] = {}, {}
+    for what, (n, s, causal) in (("Whisper's encoder width", (64, 1536, False)),
+                                 ("a ragged length", (3, 1000, False)),
+                                 ("Whisper's decoder, a train step", (128, 128, True))):
+        t = flash_fwd_times(torch, dev, gen, n, s, 64, parity=True, causal=causal)
+        out["flash_times"][what] = t
+        print(f"[times] {fa.SM90_NAME} at {what} {t['shape']} ({t['pairs']:,} pairs), against "
+              f"its plain version max |err| {t['max_abs_err']:.3g}: device {t['ms'] * 1e3:.1f} us "
+              f"(plain {t['plain_ms'] * 1e3:.1f} us, SDPA {t['library_ms'] * 1e3:.1f} us, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, call {t['call_ms'] * 1e3:.1f} us)"
+              f" | {card}", flush=True)
+        for name, tb in flash_bwd_times(torch, dev, gen, n, s, 64, "full", 0, True,
+                                        causal).items():
+            out["bwd_times"].setdefault(name, {})[what] = tb
+            print(f"[times] {name} at {what} {tb['shape']}, against the plain backward max "
+                  f"|err| {tb['max_abs_err']:.3g}: device {tb['ms'] * 1e3:.1f} us (plain "
+                  f"{tb['plain_ms'] * 1e3:.1f} us, bound {tb['bound_ms'] * 1e3:.2f} us by "
+                  f"{tb['bound_by']}, call {tb['call_ms'] * 1e3:.1f} us); {tb['library']} "
+                  f"{tb['library_ms'] * 1e3:.1f} us | {card}", flush=True)
+        torch.cuda.empty_cache()
+    print(f"[audio rate] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -4342,6 +4572,10 @@ def main() -> None:
     # every kernel's over each training run
     clock("24 (hybrid and ssm)")
     recurrent = hybrid_ssm_phase(torch, dev, card)
+    # 25. Whisper-medium at full width and depth: the forward's launches counted
+    # from 0 over a prefill, and every kernel's over each train step
+    clock("25 (audio)")
+    audio = audio_phase(torch, dev, card)
     for entry in kernels:
         entry["restart_launches"] = restart["launches"].get(entry["name"], 0)
         entry["async_launches"] = async_rate["launches"].get(entry["name"], 0)
@@ -4377,13 +4611,21 @@ def main() -> None:
             entry["at_moe_vlm_shapes"] = moe_vlm["flash_times"]
         entry["hybrid_ssm_launches"] = {
             "Hymba-1.5B, one prefill": recurrent["hymba_serve"]["launches"].get(name, 0),
-            "Hymba-1.5B, 2 train steps": recurrent["hymba_train"]["launches"].get(name, 0),
-            "xLSTM-125M, 2 train steps": recurrent["xlstm_train"]["launches"].get(name, 0),
+            "Hymba-1.5B, one train step": recurrent["hymba_train"]["launches"].get(name, 0),
+            "xLSTM-125M, one train step": recurrent["xlstm_train"]["launches"].get(name, 0),
             "xLSTM-125M, one prefill": recurrent["xlstm_serve"]["launches"].get(name, 0)}
         if name == fa.SM90_NAME:
             entry["at_hybrid_shapes"] = recurrent["flash_times"]
         if name in recurrent["bwd_times"]:
             entry["at_hybrid_train_shape"] = recurrent["bwd_times"][name]
+        entry["audio_launches"] = {
+            "Whisper-medium, one prefill": audio["serve"]["launches"].get(name, 0),
+            "Whisper-medium, each train step": [r["launches"].get(name, 0)
+                                                for r in audio["train"]["steps"]]}
+        if name == fa.SM90_NAME:
+            entry["at_whisper_shapes"] = audio["flash_times"]
+        if name in audio["bwd_times"]:
+            entry["at_whisper_shapes"] = audio["bwd_times"][name]
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -69,13 +69,14 @@ def _td_loss(cfg: ModelConfig, tcfg: TokenDQNConfig, params: backbone.Backbone,
     mean |TD| ``seq_td`` (b,), the mean Q(s, a) ``q_mean``, and the
     per-position ``td`` and ``q_sa`` (b, S), all detached.  mb:
     tokens/actions/rewards/dones (b, S), is_weights (b,), optional
-    extra_embeds (b, P, d) (vlm's patches, whose P positions are cut from
-    the logits)."""
+    extra_embeds: vlm's patches (b, P, d), whose P positions are cut from
+    the logits, or audio's frames (b, encoder_seq, d), which feed the
+    encoder (the logits are the decoder's, so the offset is 0)."""
     tokens, actions = mb["tokens"].long(), mb["actions"].long()
     rewards, dones, is_w = mb["rewards"], mb["dones"], mb["is_weights"]
     extra = mb.get("extra_embeds")
     logits = backbone.forward(cfg, params, tokens, extra)         # (b, P + S, V)
-    off = logits.shape[1] - tokens.shape[1]                       # vlm: patch offset
+    off = logits.shape[1] - tokens.shape[1]             # vlm: patch offset; audio: 0
     q = logits[:, off:].float()
     del logits
     q_sa = torch.gather(q, -1, actions[..., None])[..., 0]

@@ -1,10 +1,9 @@
 """Architecture configs (``--arch <id>``) — the port's counterpart of
 ``repro.configs``.
 
-Each ported module is a copy of the reference's and exposes ``CONFIG``
-(the published configuration) and ``SMOKE`` (a reduced same-family
-config for CPU tests).  ``get_config`` raises for an architecture that
-is not ported yet and names the ROADMAP item that ports it.
+Each module is a copy of the reference's and exposes ``CONFIG`` (the
+published configuration) and ``SMOKE`` (a reduced same-family config for
+CPU tests).  All ten architectures are ported.
 """
 
 from __future__ import annotations
@@ -26,14 +25,6 @@ ARCH_IDS = [
     "phi_3_vision_4_2b",
 ]
 
-PORTED = ("granite_8b", "internlm2_1_8b", "qwen1_5_32b", "command_r_35b",
-          "mixtral_8x7b", "llama4_maverick_400b_a17b", "phi_3_vision_4_2b",
-          "hymba_1_5b", "xlstm_125m")
-
-# the ROADMAP Queue 1 item that ports each architecture not ported yet
-NOT_PORTED = {
-    "whisper_medium": "item 14 (audio family)",
-}
 
 # accepted aliases (the assignment spells them with dashes/dots)
 ALIASES = {
@@ -52,11 +43,7 @@ ALIASES = {
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     arch = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet: ROADMAP Queue 1 "
-            f"{NOT_PORTED[arch]}")
-    if arch not in PORTED:
+    if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG

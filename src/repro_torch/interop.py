@@ -124,13 +124,19 @@ def env_state_from_numpy(state, device="cpu") -> EnvState:
                     t=_t(state.t, device).to(torch.int32))
 
 
+# the reference's layer stacks, each on a leading layer axis
+STACKED = ("units", "enc_units", "dec_units")
+
+
 def backbone_leaf(tree, name: str) -> np.ndarray:
     """The reference's array for the port's ``Backbone`` parameter
     ``name`` (``embed.tok``, ``units.3.attn.w.wq``, ``units.1.moe.w.router``,
     ``units.1.moe.w.shared.w_up``, ``units.0.hybrid.ssm.w_x``,
-    ``blocks.1.slstm.rz``, ``final_norm.scale`` …) in the port's layout:
-    ``units`` un-stacked, dense weights (the shared expert's, a hybrid
-    layer's attention and SSM, an xLSTM block's included) and the output
+    ``blocks.1.slstm.rz``, ``enc_pos``, ``enc_units.2.attn_nc.w.wq``,
+    ``dec_units.0.cross.w.wk``, ``final_norm.scale`` …) in the port's
+    layout: ``units`` (Whisper's ``enc_units`` and ``dec_units``)
+    un-stacked, dense weights (the shared expert's, a hybrid layer's
+    attention and SSM, an xLSTM block's included) and the output
     projection transposed to (out, in); the router (d, E), the expert
     stacks (E, d, f) / (E, f, d) and the sLSTM's recurrent (H, hd, hd) as
     the reference keeps them.  A unit's duplicate kinds (Llama-4's two
@@ -138,14 +144,17 @@ def backbone_leaf(tree, name: str) -> np.ndarray:
     list in the reference.  ``tree`` is a params tree or an Adam moment
     tree of the same structure."""
     parts = name.split(".")
-    if parts[0] in ("units", "blocks"):
+    if parts[0] in STACKED or parts[0] == "blocks":
         i, path = int(parts[1]), parts[2:]
-        x = tree["units"] if parts[0] == "units" else tree["blocks"][i]
+        x = tree[parts[0]] if parts[0] in STACKED else tree["blocks"][i]
         for key in path:
             x = x[key]
-        x = np.asarray(x)[i] if parts[0] == "units" else np.asarray(x)
+        x = np.asarray(x)[i] if parts[0] in STACKED else np.asarray(x)
         return x.T if x.ndim == 2 and path[-1] != "router" else x
-    x = np.asarray(tree[parts[0]][parts[1]])
+    x = tree
+    for key in parts:
+        x = x[key]
+    x = np.asarray(x)
     return x.T if name == "embed.out" else x
 
 
@@ -155,8 +164,9 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def backbone_params_from_numpy(cfg: ModelConfig, params, device="cpu") -> backbone.Backbone:
-    """Reference backbone params (nested dicts of numpy arrays, ``units``
-    stacked on a leading axis, dense weights (in, out)) → the port's
+    """Reference backbone params (nested dicts of numpy arrays, ``units``,
+    ``enc_units`` and ``dec_units`` stacked on a leading axis, dense
+    weights (in, out)) → the port's
     ``Backbone`` (dense weights (out, in)), in the config's dtype."""
     model = backbone.Backbone(cfg, device)
     with torch.no_grad():

@@ -1,5 +1,5 @@
-"""Agent-network backbone — port of ``repro.models.backbone``, the dense,
-moe, vlm, hybrid and ssm families.
+"""Agent-network backbone — port of ``repro.models.backbone``, all six
+families: dense, moe, vlm, hybrid, ssm and audio.
 
 Paths:
   * ``forward``     — full-sequence (training / prefill) logits
@@ -13,10 +13,21 @@ sub-layer kind:
   moe (llama4)     units[attn → mlp → attn → moe]
   hybrid (hymba)   units[(attn ∥ mamba) → mlp]   (parallel heads, averaged)
   ssm (xlstm)      blocks[norm → mLSTM | sLSTM → mlp] (sLSTM at cfg.slstm_at)
-The audio family raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.  A hybrid unit's cache holds its attention's K/V and its
-SSM state (``"ssm"``, (n_units, B, H, N, P) f32); an ssm model's cache
-holds each block's recurrent state (``"blocks"``, as the reference's).
+  audio (whisper)  frames + enc_pos → enc_units[attn_nc → mlp] → enc_norm;
+                   embed → dec_units[attn → cross → mlp] → norm → unembed
+A hybrid unit's cache holds its attention's K/V and its SSM state
+(``"ssm"``, (n_units, B, H, N, P) f32); an ssm model's cache holds each
+block's recurrent state (``"blocks"``, as the reference's); an audio
+model's adds each decoder layer's cross-attention K/V over the encoder
+output (``"cross_k"``/``"cross_v"``, (L, B, encoder_seq, KV, hd)).
+
+Whisper as the reference builds it: the conv frontend is a stub (the
+caller passes frame embeddings (B, encoder_seq, d) as ``extra_embeds``),
+``enc_pos`` is a learned table initialized at zero, the encoder's
+self-attention is non-causal (``attn_nc``), no attention rotates (the
+decoder has no positional signal at all), and cross-attention reads K/V
+projected from the normed encoder output without biases.  The logits are
+the decoder's (B, S_text, V).
 
 A Llama-4 unit has two attention sub-layers and ONE set of attention
 weights: the reference's ``_unit_init`` writes ``p[kind]`` for each kind
@@ -43,14 +54,18 @@ Differences from the reference, each for one card and eager PyTorch:
     post-RoPE K/V from that pass, where the reference runs ``forward``
     and then ``_capture_kv_states`` (two passes).  The numbers are the
     same: the captured K/V are the ones the attention used.  So a
-    prefill launches the flash kernel once per attention layer;
+    prefill launches the flash kernel once per attention layer.  Whisper's
+    ``prefill`` runs the encoder once and the decoder once, keeping each
+    decoder layer's self K/V and cross K/V, where the reference runs
+    each twice;
   * remat, as the reference's ``jax.checkpoint`` of each unit: with
     ``cfg.remat`` and grad enabled, each unit of the stack runs under
     ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
     unit's input and runs the unit's forward again in the backward, flash
     kernel included.  So a training forward and backward launches the
     flash forward twice per attention layer and the dQ and dK/dV kernels
-    once.  No-grad calls (the collect, the target network, ``prefill``
+    once.  Whisper's encoder and decoder units are checkpointed alike.
+    No-grad calls (the collect, the target network, ``prefill``
     and ``decode_step``) run the units as they are.  The xLSTM blocks are
     not units: the reference runs them unrolled without a checkpoint, and
     so does the port;
@@ -75,17 +90,15 @@ from repro_torch.models.config import ModelConfig
 
 Cache = Dict[str, Any]
 
-# the ROADMAP Queue 1 item that ports each family not ported yet
-FAMILY_ITEM = {"audio": "item 14"}
-FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
+# Whisper's encoder unit; its decoder unit is ``unit_structure``'s
+ENCODER_SUB = ("attn_nc", "mlp")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to repro_torch "
-            f"yet (ROADMAP Queue 1 {FAMILY_ITEM.get(cfg.family, '?')}); "
-            f"{', '.join(FAMILIES)} only")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; "
+                         f"{', '.join(FAMILIES)} only")
 
 
 # ===========================================================================
@@ -125,10 +138,13 @@ class HybridSub(nn.Module):
 
 def unit_structure(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
     """(sub-layer kinds per unit, number of units); an ssm model has no
-    units (its layers are ``Backbone.blocks``)."""
+    units (its layers are ``Backbone.blocks``), an audio model's are its
+    decoder's (``Backbone.dec_units``; its encoder's are ``ENCODER_SUB``)."""
     _check_family(cfg)
     if cfg.family == "ssm":
         return (), 0
+    if cfg.family == "audio":
+        return ("attn", "cross", "mlp"), cfg.num_layers
     if cfg.family == "hybrid":
         return ("hybrid", "mlp"), cfg.num_layers
     if cfg.family == "moe":
@@ -142,7 +158,7 @@ def unit_structure(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
 
 
 def _make_sub(cfg: ModelConfig, kind: str, device) -> SubLayer:
-    if kind == "attn":
+    if kind in ("attn", "attn_nc", "cross"):
         return SubLayer(cfg, L.Attention(cfg, device), device)
     if kind == "mlp":
         return SubLayer(cfg, L.GLU(cfg, device=device), device)
@@ -169,13 +185,23 @@ def _block_kind(block: nn.ModuleDict) -> str:
     return "slstm" if "slstm" in block else "mlstm"
 
 
+def _make_units(cfg: ModelConfig, sub: Tuple[str, ...], n_units: int,
+                device) -> nn.ModuleList:
+    return nn.ModuleList(nn.ModuleDict({kind: _make_sub(cfg, kind, device)
+                                        for kind in dict.fromkeys(sub)})
+                         for _ in range(n_units))
+
+
 class Backbone(nn.Module):
     """``embed``, ``units`` (a ModuleList of ModuleDicts keyed by
     sub-layer kind, each kind once: a Llama-4 unit's two attention
     sub-layers share ``unit["attn"]``, as in the reference) or, for the
     ssm family, ``blocks`` (a ModuleList of ModuleDicts ``norm``,
-    ``mlstm``|``slstm``, ``mlp``), and ``final_norm`` — the reference's
-    params tree."""
+    ``mlstm``|``slstm``, ``mlp``) or, for the audio family, ``enc_pos``
+    (encoder_seq, d), ``enc_units`` ({``attn_nc``, ``mlp``} each),
+    ``enc_norm`` and ``dec_units`` ({``attn``, ``cross``, ``mlp``} each),
+    and ``final_norm`` — the reference's params tree, one module a layer
+    where the reference stacks the layers."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -184,12 +210,20 @@ class Backbone(nn.Module):
         if cfg.family == "ssm":
             self.blocks = nn.ModuleList(_make_block(cfg, i, device)
                                         for i in range(cfg.num_layers))
+        elif cfg.family == "audio":
+            self.enc_pos = nn.Parameter(torch.zeros((cfg.encoder_seq, cfg.d_model),
+                                                    dtype=L.param_dtype(cfg), device=device))
+            self.enc_units = _make_units(cfg, ENCODER_SUB, cfg.encoder_layers, device)
+            self.enc_norm = L.Norm(cfg, cfg.d_model, device)
+            self.dec_units = _make_units(cfg, sub, n_units, device)
         else:
-            self.units = nn.ModuleList(
-                nn.ModuleDict({kind: _make_sub(cfg, kind, device)
-                               for kind in dict.fromkeys(sub)})
-                for _ in range(n_units))
+            self.units = _make_units(cfg, sub, n_units, device)
         self.final_norm = L.Norm(cfg, cfg.d_model, device)
+
+
+def _units(cfg: ModelConfig, params: Backbone) -> nn.ModuleList:
+    """The units of ``unit_structure``: Whisper's decoder's, or ``units``."""
+    return params.dec_units if cfg.family == "audio" else params.units
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Backbone:
@@ -197,11 +231,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Backbone
     ``gen`` with the reference's distributions: dense weights
     N(0, 1/d_in), the token embedding N(0, 0.02²), norms at scale 1 and
     bias 0, qkv biases 0, the experts as ``moe.MoE.reset_parameters``,
-    the SSM's A_log 0 and the sLSTM's recurrent matrices N(0, 1/hd)."""
+    the SSM's A_log 0, the sLSTM's recurrent matrices N(0, 1/hd) and
+    Whisper's ``enc_pos`` 0."""
     device = gen.device if device is None else torch.device(device)
     model = Backbone(cfg, device)
     model.embed.reset_parameters(gen)
-    for layer in (model.blocks if cfg.family == "ssm" else model.units):
+    if cfg.family == "ssm":
+        layers = list(model.blocks)
+    elif cfg.family == "audio":
+        layers = [*model.enc_units, *model.dec_units]
+    else:
+        layers = list(model.units)
+    for layer in layers:
         for s in layer.values():
             if not isinstance(s, L.Norm):
                 s.reset_parameters(gen)
@@ -230,11 +271,24 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 # ===========================================================================
 
 
+def _cross_kv(cfg: ModelConfig, p: L.Attention, enc: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross-attention K/V (B, S_enc, KV, hd), projected
+    from the encoder output without biases, as the reference's."""
+    b, se, _ = enc.shape
+    shape = (b, se, cfg.num_kv_heads, cfg.hd)
+    return (torch.nn.functional.linear(enc, p.wk).reshape(shape),
+            torch.nn.functional.linear(enc, p.wv).reshape(shape))
+
+
 def _unit(cfg: ModelConfig, sub: Tuple[str, ...], unit: nn.ModuleDict,
           flag_row: List[bool], x: torch.Tensor, positions: torch.Tensor,
-          freqs: torch.Tensor, cap: Optional[Dict[str, list]] = None) -> torch.Tensor:
-    """One unit's sub-layers; with ``cap`` each attention layer's K and V
-    are appended to ``cap["k"]`` and ``cap["v"]``, and each hybrid
+          freqs: torch.Tensor, enc: Optional[torch.Tensor] = None,
+          cap: Optional[Dict[str, list]] = None) -> torch.Tensor:
+    """One unit's sub-layers (``enc``: the encoder output that a ``cross``
+    sub-layer attends to); with ``cap`` each self-attention layer's K and
+    V are appended to ``cap["k"]`` and ``cap["v"]``, each cross-attention
+    layer's to ``cap["cross_k"]`` and ``cap["cross_v"]``, and each hybrid
     layer's final SSM state to ``cap["ssm"]``."""
     fi = 0
     for kind in sub:
@@ -242,7 +296,7 @@ def _unit(cfg: ModelConfig, sub: Tuple[str, ...], unit: nn.ModuleDict,
         h = L.apply_norm(cfg, p.norm, x)
         if kind in ("attn", "hybrid"):
             y, k, v = L.mha_kv(cfg, p.w if kind == "attn" else p.attn, h, positions, freqs,
-                               flag_row[fi])
+                               flag_row[fi], use_rope=cfg.family != "audio")
             fi += 1
             if cap is not None:
                 cap["k"].append(k)
@@ -253,6 +307,15 @@ def _unit(cfg: ModelConfig, sub: Tuple[str, ...], unit: nn.ModuleDict,
                     cap["ssm"].append(st)
                 y = 0.5 * (L.apply_norm(cfg, p.norm_attn, y) + L.apply_norm(cfg, p.norm_ssm, s))
             x = x + y
+        elif kind == "attn_nc":     # Whisper's encoder: non-causal, no RoPE
+            x = x + L.mha(cfg, p.w, h, positions, freqs, True, causal=False, use_rope=False)
+        elif kind == "cross":
+            ck, cv = _cross_kv(cfg, p.w, enc)
+            if cap is not None:
+                cap["cross_k"].append(ck)
+                cap["cross_v"].append(cv)
+            x = x + L.mha(cfg, p.w, h, positions, freqs, True, causal=False,
+                          kv_override=(ck, cv))
         elif kind == "moe":
             x = x + MOE.moe(cfg, p.w, h)[0]
         else:
@@ -260,20 +323,20 @@ def _unit(cfg: ModelConfig, sub: Tuple[str, ...], unit: nn.ModuleDict,
     return x
 
 
-def _run_units(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
-               positions: torch.Tensor, freqs: torch.Tensor,
+def _run_units(cfg: ModelConfig, units: nn.ModuleList, sub: Tuple[str, ...],
+               x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor,
+               enc: Optional[torch.Tensor] = None,
                cap: Optional[Dict[str, list]] = None) -> torch.Tensor:
-    """The unit stack; with ``cap`` also what ``_unit`` captures.  With
+    """A stack of units; with ``cap`` also what ``_unit`` captures.  With
     ``cfg.remat`` and grad enabled each unit is checkpointed."""
-    sub, n_units = unit_structure(cfg)
-    flags = _global_flags(cfg, n_units, sub)
+    flags = _global_flags(cfg, len(units), sub)
     remat = cfg.remat and torch.is_grad_enabled() and cap is None
-    for unit, flag_row in zip(params.units, flags):
+    for unit, flag_row in zip(units, flags):
         if remat:
-            x = checkpoint(_unit, cfg, sub, unit, flag_row, x, positions, freqs,
+            x = checkpoint(_unit, cfg, sub, unit, flag_row, x, positions, freqs, enc,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _unit(cfg, sub, unit, flag_row, x, positions, freqs, cap)
+            x = _unit(cfg, sub, unit, flag_row, x, positions, freqs, enc, cap)
     return x
 
 
@@ -309,33 +372,53 @@ def _embed(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
     return x
 
 
+def _encode(cfg: ModelConfig, params: Backbone, frames: Optional[torch.Tensor],
+            freqs: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over frame embeddings (B, encoder_seq, d) → the
+    normed encoder output (B, encoder_seq, d)."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: the audio family takes its frame embeddings "
+                         f"(B, {cfg.encoder_seq}, {cfg.d_model}) as extra_embeds")
+    enc = frames.to(L.param_dtype(cfg)) + params.enc_pos[None]
+    b, se, _ = enc.shape
+    enc = _run_units(cfg, params.enc_units, ENCODER_SUB, enc, _positions(b, se, enc.device),
+                     freqs)
+    return L.apply_norm(cfg, params.enc_norm, enc)
+
+
 def forward(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
             extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence logits (B, S_total, V); S_total = P + S with vlm's
-    ``extra_embeds`` (B, P, d)."""
-    _check_family(cfg)
+    ``extra_embeds`` (B, P, d); S for audio, whose ``extra_embeds`` are
+    the encoder's frames (B, encoder_seq, d)."""
+    sub, _ = unit_structure(cfg)
     x = _embed(cfg, params, tokens, extra_embeds)
     if cfg.family == "ssm":
         x = _run_blocks(cfg, params, x)
     else:
+        freqs = L.rope_freqs(cfg, tokens.device)
+        enc = _encode(cfg, params, extra_embeds, freqs) if cfg.family == "audio" else None
         b, s, _ = x.shape
-        x = _run_units(cfg, params, x, _positions(b, s, x.device),
-                       L.rope_freqs(cfg, tokens.device))
+        x = _run_units(cfg, _units(cfg, params), sub, x, _positions(b, s, x.device), freqs,
+                       enc)
     x = L.apply_norm(cfg, params.final_norm, x)
     return L.unembed(cfg, params.embed, x)
 
 
 def _capture_kv_states(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
-                       freqs: torch.Tensor):
+                       freqs: torch.Tensor, enc: Optional[torch.Tensor] = None):
     """One pass of the unit stack over embeddings ``x`` → (final hidden
-    state, K and V of every attention layer, each stacked (n_attn, B, S,
-    KV, hd), and for the hybrid family each unit's final SSM state stacked
-    (n_units, B, H, N, P), else None)."""
+    state, {"k", "v"}: K and V of every attention layer, each stacked
+    (n_attn, B, S, KV, hd); for the hybrid family "ssm", each unit's final
+    SSM state stacked (n_units, B, H, N, P); for the audio family
+    "cross_k" and "cross_v", each decoder layer's cross-attention K/V over
+    ``enc`` stacked (L, B, S_enc, KV, hd))."""
     b, s, _ = x.shape
-    cap = {"k": [], "v": [], "ssm": []}
-    x = _run_units(cfg, params, x, _positions(b, s, x.device), freqs, cap)
-    ssm = torch.stack(cap["ssm"]) if cap["ssm"] else None
-    return x, torch.stack(cap["k"]), torch.stack(cap["v"]), ssm
+    sub, _ = unit_structure(cfg)
+    cap = {"k": [], "v": [], "ssm": [], "cross_k": [], "cross_v": []}
+    x = _run_units(cfg, _units(cfg, params), sub, x, _positions(b, s, x.device), freqs, enc,
+                   cap)
+    return x, {key: torch.stack(t) for key, t in cap.items() if t}
 
 
 # ===========================================================================
@@ -346,8 +429,10 @@ def _capture_kv_states(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> Cache:
     """{"pos": (batch,) int64, "k"/"v": (n_attn, batch, max_len, KV, hd)};
-    a hybrid model's also "ssm" (n_units, batch, H, N, P) f32; an ssm
-    model's "pos" and "blocks", one {"mlstm" | "slstm": state} a block."""
+    a hybrid model's also "ssm" (n_units, batch, H, N, P) f32; an audio
+    model's also "cross_k"/"cross_v" (L, batch, encoder_seq, KV, hd); an
+    ssm model's "pos" and "blocks", one {"mlstm" | "slstm": state} a
+    block."""
     sub, n_units = unit_structure(cfg)
     cache: Cache = {"pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
     if cfg.family == "ssm":
@@ -365,6 +450,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         h, pd = M.mamba_heads(cfg)
         cache["ssm"] = torch.zeros((n_units, batch, h, cfg.ssm_state, pd),
                                    dtype=torch.float32, device=device)
+    if cfg.family == "audio":
+        shape = (n_units, batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.hd)
+        cache["cross_k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=dt, device=device)
     return cache
 
 
@@ -378,13 +467,15 @@ def _decode_mask(cfg: ModelConfig, k_pos: torch.Tensor, pos: torch.Tensor,
 def _attn_decode(cfg: ModelConfig, p: L.Attention, x: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
                  freqs: torch.Tensor, is_global: bool,
-                 write_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 write_mask: Optional[torch.Tensor] = None,
+                 use_rope: bool = True) -> torch.Tensor:
     """x: (B, 1, d); k_cache/v_cache: (B, S, KV, hd), written in place at
     each row's ``pos`` (rows where ``write_mask`` is False keep their
     entry).  Returns the attention output (B, 1, d)."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     b, s_cache = x.shape[0], k_cache.shape[1]
-    q, k, v = L.qkv(cfg, p, x, pos[:, None], freqs)   # cache stores post-RoPE keys
+    # the cache stores post-RoPE keys (Whisper's decoder: unrotated)
+    q, k, v = L.qkv(cfg, p, x, pos[:, None], freqs, use_rope=use_rope)
 
     rows = torch.arange(b, device=x.device)
     at = pos.clamp(0, s_cache - 1)          # as dynamic_update_slice clamps
@@ -438,7 +529,8 @@ def decode_step(cfg: ModelConfig, params: Backbone, cache: Cache,
     """One autoregressive step: logits (B, 1, V) for the next token, and
     the cache, updated in place (``pos`` advanced by one on every row, or
     on the rows of ``write_mask`` only; the other rows' K/V entries and
-    recurrent states stay as they were)."""
+    recurrent states stay as they were).  Whisper's cross-attention reads
+    the cached cross K/V, which no step writes."""
     sub, n_units = unit_structure(cfg)
     pos = cache["pos"]
     x = L.embed(cfg, params.embed, tokens)
@@ -448,7 +540,7 @@ def decode_step(cfg: ModelConfig, params: Backbone, cache: Cache,
         flags = _global_flags(cfg, n_units, sub)
         freqs = L.rope_freqs(cfg, tokens.device)
         layer = 0
-        for u, (unit, flag_row) in enumerate(zip(params.units, flags)):
+        for u, (unit, flag_row) in enumerate(zip(_units(cfg, params), flags)):
             fi = 0
             for kind in sub:
                 p = unit[kind]
@@ -456,7 +548,8 @@ def decode_step(cfg: ModelConfig, params: Backbone, cache: Cache,
                 if kind in ("attn", "hybrid"):
                     y = _attn_decode(cfg, p.w if kind == "attn" else p.attn, hdn,
                                      cache["k"][layer], cache["v"][layer], pos, freqs,
-                                     flag_row[fi], write_mask)
+                                     flag_row[fi], write_mask,
+                                     use_rope=cfg.family != "audio")
                     fi += 1
                     layer += 1
                     if kind == "hybrid":
@@ -465,6 +558,9 @@ def decode_step(cfg: ModelConfig, params: Backbone, cache: Cache,
                         y = 0.5 * (L.apply_norm(cfg, p.norm_attn, y)
                                    + L.apply_norm(cfg, p.norm_ssm, ys))
                     x = x + y
+                elif kind == "cross":
+                    x = x + L.mha(cfg, p.w, hdn, pos[:, None], freqs, True, causal=False,
+                                  kv_override=(cache["cross_k"][u], cache["cross_v"][u]))
                 elif kind == "moe":
                     x = x + MOE.moe(cfg, p.w, hdn, drop=False)[0]
                 else:
@@ -481,8 +577,10 @@ def prefill(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, Cache]:
     """Process full prompts (B, S), vlm's ``extra_embeds`` (B, P, d)
     before them: logits (B, P + S, V) and a primed cache with ``pos`` =
-    P + S on every row (and each SSM or xLSTM state after the prompt)."""
-    _check_family(cfg)
+    P + S on every row (and each SSM or xLSTM state after the prompt).
+    For audio ``extra_embeds`` are the frames (B, encoder_seq, d): the
+    logits are (B, S, V), the cache holds each decoder layer's cross K/V,
+    and ``pos`` = S."""
     b = tokens.shape[0]
     cache = init_cache(cfg, b, max_len, device=tokens.device)
     x = _embed(cfg, params, tokens, extra_embeds)
@@ -492,11 +590,14 @@ def prefill(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
         x = _run_blocks(cfg, params, x, states)
         cache["blocks"] = states
     else:
-        x, ks, vs, ssm = _capture_kv_states(cfg, params, x, L.rope_freqs(cfg, tokens.device))
-        cache["k"][:, :, :s] = ks.to(cache["k"].dtype)
-        cache["v"][:, :, :s] = vs.to(cache["v"].dtype)
-        if ssm is not None:
-            cache["ssm"].copy_(ssm)
+        freqs = L.rope_freqs(cfg, tokens.device)
+        enc = _encode(cfg, params, extra_embeds, freqs) if cfg.family == "audio" else None
+        x, cap = _capture_kv_states(cfg, params, x, freqs, enc)
+        cache["k"][:, :, :s] = cap["k"].to(cache["k"].dtype)
+        cache["v"][:, :, :s] = cap["v"].to(cache["v"].dtype)
+        for key in ("ssm", "cross_k", "cross_v"):
+            if key in cap:
+                cache[key].copy_(cap[key])
     cache["pos"].fill_(s)
     x = L.apply_norm(cfg, params.final_norm, x)
     return L.unembed(cfg, params.embed, x), cache
@@ -505,6 +606,11 @@ def prefill(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
 def flash_launches_per_prefill(cfg: ModelConfig) -> int:
     """Flash-kernel launches of one ``prefill`` with ``attn_impl="flash"``
     at a length that is a multiple of 128: one per attention layer (a
-    hybrid layer's included), one pass; none for the ssm family."""
+    hybrid layer's included), one pass; none for the ssm family.  Whisper's
+    cross-attention never takes flash, and its encoder layers do when
+    ``encoder_seq`` is a multiple of 128 (1,500 is not)."""
     sub, n_units = unit_structure(cfg)
-    return n_units * sum(1 for k in sub if k in ("attn", "hybrid"))
+    n = n_units * sum(1 for k in sub if k in ("attn", "hybrid"))
+    if cfg.family == "audio" and cfg.encoder_seq % 128 == 0:
+        n += cfg.encoder_layers
+    return n

@@ -7,8 +7,9 @@ from an explicit ``torch.Generator`` with the reference's distributions.
 A dense weight is stored (out, in), ``nn.Linear``'s layout, where the
 reference stores (in, out); ``interop.backbone_params_from_numpy``
 transposes.  The reference's sharding arguments are dropped: one card
-has no mesh.  Cross-attention (``kv_override``) comes with the audio
-family.
+has no mesh.  Cross-attention passes the encoder's K/V as
+``kv_override``: only q is projected, and the path is naive (or
+chunked-query), as in the reference.
 """
 
 from __future__ import annotations
@@ -120,30 +121,44 @@ def _attn_mask(cfg: ModelConfig, q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 
 def qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor,
-        freqs: torch.Tensor, causal: bool = True, use_rope: bool = True
+        freqs: torch.Tensor, causal: bool = True, use_rope: bool = True,
+        kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Projected q (B, S, H, hd) and k, v (B, S, KV, hd), RoPE applied to
-    q and k of self-attention."""
+    q and k of causal self-attention with ``use_rope``.  With
+    ``kv_override`` (cross-attention) only q is projected and k, v are
+    the override's, unrotated."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q = F.linear(x, p.wq, p.bq).reshape(b, s, h, hd)
-    k = F.linear(x, p.wk, p.bk).reshape(b, s, kv, hd)
-    v = F.linear(x, p.wv, p.bv).reshape(b, s, kv, hd)
-    if causal and use_rope:   # RoPE on self-attention only
-        k = apply_rope(k, positions, freqs)
+    rope = causal and use_rope     # RoPE on self-attention only (Whisper: none)
+    if kv_override is None:
+        k = F.linear(x, p.wk, p.bk).reshape(b, s, kv, hd)
+        v = F.linear(x, p.wv, p.bv).reshape(b, s, kv, hd)
+        if rope:
+            k = apply_rope(k, positions, freqs)
+    else:
+        k, v = kv_override
+    if rope:
         q = apply_rope(q, positions, freqs)
     return q, k, v
 
 
 def mha_kv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor,
            freqs: torch.Tensor, is_global: bool, causal: bool = True,
-           use_rope: bool = True) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+           use_rope: bool = True,
+           kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``mha`` that also returns this layer's k and v (post-RoPE), which
     prefill writes into the cache."""
     b, s, _ = x.shape
-    q, k, v = qkv(cfg, p, x, positions, freqs, causal, use_rope)
-    k_pos = positions[0]
-    if cfg.attn_impl == "flash" and s == k.shape[1] and s % 128 == 0:
+    q, k, v = qkv(cfg, p, x, positions, freqs, causal, use_rope, kv_override)
+    if kv_override is None:
+        k_pos = positions[0]
+    else:
+        k_pos = torch.arange(k.shape[1], device=x.device)
+    if (cfg.attn_impl == "flash" and kv_override is None
+            and s == k.shape[1] and s % 128 == 0):
         out = _attn_flash(cfg, q, k, v, is_global, causal)
     elif cfg.attn_impl == "chunked_q":
         out = _attn_chunked_q(cfg, q, k, v, positions, k_pos, is_global, causal)
@@ -155,11 +170,13 @@ def mha_kv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Ten
 
 def mha(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor,
         freqs: torch.Tensor, is_global: bool, causal: bool = True,
-        use_rope: bool = True) -> torch.Tensor:
-    """x: (B, S, d); positions: (B, S).  Flash is taken when
-    ``attn_impl == "flash"`` and S is a multiple of 128, as in the
-    reference; otherwise the naive path."""
-    return mha_kv(cfg, p, x, positions, freqs, is_global, causal, use_rope)[0]
+        use_rope: bool = True,
+        kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """x: (B, S, d); positions: (B, S); ``kv_override`` (k, v), each (B,
+    Sk, KV, hd), attends to them at key positions 0..Sk-1.  Flash is
+    taken when ``attn_impl == "flash"``, there is no override and S is a
+    multiple of 128, as in the reference; otherwise the naive path."""
+    return mha_kv(cfg, p, x, positions, freqs, is_global, causal, use_rope, kv_override)[0]
 
 
 def _attn_naive(cfg, q, k, v, positions, k_pos, is_global, causal):

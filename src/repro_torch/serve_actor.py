@@ -57,11 +57,7 @@ def main(argv=None):
                     help="write the phase-separated serving report")
     args = ap.parse_args(argv)
 
-    try:
-        cfg = get_config(args.arch, smoke=args.smoke)
-    except NotImplementedError as e:
-        print(f"{args.arch}: not servable here — {e}", file=sys.stderr)
-        return 2
+    cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.family not in SUPPORTED_FAMILIES:
         print(f"{cfg.name}: family {cfg.family!r} is not servable — the "
               f"continuous-batching engine needs a position-indexed KV "

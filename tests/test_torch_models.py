@@ -8,8 +8,9 @@ seeded numpy generator.  Configs: ``granite_8b``, ``internlm2_1_8b``,
 ``mixtral_8x7b`` and ``llama4_maverick_400b_a17b`` (moe),
 ``phi_3_vision_4_2b`` (vlm, patch embeddings prepended), ``hymba_1_5b``
 (hybrid: attention and SSM heads; a 256-token prompt, two SSM chunks, past
-its window of 32) and ``xlstm_125m`` (ssm: mLSTM and sLSTM blocks) SMOKE
-(f32), plus
+its window of 32), ``xlstm_125m`` (ssm: mLSTM and sLSTM blocks) and
+``whisper_medium`` (audio: encoder, decoder and cross-attention; its
+dedicated tests are ``tests/test_torch_whisper.py``) SMOKE (f32), plus
 variants that switch on what those two leave off —
 sliding and chunked masks with a global-layer period, qkv biases,
 layernorm, gelu and tied embeddings.  Tolerances: layers atol 1e-5,
@@ -140,7 +141,8 @@ def test_mha_matches(impl, variant, is_global):
                                           ("llama4_maverick_400b_a17b", "granite"),
                                           ("phi_3_vision_4_2b", "granite"),
                                           ("hymba_1_5b", "granite"),
-                                          ("xlstm_125m", "granite")])
+                                          ("xlstm_125m", "granite"),
+                                          ("whisper_medium", "granite")])
 def test_forward_prefill_decode_match(arch, variant):
     """Mixtral (sliding, window 4) and Llama-4 (chunked, window 4, global
     every 2nd attention layer) route through their moe layers; Phi-3-vision
@@ -148,7 +150,9 @@ def test_forward_prefill_decode_match(arch, variant):
     tests/test_models.py makes them), and ``pos`` counts them.  Hymba keeps
     its window of 32 and prefills 256 tokens, so its SSM crosses a chunk
     boundary and its local layer masks; its cache holds each unit's SSM
-    state, xLSTM's each block's recurrent state."""
+    state, xLSTM's each block's recurrent state.  Whisper encodes its
+    frames (``extra_embeds``, which do not count in ``pos``) and caches
+    each decoder layer's cross K/V."""
     hymba = arch == "hymba_1_5b"
     jcfg, tcfg = configs(arch, variant, **({} if hymba else {"window": 4}))
     params, model = carried(jcfg, tcfg, seed=5)
@@ -160,8 +164,9 @@ def test_forward_prefill_decode_match(arch, variant):
     tokens = rng.integers(0, jcfg.vocab_size, size=(b, s)).astype(np.int32)
     tt = torch.from_numpy(tokens).long()
     extra = jextra = None
-    if n_extra:
-        extra = (rng.normal(size=(b, n_extra, jcfg.d_model)) * 0.1).astype(np.float32)
+    n_embeds = jcfg.encoder_seq if jcfg.family == "audio" else n_extra
+    if n_embeds:
+        extra = (rng.normal(size=(b, n_embeds, jcfg.d_model)) * 0.1).astype(np.float32)
         jextra = jnp.asarray(extra)
         extra = torch.from_numpy(extra)
     with torch.no_grad():
@@ -185,10 +190,11 @@ def test_forward_prefill_decode_match(arch, variant):
 
 
 def close_caches(cache, ref_cache, atol):
-    """K/V (and a hybrid model's SSM states) or an ssm model's block states,
-    against the reference's cache (the tolerance of the backbone)."""
+    """K/V (and a hybrid model's SSM states, an audio model's cross K/V) or
+    an ssm model's block states, against the reference's cache (the
+    tolerance of the backbone)."""
     assert set(cache) == set(ref_cache)
-    for key in ("k", "v", "ssm"):
+    for key in ("k", "v", "ssm", "cross_k", "cross_v"):
         if key in cache:
             close(cache[key], ref_cache[key], atol, 1e-4)
     for blk, ref_blk in zip(cache.get("blocks", []), ref_cache.get("blocks", []), strict=True):
@@ -299,15 +305,18 @@ def test_init_params_distributions_and_device():
 
 
 def test_unported_families_and_archs_raise():
-    """Only the audio family and its arch still raise, naming its ROADMAP
-    item; the moe and vlm configs are the reference's, field for field."""
-    cfg = dataclasses.replace(get_config("granite_8b", smoke=True), family="audio")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+    """Every family and arch of the reference is ported: a family or an
+    arch it does not have raises; the moe, vlm and audio configs are the
+    reference's, field for field."""
+    cfg = dataclasses.replace(get_config("granite_8b", smoke=True), family="conv")
+    with pytest.raises(ValueError, match="unknown family 'conv'"):
         tb.init_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        get_config("whisper_medium")
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt2")
+    for smoke in (False, True):
+        assert dataclasses.asdict(get_config("whisper_medium", smoke=smoke)) == \
+            dataclasses.asdict(jget_config("whisper_medium", smoke=smoke)), smoke
+    assert get_config("whisper-medium") == get_config("whisper_medium")
     ref = jget_config("granite_8b")
     assert dataclasses.asdict(get_config("granite-8b")) == dataclasses.asdict(ref)
     assert dataclasses.asdict(get_config("internlm2_1_8b", smoke=True)) == \

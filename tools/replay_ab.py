@@ -35,7 +35,7 @@ takes one of its other instances: 64-bit sort keys, a division by K, or
 both (this tree takes 32-bit keys and a shift at every one of these
 shapes).
 
-Every time is ``chip_smoke.device_ms`` (the median of 60 calls behind a GPU
+Every time is ``chip_smoke.device_ms`` (the median of 30 calls behind a GPU
 sleep); the chains also ``call_ms``.  Prints each process's record and the
 mean of each time a variant, with its smallest and largest.
 """
