@@ -113,12 +113,14 @@ failure and prints no result):
                 the f32 forward and backward kernels) and the sample and
                 gather kernels on every step,
                 finite losses, moved parameters, the tree's root changed at the
-                flush after update_priorities, the step-2 checkpoint restored
-                into a fresh state bit for bit, the sample and gather kernels
+                flush after update_priorities, the sample and gather kernels
                 against their plain versions on the run's own tree and token
                 rows, a profiled train step, a second call with --steps 3
-                --ckpt-every 0 that resumes from step 2, and the peak memory
-                of both calls;
+                --ckpt-every 0 that resumes from step 2, the step-2
+                checkpoint restored into that call's fresh state bit for bit
+                (every tensor's 128-bit fingerprint: ``fingerprints``), its
+                final save observed and not written (nothing reads it), and
+                the peak memory of both calls;
      13(b)    — bf16 Adam moments (AdamConfig(lr=1e-4, state_dtype="bfloat16"))
                 on a fresh InternLM2-1.8B state, two train steps on seeded
                 (8, 256) batches: every moment bf16, the second update of the
@@ -144,7 +146,7 @@ failure and prints no result):
                 and every state tensor bit for bit; (b) publish interval 4
                 over 12 iterations, the ages [1, 2, 3, 0] x 3 and the acting
                 copy byte-identical between publishes; (c) publish interval
-                4 for 384 iterations at the main path's settings: return
+                4 for 256 iterations at the main path's settings: return
                 above 30, one descent and one gather launch per learner
                 call, no host sync in a step;
  17. actor-critic — DDPG, TD3 and SAC on Pendulum x 8 at the settings of
@@ -172,7 +174,7 @@ failure and prints no result):
                 over gloo: gloo's all_reduce and broadcast on CUDA tensors,
                 pod_data_mesh(2, 1) = data_mesh(2) bit for bit over 40
                 iterations, then phase 4's settings split over 2 shards (4 envs,
-                capacity 10,000 and batch 32 a shard, K=128), 384 iterations:
+                capacity 10,000 and batch 32 a shard, K=128), 256 iterations:
                 return above 30, one descent and one gather launch per learner
                 call on each rank, parameters, target, Adam state and step
                 byte-identical on both ranks, #1 and #2 against their plain
@@ -329,6 +331,32 @@ failure and prints no result):
                 decoder's (128, 128, 64) causal, held to their plain
                 versions, beside their bounds, plain times and SDPA (phases
                 7 and 11 hold the three cases too).
+ 26. sharding — launch/sharded.py, the token-DQN train step on a mesh of
+                ranks with its state and batch as DTensors: (a) InternLM2-1.8B
+                at full width and depth (bf16, flash, remat) on a 1x1 mesh of
+                one NCCL rank in this process, one step bit for bit the
+                unsharded step's (loss, grad norm, |TD|, every updated
+                parameter) with the same 72 #5, 24 #6 and 24 #7 launches;
+                (b) the same model and seeded (8, 128) batch on a 1x2 (data,
+                model) mesh of two gloo ranks sharing the card: each rank's
+                resident state (the allocator's requested bytes; its
+                memory_allocated beside them) equal to
+                launch/specs.py::tree_device_bytes, 72 #5, 24 #6 and 24 #7
+                launches on every rank's heads' shard, and the step's first
+                moments (the clipped gradient) no farther (relative l2)
+                from the f32 unsharded step than 1.1x the bf16 unsharded
+                step (phase 12's relative rule), over all of them, on the
+                median leaf and on the worst leaf; (c) the SMOKE width in
+                bf16 on a 2x1 mesh (FSDP over data) under the same rules (the
+                f32 kernels: hd 16), and in f32 on 2x1 and 1x2 against the
+                unsharded f32 step, every leaf of m and v, the loss, grad
+                norm and |TD| by tests/test_torch_token_dqn.py's rules;
+                (d) launch.train --mesh 16x16 --steps 2
+                with phase 13's arguments: every state tensor's fingerprint
+                and the history equal to phase 13's --mesh host run's, #1
+                and #2 launched as there; (e) every config's state bytes per
+                device at 16x16 and 2x16x16, f32 and bf16 moments, from
+                shapes alone.
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration.
@@ -345,6 +373,7 @@ the ``{"kernels": [...]}`` record.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -1109,6 +1138,27 @@ def same_td_grads(torch, on: dict, off: dict) -> dict:
             "grads_rel_l2": rel_l2(zip(off["grads"], on["grads"])), "gradients": len(pairs) - 1}
 
 
+@contextlib.contextmanager
+def unwritten_saves():
+    """``CheckpointManager.save`` observed and not written, for a run whose
+    final checkpoint nothing reads (26.4 GB at InternLM2-1.8B, ~30-40 s a
+    write): yields the (step, tensor count) of each call."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    calls = []
+    real = CheckpointManager.save
+
+    def observed(self, step, tensors, extra=None):
+        calls.append((step, len(tensors)))
+        return os.path.join(self.dir, f"step_{step}")
+
+    CheckpointManager.save = observed
+    try:
+        yield calls
+    finally:
+        CheckpointManager.save = real
+
+
 def train_phases(torch, dev, card: str) -> list:
     """Phases 11-14 → the dQ and dK/dV kernels' entries of the kernels line
     and the training path's launch counts."""
@@ -1323,28 +1373,21 @@ def train_phases(torch, dev, card: str) -> list:
               f"kernels on every step")
         check(all(math.isfinite(h[k]) for h in hist for k in ("loss", "grad_norm", "q_mean")),
               "non-finite loss, grad norm or Q mean on the training path")
+        # 26(d) holds launch.train --mesh 16x16 to this run
+        PHASE13_HOST.update(
+            argv=list(argv[:argv.index("--ckpt-every")] + argv[argv.index("--ckpt-dir") + 2:]),
+            fingerprints=fingerprints(torch, state_tensors(state)),
+            history=[{k: h[k] for k in ("loss", "grad_norm", "q_mean")} for h in hist],
+            replay_launches={k: train_counts.get(k, 0) for k in ("sumtree_sample", "gather")})
         moved = max(float((p.detach() - t).abs().max()) for p, t in
                     zip(state.params.parameters(), state.target.parameters()))
         check(moved > 0, "the online network never moved from its target copy")
         check(res["root_after_flush"] != res["root_before_flush"],
               f"the tree's root total did not change at the flush after update_priorities "
               f"({res['root_before_flush']})")
-        # the checkpoint of the last step restores into a fresh state bit for bit
         mgr = CheckpointManager(ckpt, keep=2)
         check(mgr.all_steps() == [TRAIN_STEPS - 1, TRAIN_STEPS],
               f"checkpoints {mgr.all_steps()}, expected [{TRAIN_STEPS - 1}, {TRAIN_STEPS}]")
-        t0 = time.perf_counter()
-        fresh = token_dqn.init_train_state(res["cfg"], res["tcfg"],
-                                           torch.Generator(device=dev).manual_seed(SEED + 99))
-        got = mgr.restore(TRAIN_STEPS, state_tensors(fresh))
-        restore_s = time.perf_counter() - t0
-        saved = state_tensors(state)
-        same = sum(bool(torch.equal(t, saved[k])) for k, t in got.items())
-        check(same == len(saved) == len(got), f"{len(got) - same} of {len(got)} tensors did not "
-              f"restore bit for bit")
-        del fresh, got, saved
-        gc.collect()
-        torch.cuda.empty_cache()
         # the replay kernels against their plain versions on the run's own
         # tree and token rows
         replay, rst = res["replay"], res["replay_state"]
@@ -1354,8 +1397,8 @@ def train_phases(torch, dev, card: str) -> list:
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             idx, items, w = replay.sample(rst, gen, 8)
-            state, _, _ = token_dqn.train_step(res["cfg"], res["tcfg"], state,
-                                               dict(items, is_weights=w))
+            state, _, _ = token_dqn.train_step(res["cfg"], token_dqn.NO_SHARDING, res["tcfg"],
+                                               state, dict(items, is_weights=w))
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e6
         step_prof = profile_summary(torch, prof, wall, 1)
@@ -1365,18 +1408,46 @@ def train_phases(torch, dev, card: str) -> list:
         torch.cuda.empty_cache()
         # the card's machine has ~75 GB of disk
         shutil.rmtree(os.path.join(ckpt, f"step_{TRAIN_STEPS - 1}"))
-        # a second call resumes from the last step (and saves only its final
-        # state: each 26.4 GB save takes ~37 s)
+        # a second call resumes from the last step.  The checkpoint of the
+        # last step restores into that call's fresh state bit for bit: every
+        # tensor's fingerprint equals that of the first call's final state
+        # (one 26.4 GB read, where a separate restore took another ~41 s).
+        # Its final save is observed and not written: the first call wrote
+        # two, and nothing reads a third
         printed = io.StringIO()
         ops.reset_launch_counts()
-        with contextlib.redirect_stdout(printed):
-            res2 = train.main(argv + ["--steps", str(TRAIN_STEPS + 1), "--ckpt-every", "0"])
+        restored = {}
+        setup = train.token_setup
+
+        def observed_setup(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = setup(*args, **kwargs)
+            restored.update(seconds=time.perf_counter() - t0, start=out.start,
+                            fingerprints=fingerprints(torch, state_tensors(out.state)))
+            return out
+
+        train.token_setup = observed_setup
+        try:
+            with contextlib.redirect_stdout(printed), unwritten_saves() as saves:
+                res2 = train.main(argv + ["--steps", str(TRAIN_STEPS + 1), "--ckpt-every", "0"])
+        finally:
+            train.token_setup = setup
         resume_counts = dict(ops.launch_counts)
+        restore_s = restored["seconds"]
+        want_prints = PHASE13_HOST["fingerprints"]
+        differ = [k for k, v in want_prints.items() if restored["fingerprints"].get(k) != v]
+        check(restored["start"] == TRAIN_STEPS and not differ
+              and len(restored["fingerprints"]) == len(want_prints),
+              f"{len(differ)} of {len(want_prints)} tensors did not restore bit for bit "
+              f"(fingerprints): {differ[:6]}")
         print(printed.getvalue(), end="", flush=True)
         check(f"resumed from step {TRAIN_STEPS}" in printed.getvalue()
               and res2["start"] == TRAIN_STEPS and len(res2["history"]) == 1,
               f"the second call did not resume from step {TRAIN_STEPS}: start {res2['start']}, "
               f"{len(res2['history'])} steps")
+        check(saves == [(TRAIN_STEPS + 1, len(want_prints))],
+              f"the resumed call's final saves {saves}, expected one at step {TRAIN_STEPS + 1} "
+              f"of {len(want_prints)} tensors")
         check(resume_counts.get(fa.DQ_SM90_NAME) == layers
               and resume_counts.get(fa.SM90_NAME) == 3 * layers,
               f"resumed run launches {resume_counts}")
@@ -1402,7 +1473,8 @@ def train_phases(torch, dev, card: str) -> list:
           f"actors: {steps} steps, collect {statistics.median(rate['collect_s']):.2f} s and train "
           f"step {statistics.median(rate['train_s']) * 1e3:.1f} ms (medians), "
           f"{rate['train_steps_per_s']:.3f} train steps/s of train-step time; launches "
-          f"{train_counts}; restore {restore_s:.1f} s; resumed steps {rate['resumed_steps']}; "
+          f"{train_counts}; the resumed call's set-up with its restore {restore_s:.1f} s, every "
+          f"tensor restored bit for bit (fingerprints); resumed steps {rate['resumed_steps']}; "
           f"peak memory with remat {train_peak / 2**30:.2f} GiB (first call) and "
           f"{peak / 2**30:.2f} GiB (resumed call) | {card}", flush=True)
     print(f"[train profile] one train step: {step_prof['wall_us']:,.0f} us wall, "
@@ -1569,7 +1641,8 @@ def bf16_moments_phase(torch, dev, card: str, cfg, phase13_peak: int) -> dict:
     peaks, above = {}, {}
     for arm, (arm_cfg, state_dtype) in arms.items():
         tcfg, state, resident = fresh(state_dtype)
-        state, metrics, _ = token_dqn.train_step(arm_cfg, tcfg, state, batch())
+        state, metrics, _ = token_dqn.train_step(arm_cfg, token_dqn.NO_SHARDING, tcfg, state,
+                                                 batch())
         torch.cuda.synchronize()
         peaks[arm] = torch.cuda.max_memory_allocated(dev)
         above[arm] = peaks[arm] - resident
@@ -1593,7 +1666,7 @@ def bf16_moments_phase(torch, dev, card: str, cfg, phase13_peak: int) -> dict:
     check(dtypes == {torch.bfloat16}, f"the first bf16-moment step left moments of {dtypes}")
     token_dqn.adam.update = update
     try:
-        state, metrics, _ = token_dqn.train_step(cfg, tcfg, state, batch())
+        state, metrics, _ = token_dqn.train_step(cfg, token_dqn.NO_SHARDING, tcfg, state, batch())
     finally:
         token_dqn.adam.update = real_update
     losses.append(float(metrics["loss"]))
@@ -1647,17 +1720,24 @@ def bf16_moments_phase(torch, dev, card: str, cfg, phase13_peak: int) -> dict:
 
 # -- phases 15-17: the restart, the async loop and the actor-critics ---------
 
-# one actor-critic learn step on the card against the same step on the CPU
+# one actor-critic learn step on the card against the same step on the CPU.
+# Basis: both sides are f32 roundings of one step; each is printed beside
+# its distance from the same step in f64 on the CPU ([actor-critic f64]).
+# At 200 Pendulum iterations one DDPG |TD| element fell outside this rule
+# (2.29e-5 apart) with the card 6.94e-6 from the f64 step and the CPU
+# 1.59e-5 from it, TF32 off: the CPU's reduction order, not a card fault
+# (tools/ddpg_f64.py; ROADMAP Queue 3 item 17)
 LEARN_RTOL, LEARN_ATOL = 1e-4, 1e-5
 # short enough for the script to stay well inside its time limit (the
-# Pendulum returns are reported, not gated)
+# Pendulum returns are reported, not gated); at 200 the gate above meets the
+# CPU's rounding (item 17)
 PENDULUM_ITERS = 300
 AC_AGENTS = ("ddpg", "td3", "sac")
 # 16(c) and 18(b): the return passes 30 by iteration 256 on both paths (their
 # returns a chunk, recorded in the rate lines: 40.4 and 47.6 at 256, 75.0 and
 # 128.2 at 384); 700 until the hybrid and ssm phase (24), 448 until the audio
-# phase (25) needed the time
-ASYNC_ITERS = 384
+# phase (25) and 384 until the sharding phase (26) needed the time
+ASYNC_ITERS = 256
 
 
 def differing(torch, a: dict, b: dict) -> list:
@@ -1817,6 +1897,83 @@ def copy_state(torch, agent, state, device):
     return fresh
 
 
+def _to_f64(torch, x):
+    """A copy of an agent state's floating tensors (modules, Adam moments,
+    tuples of them) in f64 on the CPU; integers and generators kept."""
+    if isinstance(x, torch.nn.Module):
+        return copy.deepcopy(x).cpu().double()
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().double() if x.is_floating_point() else x.detach().cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_f64(torch, v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_f64(torch, v) for v in x)
+    return x
+
+
+def learn_f64(torch, agent, state, batch, is_w, noise):
+    """One ``agent.learn`` on an f64 copy of ``state`` on the CPU, with an
+    f64 Adam and EMA in place of ``optim.adam``'s (which compute in f32) →
+    (state, metrics, |TD|): the reference that phase 17's card and CPU
+    steps are each measured against."""
+    from repro_torch.optim import adam
+
+    @torch.no_grad()
+    def update(grads, st, params, cfg):
+        grads = [g.double() for g in grads]
+        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+                 if cfg.grad_clip > 0 else 1.0)
+        count = st.count + 1
+        b1c, b2c = 1.0 - cfg.b1 ** count.double(), 1.0 - cfg.b2 ** count.double()
+        for g, m, v, p in zip(grads, st.m, st.v, params):
+            g = g * scale
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+            step = cfg.lr * (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+            if cfg.weight_decay:
+                step = step + cfg.lr * cfg.weight_decay * p
+            p.sub_(step)
+        return adam.AdamState(count, st.m, st.v), gnorm
+
+    @torch.no_grad()
+    def ema_update(target, online, tau, where=None):
+        for t, o in zip(target, online):
+            new = t * (1 - tau) + o * tau
+            t.copy_(new if where is None else torch.where(where, new, t))
+
+    s64 = _to_f64(torch, state)
+    kw = {} if noise is None else {"noise": _to_f64(torch, noise)}
+    saved = adam.update, adam.ema_update
+    adam.update, adam.ema_update = update, ema_update
+    try:
+        return agent.learn(s64, {k: _to_f64(torch, v) for k, v in batch.items()},
+                           _to_f64(torch, is_w), **kw)
+    finally:
+        adam.update, adam.ema_update = saved
+
+
+def f64_distances(torch, ref64, card, cpu) -> dict:
+    """Each side's largest |x - f64| over the loss, |TD| and every floating
+    state tensor, its largest over |TD| alone, and the |TD| elements where
+    the card and the CPU differ beyond phase 17's gate, each as (card, CPU,
+    f64)."""
+    from repro_torch.agents.base import state_tensors
+    rs, rm, rtd = ref64
+    ref = {k: v.detach() for k, v in {"loss": rm["loss"], "|td|": rtd,
+                                      **state_tensors(rs)}.items()}
+    out = {}
+    for side, (s, m, td) in (("card", card), ("cpu", cpu)):
+        mine = {"loss": m["loss"], "|td|": td, **state_tensors(s)}
+        out[side] = max(float((mine[k].detach().cpu().double() - ref[k]).abs().max())
+                        for k in ref if ref[k].is_floating_point())
+        out[side + "_td"] = float((td.detach().cpu().double() - rtd).abs().max())
+    a, b = card[2].detach().cpu(), cpu[2].detach()
+    far = (~torch.isclose(a, b, rtol=LEARN_RTOL, atol=LEARN_ATOL)).nonzero().flatten()
+    out["far_td"] = [(float(a[i]), float(b[i]), float(rtd[i])) for i in far[:8]]
+    return out
+
+
 def actor_critic_run(torch, dev, card: str, name: str, iterations: int) -> dict:
     """Phase 17 for one of DDPG, TD3 and SAC on Pendulum at the settings of
     benchmarks/fig10_scalability.py with 8 envs."""
@@ -1891,6 +2048,16 @@ def actor_critic_run(torch, dev, card: str, name: str, iterations: int) -> dict:
                                     is_w.to(where), **kw)
         results.append((s_copy, m, td))
     (cs, cm, ctd), (hs, hm, htd) = results
+    # the same step in f64 on the CPU: each side's distance from it says
+    # which side a difference beyond the gate belongs to (ROADMAP Queue 3
+    # item 17)
+    ref64 = learn_f64(torch, agent, st.agent, batch, is_w, noise)
+    dist64 = f64_distances(torch, ref64, (cs, cm, ctd), (hs, hm, htd))
+    print(f"[actor-critic f64] {name}, {iterations} iterations: max |x - f64| over loss, "
+          f"|TD| and the state: card {dist64['card']:.3g}, CPU {dist64['cpu']:.3g}; |TD|: "
+          f"card {dist64['card_td']:.3g}, CPU {dist64['cpu_td']:.3g}; the |TD| elements "
+          f"outside rtol {LEARN_RTOL} / atol {LEARN_ATOL} (card, CPU, f64): "
+          f"{dist64['far_td']} | {card}", flush=True)
     # every tensor the step writes (params, target, Adam count and moments,
     # step, SAC's log_alpha and its Adam state); not the generators' states
     hts = state_tensors(hs)
@@ -1906,6 +2073,7 @@ def actor_critic_run(torch, dev, card: str, name: str, iterations: int) -> dict:
           f"{LEARN_RTOL} / atol {LEARN_ATOL}: {bad}")
     final = float(hist["mean_episode_return"][-1])
     res = {"iterations": iterations, "seconds": secs, "iterations_per_s": iterations / secs,
+           "f64_distance": dist64,
            "wall_us_per_iteration": secs / iterations * 1e6,
            "env_steps_per_s": st.env_steps / secs, "learner_calls": learner_calls,
            "mean_return": final, "launches": counts, "rows": rows,
@@ -1955,7 +2123,7 @@ def actor_critic_phase(torch, dev, card: str, iterations: int = PENDULUM_ITERS) 
 
 # -- phase 18: the sharded runtime, its shards as ranks on the one card -----------
 
-SHARDED_ITERS = 384        # 18(b): see ASYNC_ITERS
+SHARDED_ITERS = 256        # 18(b): see ASYNC_ITERS
 POD_ITERS = 128            # 18(c): each of the 2×2 runs
 
 
@@ -4075,7 +4243,7 @@ def whisper_train(torch, dev, card: str) -> dict:
     for _ in range(WHISPER_TRAIN_STEPS):
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        state, metrics, tds = token_dqn.train_step(cfg, tcfg, state, batch)
+        state, metrics, tds = token_dqn.train_step(cfg, token_dqn.NO_SHARDING, tcfg, state, batch)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = dict(ops.launch_counts)
@@ -4148,6 +4316,642 @@ def audio_phase(torch, dev, card: str) -> dict:
         torch.cuda.empty_cache()
     print(f"[audio rate] {json.dumps(out)}", flush=True)
     return out
+
+
+# -- phase 26: model sharding, the token-DQN train step on a mesh of ranks ------
+
+SHARD_B, SHARD_S = 8, 128       # phase 26's batch: phase 13's (8 x TRAIN_SEQ)
+SHARD_SEED = SEED + 26
+# phase 13's first run (--mesh host), which 26(d) is held to: fingerprints of
+# its final state, its history and its replay launches
+PHASE13_HOST: dict = {}
+
+
+def fingerprints(torch, tensors: dict) -> dict:
+    """{name: (dtype, shape, two 64-bit integer sums)} of each tensor's bytes:
+    the words as integers, summed plain and weighted by (index mod 65,521)
+    + 1, in int64 (integer sums wrap the same in any order).  Equal
+    fingerprints stand for equal bytes: a difference in any word moves the
+    weighted sum unless it is a multiple of 2^64."""
+    out = {}
+    for name, t in tensors.items():
+        t = t.detach().contiguous()
+        words = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}[
+            t.element_size()]
+        x = t.reshape(-1).view(words).to(torch.int64)
+        w = torch.arange(x.numel(), device=x.device, dtype=torch.int64) % 65521 + 1
+        out[name] = (str(t.dtype), tuple(t.shape), int(x.sum()), int((x * w).sum()))
+    return out
+
+
+def shard_token_batch(torch, cfg, dev, b: int = SHARD_B, s: int = SHARD_S,
+                      seed: int = SHARD_SEED) -> dict:
+    """A seeded token-DQN batch (b, s) on ``dev``: tokens and actions over
+    the vocabulary, rewards in [0, 1), a terminal at position s/2 - 1,
+    importance weights in [0.5, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dones = torch.zeros((b, s), device=dev)
+    dones[:, s // 2 - 1] = 1.0
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev,
+                                    dtype=torch.int32),
+            "actions": torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev,
+                                     dtype=torch.int32),
+            "rewards": torch.rand((b, s), generator=g, device=dev), "dones": dones,
+            "is_weights": torch.rand((b,), generator=g, device=dev) * 0.5 + 0.5}
+
+
+def device_bytes(torch, dev) -> tuple:
+    """(bytes the caching allocator was asked for, bytes it allocated) on
+    ``dev`` now: the second rounds each request up to its block (512 B, and
+    a large block not split when its rest would be under 1 MiB)."""
+    return (torch.cuda.memory_stats(dev)["requested_bytes.all.current"],
+            torch.cuda.memory_allocated(dev))
+
+
+COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce",
+               "all_to_all_single")
+
+
+def collective_traffic(torch):
+    """A dispatch mode that counts the functional collectives DTensor
+    redistributes through and the bytes this rank puts in: {op: [calls,
+    input bytes]}.  It sees the calling thread only: the backward's
+    collectives run on the autograd engine's device thread and are not
+    counted (``mesh.HOST_COPIES`` counts the all-gathers of both).  The
+    host-staged all-gather's inner CPU call is left out."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Traffic(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.name()
+            if name.startswith("_c10d_functional::") and name.split("::")[1] in COLLECTIVES:
+                x = args[0]
+                if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+                    entry = self.ops.setdefault(name.split("::")[1], [0, 0])
+                    entry[0] += 1
+                    entry[1] += x.numel() * x.element_size()
+            return func(*args, **(kwargs or {}))
+
+    return Traffic()
+
+
+def _flash_counts(ops, fa) -> dict:
+    return {k: ops.launch_counts.get(k, 0) for k in (fa.SM90_NAME, fa.DQ_SM90_NAME,
+                                                     fa.DKV_SM90_NAME, fa.NAME, fa.DQ_NAME,
+                                                     fa.DKV_NAME)}
+
+
+def _my_piece(torch, full, spec, device_mesh):
+    """This rank's piece of ``full`` under ``spec`` (a plain tensor)."""
+    from repro_torch.launch import specs as S
+    return S.shard_tensor(full, spec, device_mesh).to_local().clone()
+
+
+def _sharded_state(torch, cfg, shd, tcfg, dev, device_mesh):
+    """The train state drawn from SHARD_SEED (``token_dqn.init_train_state``'s
+    draw) cut into this rank's pieces by ``launch/sharded.py::
+    shard_train_state``."""
+    from repro_torch.launch import sharded
+    from repro_torch.models import backbone
+
+    params = backbone.init_params(cfg, torch.Generator(device=dev).manual_seed(SHARD_SEED))
+    target = copy.deepcopy(params).requires_grad_(False)
+    return sharded.shard_train_state(cfg, shd, tcfg, params, target, device_mesh)
+
+
+def _reference_moments(torch, cfg, tcfg, dev, batch, dtype, pspec, device_mesh) -> dict:
+    """One unsharded ``train_step`` of the bf16 model drawn from
+    SHARD_SEED, in ``dtype`` ("float32": the same bf16 weights cast to f32)
+    → this rank's pieces of the new first moments (f32: (1 - b1) × the
+    clipped gradient), the loss, grad norm and per-sequence |TD|."""
+    from repro_torch.agents import token_dqn
+    from repro_torch.models import backbone
+    from repro_torch.optim import adam
+
+    params = backbone.init_params(cfg, torch.Generator(device=dev).manual_seed(SHARD_SEED))
+    c = dataclasses.replace(cfg, dtype=dtype)
+    if dtype != cfg.dtype:
+        wide = backbone.Backbone(c, dev)
+        with torch.no_grad():
+            for p, q in zip(wide.parameters(), params.parameters()):
+                p.copy_(q)
+        params = wide
+    target = copy.deepcopy(params).requires_grad_(False)
+    state = token_dqn.TrainState(params, target, adam.init(params.parameters(), tcfg.opt),
+                                 torch.zeros((), dtype=torch.int32, device=dev))
+    state, metrics, tds = token_dqn.train_step(c, token_dqn.NO_SHARDING, tcfg, state, batch)
+    names = [n for n, _ in params.named_parameters()]
+    pieces = [_my_piece(torch, m, pspec[n], device_mesh) for n, m in zip(names, state.opt.m)]
+    out = {"m": pieces, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+           "tds": tds.float().cpu()}
+    del state, params, target
+    return out
+
+
+def _replication(torch, spec, shape, device_mesh) -> int:
+    """On how many ranks of the mesh each piece of a tensor lives."""
+    from repro_torch.launch import specs as S
+    return device_mesh.size() // S.num_shards(shape, spec, device_mesh)
+
+
+def _sharded_step_rank(torch, dev, cfg, tcfg, shd, mesh_shape) -> dict:
+    """One rank of 26(b) or 26(c): this rank's pieces of the state drawn from
+    SHARD_SEED (its resident bytes against ``tree_device_bytes``), the
+    unsharded f32 and bf16 steps' first moments (each rank in turn, its
+    pieces kept), then one sharded ``train_step`` with the kernels' launches
+    counted, and the squared distances of the moments summed over the mesh
+    (each piece once)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.agents.base import state_tensors
+    from repro_torch.agents import token_dqn
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded
+    from repro_torch.models import backbone
+
+    mesh = meshlib.small_mesh(*mesh_shape)
+    dm = meshlib.to_device_mesh(mesh, dev.type)
+    batch = shard_token_batch(torch, cfg, dev)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = device_bytes(torch, dev)
+    t0 = time.perf_counter()
+    state = _sharded_state(torch, cfg, shd, tcfg, dev, dm)
+    gc.collect()
+    torch.cuda.synchronize()
+    requested, allocated = (x - y for x, y in zip(device_bytes(torch, dev), base))
+    init_s = time.perf_counter() - t0
+    want = sharded.state_device_bytes(cfg, shd, state, dm)
+    n_tensors = len(state_tensors(state))
+    local = sharded.local_state_bytes(state)
+    pspec = backbone.param_specs(cfg, shd, state.params)
+    # the unsharded references, one rank at a time (each holds a whole
+    # state while it steps: 30 GB in f32 at InternLM2-1.8B)
+    refs = {}
+    for turn in range(dm.size()):
+        dist.barrier()
+        if turn == dist.get_rank():
+            for dtype in ("float32", "bfloat16"):
+                refs[dtype] = _reference_moments(torch, cfg, tcfg, dev, batch, dtype, pspec, dm)
+                gc.collect()
+                torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    meshlib.HOST_COPIES["all_gather_into_tensor"] = 0
+    t0 = time.perf_counter()
+    with collective_traffic(torch) as traffic:
+        state, metrics, tds = token_dqn.train_step(cfg, shd, tcfg, state,
+                                                   sharded.shard_batch(shd, batch, dm))
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = _flash_counts(ops, fa)
+    host_copies = dict(meshlib.HOST_COPIES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    names = [n for n, _ in state.params.named_parameters()]
+    # each leaf's squared distances, summed over the mesh (each piece once)
+    sums = torch.zeros((len(names), 4), dtype=torch.float64, device=dev)
+    for i, (n, p) in enumerate(zip(names, state.params.parameters())):
+        mine = state.opt.m[i].to_local().double()
+        r32, r16 = refs["float32"]["m"][i].double(), refs["bfloat16"]["m"][i].double()
+        share = 1.0 / _replication(torch, pspec[n], tuple(p.shape), dm)
+        sums[i] = share * torch.stack([((mine - r32) ** 2).sum(), ((r16 - r32) ** 2).sum(),
+                                       (r32 ** 2).sum(), ((mine - r16) ** 2).sum()])
+    dist.all_reduce(sums)
+    sums = sums.cpu()
+    d_sharded, d_bf16, norm, d_pair = (float(x) for x in sums.sum(0).sqrt())
+    leaves = _leaf_distances(torch, names, sums)
+    ref32 = refs["float32"]
+    return {"mesh": list(mesh_shape), "resident_bytes": requested,
+            "allocated_bytes": allocated, "want_bytes": want,
+            "local_bytes": local, "n_tensors": n_tensors, "init_s": init_s, "step_s": step_s,
+            "launches": launches, "host_copies": host_copies, "peak_bytes": peak,
+            "collectives": traffic.ops,
+            "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "ref_loss": {d: r["loss"] for d, r in refs.items()},
+            "ref_grad_norm": {d: r["grad_norm"] for d, r in refs.items()},
+            "tds": tds.float().cpu().tolist(), "ref_tds": ref32["tds"].tolist(),
+            "m_rel_sharded_vs_f32": d_sharded / norm, "m_rel_bf16_vs_f32": d_bf16 / norm,
+            "m_rel_sharded_vs_bf16": d_pair / norm, "leaves": leaves,
+            "scalar_rel_from_f32": {
+                side: {"loss": abs(loss - refs["float32"]["loss"]) / abs(refs["float32"]["loss"]),
+                       "grad_norm": abs(gn - refs["float32"]["grad_norm"])
+                       / abs(refs["float32"]["grad_norm"]),
+                       "|td|": float((t - ref32["tds"]).norm() / ref32["tds"].norm())}
+                for side, loss, gn, t in (
+                    ("sharded", float(metrics["loss"]), float(metrics["grad_norm"]),
+                     tds.float().cpu()),
+                    ("bf16", refs["bfloat16"]["loss"], refs["bfloat16"]["grad_norm"],
+                     refs["bfloat16"]["tds"]))}}
+
+
+def _leaf_distances(torch, names, sums) -> dict:
+    """Per-leaf relative l2 distances from the f32 step's first moments, of
+    the sharded step and of the bf16 unsharded step (``sums``: each leaf's
+    squared distances and squared norm, (leaves, 4)): the median and the
+    worst leaf of each side, and the leaves whose f32 moment is all zero
+    (no relative distance) with the sharded step's distance there."""
+    d = sums.sqrt()
+    live = d[:, 2] > 0
+    out = {}
+    for side, col in (("sharded", 0), ("bf16", 1)):
+        rel = d[live, col] / d[live, 2]
+        worst = int(rel.argmax())
+        out[side] = {"median": float(rel.median()), "worst": float(rel[worst]),
+                     "worst_leaf": [n for n, ok in zip(names, live.tolist()) if ok][worst],
+                     "p90": float(rel.quantile(0.9))}
+    out["zero"] = {n: [float(d[i, 0]), float(d[i, 1])]
+                   for i, n in enumerate(names) if not bool(live[i])}
+    out["leaves"] = len(names)
+    return out
+
+
+def _f32_step_rank(torch, dev, shd, mesh_shape) -> dict:
+    """26(c) in f32: InternLM2's SMOKE width in f32 (flash: the f32 kernels)
+    on this mesh against the unsharded f32 step of the same state and
+    batch on this rank.  Only the order of the sums differs between the
+    two, so they are held to tests/test_torch_token_dqn.py's rules for two
+    f32 implementations of the step: loss, grad norm and every |TD| at
+    rtol 1e-5 / atol 1e-6, each leaf of m and v at rtol 1e-4 plus 1e-5 of
+    the leaf's largest magnitude (a reduction left partial over a mesh axis
+    moves a leaf by a whole part of it, far past either).  → what falls
+    outside, and the largest difference of m or v as a share of its
+    bound."""
+    from repro_torch.agents import token_dqn
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded
+    from repro_torch.models import backbone
+
+    cfg = dataclasses.replace(get_config("internlm2_1_8b", smoke=True), attn_impl="flash",
+                              dtype="float32")
+    tcfg = token_dqn.TokenDQNConfig()
+    batch = shard_token_batch(torch, cfg, dev)
+    dm = meshlib.to_device_mesh(meshlib.small_mesh(*mesh_shape), dev.type)
+    ref = token_dqn.init_train_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(
+        SHARD_SEED))
+    ref, m_u, tds_u = token_dqn.train_step(cfg, token_dqn.NO_SHARDING, tcfg, ref, batch)
+    state = _sharded_state(torch, cfg, shd, tcfg, dev, dm)
+    state, m_s, tds_s = token_dqn.train_step(cfg, shd, tcfg, state,
+                                             sharded.shard_batch(shd, batch, dm))
+    pspec = backbone.param_specs(cfg, shd, state.params)
+    far, worst = [], 0.0
+    for i, (n, _) in enumerate(state.params.named_parameters()):
+        for key in ("m", "v"):
+            want = getattr(ref.opt, key)[i].detach()
+            piece = _my_piece(torch, want, pspec[n], dm)
+            bound = 1e-4 * piece.abs() + 1e-5 * want.abs().max()
+            diff = (getattr(state.opt, key)[i].to_local() - piece).abs()
+            worst = max(worst, float((diff / bound.clamp_min(1e-30)).max()))
+            if bool((diff > bound).any()):
+                far.append(f"{key} {n}")
+    scalars = {}
+    for k in ("loss", "grad_norm"):
+        a, b = float(m_s[k]), float(m_u[k])
+        scalars[k] = [a, b]
+        if abs(a - b) > 1e-6 + 1e-5 * abs(b):
+            far.append(k)
+    tds_s, tds_u = tds_s.float().cpu(), tds_u.float().cpu()
+    if bool(((tds_s - tds_u).abs() > 1e-6 + 1e-5 * tds_u.abs()).any()):
+        far.append("|td|")
+    return {"mesh": list(mesh_shape), "far": far, "worst_share": worst, "scalars": scalars,
+            "td_max_abs_diff": float((tds_s - tds_u).abs().max()),
+            "leaves": 2 * len(pspec)}
+
+
+def _sharding_ranks(rank: int, device: str) -> dict:
+    """26(b) and (c) on one of two gloo ranks sharing the card: InternLM2-1.8B
+    at full width and depth on a 1×2 (data, model) mesh, then its SMOKE
+    width in bf16 on a 2×1 mesh."""
+    import torch
+
+    from repro_torch.agents import token_dqn
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.train import token_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    shd = meshlib.sharding_config(False)
+    tcfg = token_config()
+    full = dataclasses.replace(get_config("internlm2_1_8b"), attn_impl="flash")
+    out = {"b": _sharded_step_rank(torch, dev, full, tcfg, shd, (1, 2))}
+    smoke = dataclasses.replace(get_config("internlm2_1_8b", smoke=True), attn_impl="flash",
+                                dtype="bfloat16")
+    out["c"] = _sharded_step_rank(torch, dev, smoke, token_dqn.TokenDQNConfig(), shd, (2, 1))
+    out["c32"] = [_f32_step_rank(torch, dev, shd, m) for m in ((2, 1), (1, 2))]
+    return out
+
+
+def _sharding_one_by_one(torch, dev, card: str) -> dict:
+    """26(a): world 1 over NCCL in this process; one unsharded ``train_step``
+    of InternLM2-1.8B at full width and depth (bf16, flash, remat), then the
+    same state drawn again, placed on a 1×1 mesh and stepped through the
+    sharded path: loss, grad norm, |TD| and every updated parameter bit for
+    bit, and the same flash launches."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.agents import token_dqn
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded
+    from repro_torch.launch.train import token_config
+
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"), attn_impl="flash")
+    tcfg, shd = token_config(), meshlib.sharding_config(False)
+    batch = shard_token_batch(torch, cfg, dev)
+    state = token_dqn.init_train_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(
+        SHARD_SEED))
+    ops.reset_launch_counts()
+    state, m_u, tds_u = token_dqn.train_step(cfg, token_dqn.NO_SHARDING, tcfg, state, batch)
+    torch.cuda.synchronize()
+    counts_u = _flash_counts(ops, fa)
+    new_u = [p.detach() for p in state.params.parameters()]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
+    try:
+        dm = meshlib.to_device_mesh(meshlib.small_mesh(1, 1), dev.type)
+        base = device_bytes(torch, dev)
+        state = _sharded_state(torch, cfg, shd, tcfg, dev, dm)
+        gc.collect()
+        torch.cuda.synchronize()
+        requested, allocated = (x - y for x, y in zip(device_bytes(torch, dev), base))
+        want = sharded.state_device_bytes(cfg, shd, state, dm)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m_s, tds_s = token_dqn.train_step(cfg, shd, tcfg, state,
+                                                 sharded.shard_batch(shd, batch, dm))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        counts_s = _flash_counts(ops, fa)
+        new_s = [p.detach().to_local() for p in state.params.parameters()]
+        differ = [i for i, (a, b) in enumerate(zip(new_s, new_u)) if not same_bytes(torch, a, b)]
+        same = {k: same_bytes(torch, m_s[k].float().reshape(1), m_u[k].float().reshape(1))
+                for k in ("loss", "grad_norm")}
+        same["|td|"] = same_bytes(torch, tds_s, tds_u)
+        n = len(new_u)
+        del state, new_s
+    finally:
+        dist.destroy_process_group()
+    del new_u
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"differ": differ, "same": same, "n_params": n, "counts_unsharded": counts_u,
+            "counts_sharded": counts_s, "resident_bytes": requested,
+            "allocated_bytes": allocated, "want_bytes": want,
+            "step_s": step_s, "loss": float(m_u["loss"]), "grad_norm": float(m_u["grad_norm"])}
+
+
+def sharding_phase(torch, dev, card: str, parts: str = "abcde") -> dict:
+    """Phase 26: ``launch/sharded.py`` — (a) a 1×1 mesh bit for bit against
+    the unsharded step; (b) a 1×2 mesh of two gloo ranks sharing the card;
+    (c) a 2×1 mesh at SMOKE width; (d) ``launch/train.py --mesh 16x16``
+    against phase 13's ``--mesh host`` run; (e) every config's state bytes
+    per device at 16×16 and 2×16×16.  ``parts`` picks some of them (a
+    driver that runs the phase alone)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as meshlib
+
+    t_phase = time.perf_counter()
+    res = {}
+    layers = get_config("internlm2_1_8b").num_layers
+    want_flash = {fa.SM90_NAME: 3 * layers, fa.DQ_SM90_NAME: layers, fa.DKV_SM90_NAME: layers,
+                  fa.NAME: 0, fa.DQ_NAME: 0, fa.DKV_NAME: 0}
+    took = {}
+    if "a" in parts:
+        res["a"] = _sharding_check_a(torch, dev, card, want_flash)
+        took["a"] = time.perf_counter() - t_phase
+    if "b" in parts or "c" in parts:
+        t0 = time.perf_counter()
+        ranks = meshlib.spawn(_sharding_ranks, 2, str(dev), backend="gloo", device=str(dev),
+                              timeout_s=900)
+        res.update(_sharding_check_bc(ranks, card, want_flash))
+        took["b, c"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "d" in parts:
+        t0 = time.perf_counter()
+        res["d"] = _sharding_check_d(torch, card)
+        took["d"] = time.perf_counter() - t0
+    if "e" in parts:
+        res["e"] = _sharding_bytes_table(card)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[sharding] phase 26 in {res['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")", flush=True)
+    return res
+
+
+def _sharding_check_a(torch, dev, card: str, want_flash: dict) -> dict:
+    a = _sharding_one_by_one(torch, dev, card)
+    check(not a["differ"] and all(a["same"].values()),
+          f"26(a) the 1x1 sharded step differs from the unsharded one: parameters "
+          f"{a['differ'][:6]} of {a['n_params']}, scalars {a['same']}")
+    check(a["counts_sharded"] == a["counts_unsharded"] == want_flash,
+          f"26(a) flash launches sharded {a['counts_sharded']}, unsharded "
+          f"{a['counts_unsharded']}, expected {want_flash}")
+    check(a["resident_bytes"] == a["want_bytes"],
+          f"26(a) resident {a['resident_bytes']:,} B (requested; {a['allocated_bytes']:,} "
+          f"allocated) against tree_device_bytes {a['want_bytes']:,.0f}")
+    print(f"[sharding a] internlm2-1.8b at full width and depth (bf16, flash, remat) on a 1x1 "
+          f"mesh over nccl: one train_step through launch/sharded.py equals the unsharded "
+          f"step bit for bit (loss {a['loss']:.6f}, grad norm {a['grad_norm']:.6f}, |TD|, "
+          f"all {a['n_params']} updated parameters); flash launches {a['counts_sharded']} on "
+          f"both; resident state {a['resident_bytes']:,} B requested ({a['allocated_bytes']:,} "
+          f"allocated) = tree_device_bytes; sharded step {a['step_s']:.2f} s | {card}",
+          flush=True)
+    return a
+
+
+def _short(d: dict) -> str:
+    return "{" + ", ".join(f"{k} {v:.4g}" for k, v in d.items()) + "}"
+
+
+def _sharding_check_bc(ranks: list, card: str, want_flash: dict) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    out = {}
+    for part, what in (("b", "internlm2-1.8b 1x2 (data x model)"),
+                       ("c", "internlm2 SMOKE width in bf16, 2x1 (data x model)")):
+        rs = [r[part] for r in ranks]
+        for rank, r in enumerate(rs):
+            check(r["resident_bytes"] == r["local_bytes"] == r["want_bytes"],
+                  f"26({part}) rank {rank}: resident {r['resident_bytes']:,} B requested "
+                  f"({r['allocated_bytes']:,} allocated), its pieces {r['local_bytes']:,} B, "
+                  f"tree_device_bytes {r['want_bytes']:,.0f}")
+            if part == "b":
+                check(r["launches"] == want_flash,
+                      f"26(b) rank {rank}: flash launches {r['launches']}, expected "
+                      f"{want_flash} on its heads' shard")
+            else:
+                check(r["launches"][fa.NAME] > 0 and r["launches"][fa.DQ_NAME] > 0
+                      and r["launches"][fa.DKV_NAME] > 0,
+                      f"26(c) rank {rank}: flash launches {r['launches']}")
+            check(r["m_rel_sharded_vs_f32"] <= 1.1 * r["m_rel_bf16_vs_f32"],
+                  f"26({part}): the sharded step's first moments are "
+                  f"{r['m_rel_sharded_vs_f32']:.4g} (relative l2) from the f32 unsharded "
+                  f"step's, beyond 1.1x the bf16 unsharded step's {r['m_rel_bf16_vs_f32']:.4g}")
+            # the same rule on the median leaf and on the worst leaf: a fault
+            # confined to small leaves (a norm scale's sum left partial over
+            # the model axis) moves them by a whole part of their size
+            lv = r["leaves"]
+            for stat in ("median", "worst"):
+                check(lv["sharded"][stat] <= 1.1 * lv["bf16"][stat],
+                      f"26({part}): the {stat} leaf's first moment is {lv['sharded'][stat]:.4g} "
+                      f"(relative l2; worst {lv['sharded']['worst_leaf']}) from the f32 "
+                      f"unsharded step's, beyond 1.1x the bf16 unsharded step's "
+                      f"{lv['bf16'][stat]:.4g} (worst {lv['bf16']['worst_leaf']})")
+            check(all(ds <= 1.1 * db for ds, db in lv["zero"].values()),
+                  f"26({part}): leaves whose f32 first moment is zero: {lv['zero']}")
+            check(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]),
+                  f"26({part}) rank {rank}: loss {r['loss']}, grad norm {r['grad_norm']}")
+        r = rs[0]
+        lv, sc = r["leaves"], r["scalar_rel_from_f32"]
+        print(f"[sharding {part}] {what}, two gloo ranks on cuda:0: resident state "
+              f"{[x['resident_bytes'] for x in rs]} B a rank requested "
+              f"({[x['allocated_bytes'] for x in rs]} allocated) = tree_device_bytes "
+              f"{r['want_bytes']:,.0f}; init {[round(x['init_s'], 2) for x in rs]} s, sharded "
+              f"step {[round(x['step_s'], 2) for x in rs]} s, peak "
+              f"{[round(x['peak_bytes'] / 2**30, 2) for x in rs]} GiB; flash launches a rank "
+              f"{[x['launches'] for x in rs]}; rank 0's collectives outside the backward [calls, "
+              f"bytes in] "
+              f"{r['collectives']}; gloo host copies {r['host_copies']}; first "
+              f"moments (the clipped gradient) relative l2 from the f32 unsharded step: "
+              f"sharded {r['m_rel_sharded_vs_f32']:.4g}, bf16 unsharded "
+              f"{r['m_rel_bf16_vs_f32']:.4g} (sharded vs bf16 unsharded "
+              f"{r['m_rel_sharded_vs_bf16']:.4g}); its {lv['leaves']} leaves: median sharded "
+              f"{lv['sharded']['median']:.4g}, bf16 {lv['bf16']['median']:.4g}; worst "
+              f"sharded {lv['sharded']['worst']:.4g} ({lv['sharded']['worst_leaf']}), bf16 "
+              f"{lv['bf16']['worst']:.4g} ({lv['bf16']['worst_leaf']}); 90th percentile "
+              f"sharded {lv['sharded']['p90']:.4g}, bf16 {lv['bf16']['p90']:.4g}; "
+              f"{len(lv['zero'])} all-zero leaves; loss {r['loss']:.6f} (unsharded f32/bf16 "
+              f"{r['ref_loss']}), grad norm {r['grad_norm']:.6f} ({r['ref_grad_norm']}); "
+              f"relative distance from f32 (shown, held in f32 below) sharded "
+              f"{_short(sc['sharded'])}, bf16 {_short(sc['bf16'])} | {card}", flush=True)
+        print(f"[sharding {part} rate] {json.dumps(rs)}", flush=True)
+        out[part] = rs
+    # (c) in f32 on both meshes: two f32 steps that differ only in the order
+    # of their sums, held leaf by leaf and scalar by scalar.  The bf16 runs'
+    # loss, grad norm and |TD| are shown and not held to 1.1x the bf16
+    # unsharded step's distance: each is one draw of a rounding error, and
+    # the ratio of two such draws passes 1.1 about half the time
+    for rank, runs in enumerate(r["c32"] for r in ranks):
+        for run in runs:
+            check(not run["far"],
+                  f"26(c) f32 rank {rank} mesh {run['mesh']}: {run['far'][:8]} outside "
+                  f"tests/test_torch_token_dqn.py's rules (the largest m or v difference "
+                  f"{run['worst_share']:.3g} of its bound); loss, grad norm {run['scalars']}")
+    runs = ranks[0]["c32"]
+    print(f"[sharding c f32] internlm2 SMOKE width in f32 (flash: the f32 kernels) on "
+          + ", ".join(f"{'x'.join(map(str, x['mesh']))}" for x in runs)
+          + " (data x model), two gloo ranks on cuda:0, against the unsharded f32 step: all "
+          f"{runs[0]['leaves']} leaves of m and v within rtol 1e-4 + 1e-5 of each leaf's "
+          f"largest (the largest difference "
+          + ", ".join(f"{x['worst_share']:.3g}" for x in runs) + " of its bound"
+          + "), loss and grad norm (sharded, unsharded) "
+          + ", ".join(str(x["scalars"]) for x in runs)
+          + " and every |TD| (largest difference "
+          + ", ".join(f"{x['td_max_abs_diff']:.3g}" for x in runs)
+          + f") within rtol 1e-5 / atol 1e-6 | {card}", flush=True)
+    out["c32"] = [r["c32"] for r in ranks]
+    return out
+
+
+def _sharding_check_d(torch, card: str) -> dict:
+    """26(d): ``launch.train --mesh 16x16`` with phase 13's first run's
+    arguments (its one final save observed and not written: nothing reads
+    it) against that ``--mesh host`` run: every state tensor's fingerprint,
+    the history, the replay kernels' launches."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.agents.base import state_tensors
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    host = PHASE13_HOST
+    check(bool(host), "26(d) needs phase 13's --mesh host run")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_mesh16_")
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with unwritten_saves() as saves:
+            run = train.main(host["argv"] + ["--steps", str(TRAIN_STEPS), "--ckpt-every", "0",
+                                             "--ckpt-dir", ckpt, "--mesh", "16x16"])
+        secs = time.perf_counter() - t0
+        counts = dict(ops.launch_counts)
+        prints = fingerprints(torch, state_tensors(run["state"]))
+        hist = [{k: h[k] for k in ("loss", "grad_norm", "q_mean")} for h in run["history"]]
+        mesh_desc = run["mesh"].shape
+        del run
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    differ = [k for k in host["fingerprints"] if prints.get(k) != host["fingerprints"][k]]
+    replay = {k: counts.get(k, 0) for k in ("sumtree_sample", "gather")}
+    check(saves == [(TRAIN_STEPS, len(prints))],
+          f"26(d) final saves {saves}, expected one at step {TRAIN_STEPS} of {len(prints)} "
+          f"tensors")
+    check(not differ and hist == host["history"],
+          f"26(d) --mesh 16x16 differs from --mesh host: {differ[:6]}, history {hist} against "
+          f"{host['history']}")
+    check(replay == host["replay_launches"] and all(v >= TRAIN_STEPS for v in replay.values()),
+          f"26(d) replay launches {replay} against --mesh host's {host['replay_launches']}")
+    print(f"[sharding d] launch.train --arch internlm2_1_8b --mesh 16x16 --steps {TRAIN_STEPS} "
+          f"(one process, sharding_config(False), mesh {mesh_desc} never installed) in "
+          f"{secs:.1f} s: all {len(prints)} state tensors' fingerprints and the history equal "
+          f"phase 13's --mesh host run's; replay launches {replay} as host's | {card}",
+          flush=True)
+    return {"history": hist, "replay_launches": replay, "tensors": len(prints), "seconds": secs}
+
+
+def _sharding_bytes_table(card: str) -> dict:
+    """26(e): every config's state bytes per device on the production meshes,
+    f32 and bf16 moments, from shapes alone."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded
+    from repro_torch.launch import specs as S
+
+    table = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        row = {}
+        for multi in (False, True):
+            shd = meshlib.sharding_config(multi)
+            mesh = meshlib.make_production_mesh(multi_pod=multi)
+            for moments in ("float32", "bfloat16"):
+                leaves, specs = sharded.state_shapes(cfg, shd, moments)
+                key = f"{'2x16x16' if multi else '16x16'} {moments} moments"
+                row[key] = S.tree_device_bytes(leaves, specs, mesh)
+        table[cfg.name] = row
+    print("[sharding e] state bytes per device (params, target, Adam count/m/v, step; "
+          "launch/specs.py::tree_device_bytes under state_specs), no allocation: "
+          + "; ".join(f"{m}: " + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in r.items())
+                      for m, r in table.items()) + f" | {card}", flush=True)
+    return table
 
 
 # -- the phases ----------------------------------------------------------------
@@ -4626,6 +5430,15 @@ def main() -> None:
             entry["at_whisper_shapes"] = audio["flash_times"]
         if name in audio["bwd_times"]:
             entry["at_whisper_shapes"] = audio["bwd_times"][name]
+    clock("26 (sharding)")
+    shard_res = sharding_phase(torch, dev, card)
+    for entry in kernels:
+        name = entry["name"]
+        entry["sharding_launches"] = {
+            "26(a) 1x1, the sharded step": shard_res["a"]["counts_sharded"].get(name, 0),
+            "26(b) 1x2, each rank": [r["launches"].get(name, 0) for r in shard_res["b"]],
+            "26(c) 2x1 SMOKE, each rank": [r["launches"].get(name, 0) for r in shard_res["c"]],
+            "26(d) --mesh 16x16 run": shard_res["d"]["replay_launches"].get(name, 0)}
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

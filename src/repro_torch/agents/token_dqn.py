@@ -18,11 +18,18 @@ Differences from the reference, for one card and eager PyTorch:
     by ``accum``, as the reference's ``gzero`` (``.grad`` accumulation
     would round to bf16 at every microbatch); with ``accum = 1`` they stay
     in the parameters' dtype, as the reference's;
-  * no sharding arguments: one card has no mesh.
+  * sharding, as the reference's: ``train_step`` and ``serve_step`` take
+    a ``ShardingConfig``.  On a mesh of ranks the parameters, the target
+    and the moments are DTensors placed by ``state_specs``
+    (``launch/sharded.py`` builds them), and the step redistributes the
+    gradients to their parameters' placements before the optimizer (the
+    reduce that GSPMD inserts).  Unsharded tensors take the unsharded
+    path, unchanged.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -30,7 +37,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.models import backbone
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.config import NO_SHARDING, ModelConfig, ShardingConfig
 from repro_torch.optim import adam
 
 
@@ -62,8 +70,32 @@ def init_train_state(cfg: ModelConfig, tcfg: TokenDQNConfig, gen: torch.Generato
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def state_specs(cfg: ModelConfig, shd: ShardingConfig, state: TrainState) -> TrainState:
+    """Spec tree of a ``TrainState`` (ZeRO-1: the Adam moments mirror the
+    parameters): ``params`` and ``target`` {name: spec}, the moments a
+    list in parameter order, ``count`` and ``step`` replicated."""
+    pspec = backbone.param_specs(cfg, shd, state.params)
+    mspec = list(pspec.values())
+    return TrainState(params=pspec, target=pspec,
+                      opt=adam.AdamState(count=(), m=mspec, v=mspec), step=())
+
+
+def state_spec_leaves(specs: TrainState) -> Dict[str, tuple]:
+    """{name: spec} of ``state_specs``'s tree under the names of
+    ``agents.base.state_tensors``."""
+    names = list(specs.params)
+    out = {f"params/{n}": s for n, s in specs.params.items()}
+    out.update({f"target/{n}": s for n, s in specs.target.items()})
+    out["opt/count"] = specs.opt.count
+    out.update({f"opt/m/{n}": s for n, s in zip(names, specs.opt.m)})
+    out.update({f"opt/v/{n}": s for n, s in zip(names, specs.opt.v)})
+    out["step"] = specs.step
+    return out
+
+
 def _td_loss(cfg: ModelConfig, tcfg: TokenDQNConfig, params: backbone.Backbone,
-             target: backbone.Backbone, mb: Dict[str, torch.Tensor]
+             target: backbone.Backbone, mb: Dict[str, torch.Tensor],
+             shd: ShardingConfig = NO_SHARDING
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Per-microbatch TD loss → (loss, aux): aux holds the per-sequence
     mean |TD| ``seq_td`` (b,), the mean Q(s, a) ``q_mean``, and the
@@ -75,13 +107,18 @@ def _td_loss(cfg: ModelConfig, tcfg: TokenDQNConfig, params: backbone.Backbone,
     tokens, actions = mb["tokens"].long(), mb["actions"].long()
     rewards, dones, is_w = mb["rewards"], mb["dones"], mb["is_weights"]
     extra = mb.get("extra_embeds")
-    logits = backbone.forward(cfg, params, tokens, extra)         # (b, P + S, V)
+    logits = backbone.forward(cfg, params, tokens, extra, shd)    # (b, P + S, V)
     off = logits.shape[1] - tokens.shape[1]             # vlm: patch offset; audio: 0
-    q = logits[:, off:].float()
+    # on a mesh the logits are vocab-sharded over the model axis; the
+    # gather at the actions and the argmax over the vocabulary have no
+    # sharding rule there, so q is replicated over the vocabulary first
+    # (an all-gather over the model axis, where GSPMD gathers too)
+    q = L.shard(logits[:, off:].float(), shd, L.dp(shd), None, None)
     del logits
     q_sa = torch.gather(q, -1, actions[..., None])[..., 0]
     with torch.no_grad():
-        qt = backbone.forward(cfg, target, tokens, extra)[:, off:].float()
+        qt = L.shard(backbone.forward(cfg, target, tokens, extra, shd)[:, off:].float(),
+                     shd, L.dp(shd), None, None)
         if tcfg.double_q:   # DDQN: select with online, evaluate with target
             sel = torch.argmax(q, dim=-1)
             v_next_all = torch.gather(qt, -1, sel[..., None])[..., 0]
@@ -98,12 +135,27 @@ def _td_loss(cfg: ModelConfig, tcfg: TokenDQNConfig, params: backbone.Backbone,
                   "q_sa": q_sa}
 
 
-def train_step(cfg: ModelConfig, tcfg: TokenDQNConfig, state: TrainState,
-               batch: Dict[str, torch.Tensor]
+def _pin_batch(shd: ShardingConfig, mb: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A microbatch's batch axis pinned to the data axes (the reference's
+    constraint after its (accum, B/accum) reshape)."""
+    return {k: L.shard(v, shd, L.dp(shd), *(None,) * (v.dim() - 1)) for k, v in mb.items()}
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    return x.full_tensor() if L.is_dtensor(x) else x
+
+
+def train_step(cfg: ModelConfig, shd: ShardingConfig, tcfg: TokenDQNConfig,
+               state: TrainState, batch: Dict[str, torch.Tensor]
                ) -> Tuple[TrainState, Dict[str, torch.Tensor], torch.Tensor]:
     """One learner update (paper Alg. 1 lines 12-18, token MDP), in place.
 
     Returns (state', metrics, per-sequence |TD| for the priority update).
+    On a mesh (DTensor parameters and batch, ``launch/sharded.py``) the
+    step runs under ``implicit_replication`` (host scalars and index
+    tensors are the same on every rank), each gradient is redistributed to
+    its parameter's placements before Adam, and the metrics and |TD| come
+    back as whole tensors.
     """
     accum = max(1, tcfg.accum)
     b = batch["tokens"].shape[0]
@@ -111,32 +163,51 @@ def train_step(cfg: ModelConfig, tcfg: TokenDQNConfig, state: TrainState,
         raise ValueError(f"batch {b} is not a multiple of accum {accum}")
     mb_size = b // accum
     params = list(state.params.parameters())
-    if accum == 1:
-        loss, aux = _td_loss(cfg, tcfg, state.params, state.target, batch)
-        grads = list(torch.autograd.grad(loss, params))
-        loss, tds, qmean = loss.detach(), aux["seq_td"], aux["q_mean"]
+    sharded = L.is_dtensor(params[0])
+    if sharded:
+        from torch.distributed.tensor.experimental import implicit_replication
+        ctx = implicit_replication()
     else:
-        grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-        loss = qmean = torch.zeros((), dtype=torch.float32, device=params[0].device)
-        parts = []
-        for i in range(accum):
-            mb = {k: v[i * mb_size:(i + 1) * mb_size] for k, v in batch.items()}
-            mloss, aux = _td_loss(cfg, tcfg, state.params, state.target, mb)
-            torch._foreach_add_(grads, torch.autograd.grad(mloss, params))
-            loss, qmean = loss + mloss.detach(), qmean + aux["q_mean"]
-            parts.append(aux["seq_td"])
-        torch._foreach_div_(grads, float(accum))
-        loss, qmean, tds = loss / accum, qmean / accum, torch.cat(parts)
-    opt, gnorm = adam.update(grads, state.opt, params, tcfg.opt)
-    del grads
-    adam.ema_update(state.target.parameters(), params, tcfg.target_tau)
-    metrics = {"loss": loss, "grad_norm": gnorm, "q_mean": qmean}
+        ctx = contextlib.nullcontext()
+    with ctx:
+        if accum == 1:
+            loss, aux = _td_loss(cfg, tcfg, state.params, state.target, _pin_batch(shd, batch),
+                                 shd)
+            grads = list(torch.autograd.grad(loss, params))
+            loss, tds, qmean = loss.detach(), aux["seq_td"], aux["q_mean"]
+        else:
+            grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+            loss = qmean = torch.zeros((), dtype=torch.float32, device=params[0].device)
+            parts = []
+            for i in range(accum):
+                mb = _pin_batch(shd, {k: v[i * mb_size:(i + 1) * mb_size]
+                                      for k, v in batch.items()})
+                mloss, aux = _td_loss(cfg, tcfg, state.params, state.target, mb, shd)
+                mgrads = torch.autograd.grad(mloss, params)
+                if sharded:
+                    mgrads = [g.redistribute(p.device_mesh, p.placements)
+                              for g, p in zip(mgrads, params)]
+                torch._foreach_add_(grads, mgrads)
+                loss, qmean = loss + mloss.detach(), qmean + aux["q_mean"]
+                parts.append(aux["seq_td"])
+            torch._foreach_div_(grads, float(accum))
+            loss, qmean, tds = loss / accum, qmean / accum, torch.cat(parts)
+        if sharded:
+            # the gradient reduce: partial sums over the data axes and the
+            # replicated leaves' partials over the model axis
+            grads = [g.redistribute(p.device_mesh, p.placements) for g, p in zip(grads, params)]
+        opt, gnorm = adam.update(grads, state.opt, params, tcfg.opt)
+        del grads
+        adam.ema_update(state.target.parameters(), params, tcfg.target_tau)
+        metrics = {"loss": _full(loss), "grad_norm": _full(gnorm), "q_mean": _full(qmean)}
+        tds = _full(tds)
     return TrainState(state.params, state.target, opt, state.step + 1), metrics, tds
 
 
 @torch.no_grad()
 def serve_step(cfg: ModelConfig, params: backbone.Backbone, cache: backbone.Cache,
-               tokens: torch.Tensor, slot_mask: Optional[torch.Tensor] = None
+               tokens: torch.Tensor, slot_mask: Optional[torch.Tensor] = None,
+               shd: ShardingConfig = NO_SHARDING
                ) -> Tuple[torch.Tensor, backbone.Cache]:
     """Actor act(): one KV-cached decode step → greedy Q action (B,) and
     the cache, updated in place.
@@ -146,7 +217,7 @@ def serve_step(cfg: ModelConfig, params: backbone.Backbone, cache: backbone.Cach
     included, is left as it was and its action is pinned to 0, so a
     stale slot never advances between a release and the next admission.
     """
-    logits, cache = backbone.decode_step(cfg, params, cache, tokens, slot_mask)
+    logits, cache = backbone.decode_step(cfg, params, cache, tokens, slot_mask, shd)
     action = torch.argmax(logits[:, -1, :], dim=-1)
     if slot_mask is None:
         return action, cache

@@ -66,7 +66,7 @@
 // Left for later: persistent CTAs over the tiles, the two consumer warpgroups
 // in ping-pong so that one's softmax overlaps the other's GEMMs, and native
 // GQA (K and V read once per KV head instead of the caller's
-// repeat_interleave).
+// expansion).
 #include <math.h>
 
 #include "flash_mask.cuh"

@@ -38,6 +38,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.models.config import ShardingConfig
+
 BACKENDS = ("gloo", "nccl")
 
 
@@ -162,6 +164,99 @@ def mesh_from_plan(plan) -> Optional[Mesh]:
     if plan.n_pods > 1:
         return pod_data_mesh(plan.n_pods, plan.n_data)
     return data_mesh(plan.n_data)
+
+
+# -- the model-sharding meshes (reference: repro/launch/mesh.py:87-116) -----------
+
+PRODUCTION_AXES = {False: ("data", "model"), True: ("pod", "data", "model")}
+PRODUCTION_SHAPES = {False: (16, 16), True: (2, 16, 16)}
+
+
+def _mesh_or_shape(axis_names: Sequence[str], axis_sizes: Sequence[int]) -> Mesh:
+    """``make_mesh`` on a process group of exactly that many ranks, else a
+    mesh that only describes the shape (no groups): what the spec
+    arithmetic and a one-process run need."""
+    n = math.prod(axis_sizes)
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() == n:
+        return make_mesh(axis_names, axis_sizes)
+    return Mesh(tuple(axis_names), tuple(int(s) for s in axis_sizes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod: axes (data, model) 16×16 = 256 shards; multi-pod: (pod,
+    data, model) 2×16×16 = 512, the pod axis the slow inter-pod link.  On a
+    process group of that many ranks the mesh has its groups (as
+    ``make_mesh``); otherwise it only describes the shape, as the
+    reference's mesh of forced host devices does for a one-process run
+    (``launch/train.py --mesh``).  Picks no backend and no device."""
+    return _mesh_or_shape(PRODUCTION_AXES[multi_pod], PRODUCTION_SHAPES[multi_pod])
+
+
+def sharding_config(multi_pod: bool = False) -> ShardingConfig:
+    return ShardingConfig(
+        fsdp=("pod", "data") if multi_pod else ("data",),
+        tp="model",
+        tp_extent=16,
+        dp_extent=32 if multi_pod else 16,
+    )
+
+
+def small_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
+    """(data, model) mesh for tests and examples over the current process
+    group (``n_data`` defaults to world // n_model); without a group, a
+    shape-only mesh of (n_data or 1, n_model)."""
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else None
+    n_data = n_data or ((world // n_model) if world else 1)
+    return _mesh_or_shape(("data", "model"), (n_data, n_model))
+
+
+def to_device_mesh(mesh: Mesh, device_type: str):
+    """The ``torch.distributed.device_mesh.DeviceMesh`` of ``mesh``: the same
+    row-major rank layout and axis names, over the current process group
+    (collective: every rank calls it).  DTensor placements are built on
+    it.  On CUDA over gloo the missing collective gets its host copy first
+    (``install_host_collectives``)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not mesh.groups and mesh.n_shards > 1:
+        raise ValueError(f"mesh {mesh.shape} only describes a shape; a DeviceMesh needs "
+                         "its ranks (make_mesh inside a process group)")
+    if device_type == "cuda" and dist.get_backend() == "gloo":
+        install_host_collectives()
+    ranks = torch.arange(mesh.n_shards).reshape(mesh.axis_sizes)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=mesh.axis_names)
+
+
+# -- gloo with CUDA tensors -------------------------------------------------------
+
+# Of the four collectives DTensor redistributes through, gloo takes CUDA
+# tensors (staging them through the host itself) for reduce_scatter_tensor,
+# all_reduce and all_to_all_single, through both ``torch.distributed`` and
+# the functional ops; the functional all_gather_into_tensor on CUDA tensors
+# ends the process with SIGSEGV (torch 2.11, an H100 machine), though
+# ``dist.all_gather_into_tensor`` works.  So that one op gets a CUDA kernel
+# that copies its input to the host, runs the CPU collective, waits, and
+# copies the result back: named here and counted in HOST_COPIES, never a
+# silent fallback.
+HOST_COPIES: Dict[str, int] = {"all_gather_into_tensor": 0}
+_HOST_LIB = None
+
+
+def _all_gather_via_host(inp: torch.Tensor, group_size: int, group_name: str) -> torch.Tensor:
+    HOST_COPIES["all_gather_into_tensor"] += 1
+    ops = torch.ops._c10d_functional
+    out = ops.wait_tensor(ops.all_gather_into_tensor(inp.cpu(), group_size, group_name))
+    return out.to(inp.device)
+
+
+def install_host_collectives() -> None:
+    """Register ``_all_gather_via_host`` as the CUDA kernel of
+    ``_c10d_functional::all_gather_into_tensor`` in this process (once)."""
+    global _HOST_LIB
+    if _HOST_LIB is not None:
+        return
+    _HOST_LIB = torch.library.Library("_c10d_functional", "IMPL")
+    _HOST_LIB.impl("all_gather_into_tensor", _all_gather_via_host, "CUDA")
 
 
 # -- the local launcher ---------------------------------------------------------

@@ -40,12 +40,21 @@ training and spawns no ranks.  The executor-level form of a plan is
 ``runtime/executors.py::executor_from_plan`` (``python -m
 repro_torch.quickstart --plan``).
 
+``--mesh 16x16`` (or ``2x16x16``) runs as the reference's does: one
+process, ``shd = launch.mesh.sharding_config(...)`` passed to the collect
+and the learner, and a production mesh that only describes its shape and
+is never installed.  No tensor is a DTensor, so every sharding constraint
+leaves its tensor as it is and the run computes what ``--mesh host``
+computes, bit for bit, with one exception, the reference's too: with
+``cfg.moe_local_dispatch`` a moe layer splits its routing and capacity
+into ``dp_extent`` shards whenever that divides its tokens
+(``models/moe.py``).  The model sharded over ranks is
+``launch/sharded.py``.
+
 Differences from the reference: each random draw of the collect (the
 random action, the ε decision, the environment's next token) comes from
 its own generator stream, where the reference draws all three from one
 key; it prints every step, where the reference prints every tenth.
-``--mesh`` other than ``host`` exits 2: model sharding waits for ROADMAP
-Queue 1 item 21.
 """
 
 from __future__ import annotations
@@ -68,7 +77,7 @@ from repro_torch.core.replay import PrioritizedReplay, ReplayConfig, ReplayState
 from repro_torch.device import resolve_device
 from repro_torch.envs import token_mdp
 from repro_torch.models import backbone
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import NO_SHARDING, ModelConfig, ShardingConfig
 from repro_torch.optim import adam
 from repro_torch.runtime.loop import shard_seed
 
@@ -93,9 +102,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--n-envs", type=int, default=16)
-    ap.add_argument("--mesh", default="host",
-                    help="only 'host' is ported: model sharding over a device mesh is not "
-                         "(ROADMAP item 21)")
+    ap.add_argument("--mesh", default="host", choices=("host", "16x16", "2x16x16"),
+                    help="the production mesh whose sharding config the model takes "
+                         "(one process, as the reference's run)")
     ap.add_argument("--plan", default=None, metavar="BENCH_plan.json",
                     help="apply a runtime.planner plan: its n_envs replaces --n-envs; "
                          "the planned mesh only wraps the unsharded model in the "
@@ -119,22 +128,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                  "describe a topology inside one process)")
     if args.plan and args.mesh != "host":
         ap.error("--plan carries its own mesh — drop --mesh")
-    if args.mesh != "host":
-        ap.exit(2, f"--mesh {args.mesh}: model sharding over a device mesh is not ported "
-                   "to repro_torch yet; the data-parallel sharded runtime is "
-                   "(runtime/executors.py::ShardedExecutor) (ROADMAP Queue 1 item 21)\n")
     return args
 
 
 @torch.no_grad()
 def collect(cfg: ModelConfig, params: backbone.Backbone, step_env, env_state, obs,
-            seq: int, gens: Dict[str, torch.Generator]):
+            seq: int, gens: Dict[str, torch.Generator],
+            shd: ShardingConfig = NO_SHARDING):
     """One segment of ``seq`` steps from every actor → (env state, last
     tokens, {"tokens", "actions", "rewards", "dones"} each (n_envs, seq))."""
     ctx = obs[:, None].repeat(1, CONTEXT)
     cols = {"tokens": [], "actions": [], "rewards": [], "dones": []}
     for _ in range(seq):
-        greedy = torch.argmax(backbone.forward(cfg, params, ctx)[:, -1], dim=-1)
+        greedy = torch.argmax(backbone.forward(cfg, params, ctx, shd=shd)[:, -1], dim=-1)
         rand = torch.randint(0, cfg.vocab_size, greedy.shape, generator=gens["action"],
                              device=greedy.device)
         explore = torch.rand(greedy.shape, generator=gens["epsilon"],
@@ -265,6 +271,14 @@ def run(args: argparse.Namespace) -> dict:
     if args.attn_impl is not None:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     tcfg = token_config()
+    mesh, shd = None, NO_SHARDING
+    if args.mesh != "host":
+        from repro_torch.launch.mesh import make_production_mesh, sharding_config
+
+        # the reference's one-process run: the mesh describes the shape and
+        # is never installed; the model takes its sharding config
+        mesh = make_production_mesh(multi_pod=args.mesh == "2x16x16")
+        shd = sharding_config(args.mesh == "2x16x16")
     # the workers of a gang share everything but their envs' resets
     setup = token_setup(cfg, tcfg, ReplayConfig(capacity=CAPACITY, fanout=FANOUT),
                         n_envs=args.n_envs, seq=args.seq, seed=args.seed, device=device,
@@ -285,12 +299,12 @@ def run(args: argparse.Namespace) -> dict:
     for it in range(int(state.step), args.steps):
         t0 = time.perf_counter()
         env_state, obs, seg = collect(cfg, state.params, step_env, env_state, obs, args.seq,
-                                      gens)
+                                      gens, shd)
         _sync(device)
         t1 = time.perf_counter()
         rst = replay.flush(replay.append(rst, seg, lazy=True))
         idx, items, w = replay.sample(rst, gens["sample"], args.batch)
-        state, metrics, tds = token_dqn.train_step(cfg, tcfg, state, dict(items, is_weights=w))
+        state, metrics, tds = token_dqn.train_step(cfg, shd, tcfg, state, dict(items, is_weights=w))
         rst = replay.update_priorities(rst, idx, tds, lazy=True)
         if sync_params is not None:
             pre_average = params_sum(state.params)
@@ -342,7 +356,8 @@ def run(args: argparse.Namespace) -> dict:
     return {"cfg": cfg, "tcfg": tcfg, "state": state, "history": history, "start": start,
             "replay": replay, "replay_state": rst, "root_before_flush": root_before,
             "root_after_flush": root_after, "optimal_reward": optimal(),
-            "peak_memory_bytes": peak, "seconds": secs, "plan": plan}
+            "peak_memory_bytes": peak, "seconds": secs, "plan": plan, "mesh": mesh,
+            "shd": shd}
 
 
 def launch_wall_clock(args: argparse.Namespace, argv) -> dict:

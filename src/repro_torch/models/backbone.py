@@ -86,7 +86,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import NO_SHARDING, ModelConfig, ShardingConfig
+from repro_torch.models.sharding import canonical
 
 Cache = Dict[str, Any]
 
@@ -249,6 +250,113 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> Backbone
     return model
 
 
+# ===========================================================================
+# Sharding specs
+# ===========================================================================
+
+# the reference's layer stacks, each on a leading layer axis
+STACKED = ("units", "enc_units", "dec_units")
+
+
+def _reference_rule(cfg: ModelConfig, shd: ShardingConfig, names: List[str],
+                    shape: Tuple[int, ...]) -> tuple:
+    """``repro.models.backbone.param_specs``'s rule for the leaf at path
+    ``names`` of (reference-layout) ``shape``, as a tuple."""
+    fsdp = shd.fsdp if shd.fsdp else None
+    tp = shd.tp
+    name = names[-1]
+    nd = len(shape)
+    stacked = "units" in names or "blocks" in names
+    base_nd = nd - 1 if stacked else nd
+
+    def wrap(*spec):
+        spec = spec + (None,) * (base_nd - len(spec))
+        return ((None,) + spec) if stacked else spec
+
+    if name in ("scale", "bias", "bq", "bk", "bv", "A_log", "w_dt", "enc_pos"):
+        return wrap()
+    if name == "tok":
+        return wrap(tp, fsdp)
+    if name == "out":
+        return wrap(fsdp, tp)
+    if name == "router":
+        return wrap(fsdp, None)
+    ep_ok = (shape[-3] % max(1, shd.tp_extent) == 0
+             or not cfg.moe_ff_tp_fallback) if base_nd == 3 else True
+    if base_nd == 3 and name in ("w_gate", "w_up"):     # MoE experts (E,d,f)
+        return wrap(tp, fsdp, None) if ep_ok else wrap(None, fsdp, tp)
+    if base_nd == 3 and name == "w_down":               # (E,f,d)
+        return wrap(tp, None, fsdp) if ep_ok else wrap(None, tp, fsdp)
+    if base_nd == 3 and name.startswith("r"):           # sLSTM (H,hd,hd)
+        return wrap(tp, None, None)
+    if name in ("wo", "w_down", "w_out"):               # row-parallel
+        return wrap(tp, fsdp)
+    if base_nd == 2:                                    # column-parallel
+        return wrap(fsdp, tp)
+    return wrap()
+
+
+def reference_leaf(name: str, shape: Tuple[int, ...], n_stacked: int = 0
+                   ) -> Tuple[List[str], Tuple[int, ...], bool, bool]:
+    """The reference's view of the port's parameter ``name`` of ``shape``:
+    (its path's keys, its shape in the reference's layout, whether it sits
+    on a stacked layer axis of ``n_stacked`` layers, whether the port
+    stores it transposed) — ``interop.backbone_leaf``'s mapping."""
+    parts = name.split(".")
+    if parts[0] in STACKED or parts[0] == "blocks":
+        keys = [parts[0]] + ([f"[{parts[1]}]"] if parts[0] == "blocks" else []) + parts[2:]
+        transposed = len(shape) == 2 and parts[-1] != "router"
+        ref_shape = tuple(reversed(shape)) if transposed else tuple(shape)
+        stacked = parts[0] in STACKED
+        return keys, ((n_stacked,) + ref_shape) if stacked else ref_shape, stacked, transposed
+    transposed = name == "embed.out"
+    return parts, tuple(reversed(shape)) if transposed else tuple(shape), False, transposed
+
+
+def _stack_depth(params: "Backbone", name: str) -> int:
+    root = name.split(".")[0]
+    return len(getattr(params, root)) if root in STACKED else 0
+
+
+def to_port_spec(ref_spec: tuple, ref_ndim: int, stacked: bool, transposed: bool) -> tuple:
+    """A reference-layout spec as the port's per-layer tensor takes it:
+    one entry per reference dimension (a longer spec cut, as the
+    reference's ``valid_spec`` cuts it), the layer axis dropped, and
+    reversed where the port stores the leaf transposed.  Where the
+    reference's rule gives a stacked layer axis a mesh axis (Whisper's
+    stacks, which its ``"units" in names`` test takes for unstacked), the
+    port's one-layer tensor has no such axis: that entry goes."""
+    spec = (tuple(ref_spec) + (None,) * ref_ndim)[:ref_ndim]
+    if stacked:
+        spec = spec[1:]
+    return tuple(reversed(spec)) if transposed else spec
+
+
+def param_specs(cfg: ModelConfig, shd: ShardingConfig, params: "Backbone") -> Dict[str, tuple]:
+    """{parameter name: spec} in ``params.named_parameters()`` order, each
+    spec in the port's layout: the reference's ``param_specs`` rule (the
+    stacked unit axis, EP against the d_ff-TP fallback for experts, the
+    sLSTM ``r*`` leaves, row- against column-parallel) on the leaf's
+    reference path and shape, then ``to_port_spec``.  ``params`` may live
+    on the meta device (shapes only)."""
+    out = {}
+    for name, p in params.named_parameters():
+        if not shd.enabled:
+            out[name] = ()
+            continue
+        keys, ref_shape, stacked, transposed = reference_leaf(
+            name, tuple(p.shape), _stack_depth(params, name))
+        out[name] = canonical(to_port_spec(_reference_rule(cfg, shd, keys, ref_shape),
+                                           len(ref_shape), stacked, transposed))
+    return out
+
+
+def shape_params(cfg: ModelConfig) -> "Backbone":
+    """The model's parameters on the meta device: every shape and dtype,
+    no storage (the full-size configs' spec and byte arithmetic)."""
+    return Backbone(cfg, torch.device("meta"))
+
+
 def _global_flags(cfg: ModelConfig, n_units: int, sub: Tuple[str, ...]) -> List[List[bool]]:
     """(n_units, n_attn_sublayers) — which attention sub-layers are global."""
     flags, idx = [], 0
@@ -262,8 +370,10 @@ def _global_flags(cfg: ModelConfig, n_units: int, sub: Tuple[str, ...]) -> List[
     return flags
 
 
-def _positions(b: int, s: int, device) -> torch.Tensor:
-    return torch.arange(s, device=device).expand(b, s)
+def _positions(b: int, s: int, like: torch.Tensor) -> torch.Tensor:
+    """(b, s) positions 0..s-1 on ``like``'s device (replicated on its mesh
+    when it is a DTensor)."""
+    return L.replicate_like(torch.arange(s, device=like.device).expand(b, s), like)
 
 
 # ===========================================================================
@@ -271,8 +381,8 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 # ===========================================================================
 
 
-def _cross_kv(cfg: ModelConfig, p: L.Attention, enc: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _cross_kv(cfg: ModelConfig, p: L.Attention, enc: torch.Tensor,
+              shd: ShardingConfig = NO_SHARDING) -> Tuple[torch.Tensor, torch.Tensor]:
     """A decoder layer's cross-attention K/V (B, S_enc, KV, hd), projected
     from the encoder output without biases, as the reference's."""
     b, se, _ = enc.shape
@@ -284,7 +394,8 @@ def _cross_kv(cfg: ModelConfig, p: L.Attention, enc: torch.Tensor
 def _unit(cfg: ModelConfig, sub: Tuple[str, ...], unit: nn.ModuleDict,
           flag_row: List[bool], x: torch.Tensor, positions: torch.Tensor,
           freqs: torch.Tensor, enc: Optional[torch.Tensor] = None,
-          cap: Optional[Dict[str, list]] = None) -> torch.Tensor:
+          cap: Optional[Dict[str, list]] = None,
+          shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """One unit's sub-layers (``enc``: the encoder output that a ``cross``
     sub-layer attends to); with ``cap`` each self-attention layer's K and
     V are appended to ``cap["k"]`` and ``cap["v"]``, each cross-attention
@@ -296,52 +407,55 @@ def _unit(cfg: ModelConfig, sub: Tuple[str, ...], unit: nn.ModuleDict,
         h = L.apply_norm(cfg, p.norm, x)
         if kind in ("attn", "hybrid"):
             y, k, v = L.mha_kv(cfg, p.w if kind == "attn" else p.attn, h, positions, freqs,
-                               flag_row[fi], use_rope=cfg.family != "audio")
+                               flag_row[fi], use_rope=cfg.family != "audio", shd=shd)
             fi += 1
             if cap is not None:
                 cap["k"].append(k)
                 cap["v"].append(v)
             if kind == "hybrid":    # Hymba: parallel attention + mamba heads, averaged
-                s, st = M.mamba_scan(cfg, p.ssm, h, return_state=True)
+                s, st = M.mamba_scan(cfg, p.ssm, h, return_state=True, shd=shd)
                 if cap is not None:
                     cap["ssm"].append(st)
                 y = 0.5 * (L.apply_norm(cfg, p.norm_attn, y) + L.apply_norm(cfg, p.norm_ssm, s))
             x = x + y
         elif kind == "attn_nc":     # Whisper's encoder: non-causal, no RoPE
-            x = x + L.mha(cfg, p.w, h, positions, freqs, True, causal=False, use_rope=False)
+            x = x + L.mha(cfg, p.w, h, positions, freqs, True, causal=False, use_rope=False,
+                          shd=shd)
         elif kind == "cross":
-            ck, cv = _cross_kv(cfg, p.w, enc)
+            ck, cv = _cross_kv(cfg, p.w, enc, shd)
             if cap is not None:
                 cap["cross_k"].append(ck)
                 cap["cross_v"].append(cv)
             x = x + L.mha(cfg, p.w, h, positions, freqs, True, causal=False,
-                          kv_override=(ck, cv))
+                          kv_override=(ck, cv), shd=shd)
         elif kind == "moe":
-            x = x + MOE.moe(cfg, p.w, h)[0]
+            x = x + MOE.moe(cfg, p.w, h, shd=shd)[0]
         else:
-            x = x + L.mlp(cfg, p.w, h)
+            x = x + L.mlp(cfg, p.w, h, shd)
     return x
 
 
 def _run_units(cfg: ModelConfig, units: nn.ModuleList, sub: Tuple[str, ...],
                x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor,
                enc: Optional[torch.Tensor] = None,
-               cap: Optional[Dict[str, list]] = None) -> torch.Tensor:
+               cap: Optional[Dict[str, list]] = None,
+               shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """A stack of units; with ``cap`` also what ``_unit`` captures.  With
     ``cfg.remat`` and grad enabled each unit is checkpointed."""
     flags = _global_flags(cfg, len(units), sub)
     remat = cfg.remat and torch.is_grad_enabled() and cap is None
     for unit, flag_row in zip(units, flags):
         if remat:
-            x = checkpoint(_unit, cfg, sub, unit, flag_row, x, positions, freqs, enc,
-                           use_reentrant=False, preserve_rng_state=False)
+            x = checkpoint(_unit, cfg, sub, unit, flag_row, x, positions, freqs, enc, None,
+                           shd, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _unit(cfg, sub, unit, flag_row, x, positions, freqs, enc, cap)
+            x = _unit(cfg, sub, unit, flag_row, x, positions, freqs, enc, cap, shd)
     return x
 
 
 def _run_blocks(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
-                states: Optional[list] = None) -> torch.Tensor:
+                states: Optional[list] = None,
+                shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """The xLSTM blocks (the reference's ``_xlstm_forward``).  With
     ``states`` each block's final recurrent state is appended as
     ``{kind: state}`` and every mLSTM block takes the exact scan, as the
@@ -351,29 +465,30 @@ def _run_blocks(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
         kind = _block_kind(block)
         h = L.apply_norm(cfg, block["norm"], x)
         if kind == "mlstm" and cfg.mlstm_chunked and states is None:
-            y = X.mlstm_forward_chunked(cfg, block[kind], h)
+            y = X.mlstm_forward_chunked(cfg, block[kind], h, shd=shd)
         else:
             fwd = X.slstm_forward if kind == "slstm" else X.mlstm_forward
-            y, st = fwd(cfg, block[kind], h, return_state=True)
+            y, st = fwd(cfg, block[kind], h, return_state=True, shd=shd)
             if states is not None:
                 states.append({kind: st})
         x = x + y
         mlp = block["mlp"]
-        x = x + L.mlp(cfg, mlp.w, L.apply_norm(cfg, mlp.norm, x))
+        x = x + L.mlp(cfg, mlp.w, L.apply_norm(cfg, mlp.norm, x), shd)
     return x
 
 
 def _embed(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
-           extra_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+           extra_embeds: Optional[torch.Tensor],
+           shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """Embedded tokens, vlm's patch embeddings prepended (B, P + S, d)."""
-    x = L.embed(cfg, params.embed, tokens)
+    x = L.embed(cfg, params.embed, tokens, shd)
     if cfg.family == "vlm" and extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     return x
 
 
 def _encode(cfg: ModelConfig, params: Backbone, frames: Optional[torch.Tensor],
-            freqs: torch.Tensor) -> torch.Tensor:
+            freqs: torch.Tensor, shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """Whisper's encoder over frame embeddings (B, encoder_seq, d) → the
     normed encoder output (B, encoder_seq, d)."""
     if frames is None:
@@ -381,32 +496,36 @@ def _encode(cfg: ModelConfig, params: Backbone, frames: Optional[torch.Tensor],
                          f"(B, {cfg.encoder_seq}, {cfg.d_model}) as extra_embeds")
     enc = frames.to(L.param_dtype(cfg)) + params.enc_pos[None]
     b, se, _ = enc.shape
-    enc = _run_units(cfg, params.enc_units, ENCODER_SUB, enc, _positions(b, se, enc.device),
-                     freqs)
+    enc = _run_units(cfg, params.enc_units, ENCODER_SUB, enc, _positions(b, se, enc),
+                     freqs, shd=shd)
     return L.apply_norm(cfg, params.enc_norm, enc)
 
 
 def forward(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
-            extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+            extra_embeds: Optional[torch.Tensor] = None,
+            shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """Full-sequence logits (B, S_total, V); S_total = P + S with vlm's
     ``extra_embeds`` (B, P, d); S for audio, whose ``extra_embeds`` are
-    the encoder's frames (B, encoder_seq, d)."""
+    the encoder's frames (B, encoder_seq, d).  On a mesh the parameters
+    and tokens are DTensors and so are the logits."""
     sub, _ = unit_structure(cfg)
-    x = _embed(cfg, params, tokens, extra_embeds)
+    x = _embed(cfg, params, tokens, extra_embeds, shd)
     if cfg.family == "ssm":
-        x = _run_blocks(cfg, params, x)
+        x = _run_blocks(cfg, params, x, shd=shd)
     else:
-        freqs = L.rope_freqs(cfg, tokens.device)
-        enc = _encode(cfg, params, extra_embeds, freqs) if cfg.family == "audio" else None
+        freqs = L.replicate_like(L.rope_freqs(cfg, tokens.device), x)
+        enc = (_encode(cfg, params, extra_embeds, freqs, shd) if cfg.family == "audio"
+               else None)
         b, s, _ = x.shape
-        x = _run_units(cfg, _units(cfg, params), sub, x, _positions(b, s, x.device), freqs,
-                       enc)
+        x = _run_units(cfg, _units(cfg, params), sub, x, _positions(b, s, x), freqs,
+                       enc, shd=shd)
     x = L.apply_norm(cfg, params.final_norm, x)
-    return L.unembed(cfg, params.embed, x)
+    return L.unembed(cfg, params.embed, x, shd)
 
 
 def _capture_kv_states(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
-                       freqs: torch.Tensor, enc: Optional[torch.Tensor] = None):
+                       freqs: torch.Tensor, enc: Optional[torch.Tensor] = None,
+                       shd: ShardingConfig = NO_SHARDING):
     """One pass of the unit stack over embeddings ``x`` → (final hidden
     state, {"k", "v"}: K and V of every attention layer, each stacked
     (n_attn, B, S, KV, hd); for the hybrid family "ssm", each unit's final
@@ -416,8 +535,8 @@ def _capture_kv_states(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
     b, s, _ = x.shape
     sub, _ = unit_structure(cfg)
     cap = {"k": [], "v": [], "ssm": [], "cross_k": [], "cross_v": []}
-    x = _run_units(cfg, _units(cfg, params), sub, x, _positions(b, s, x.device), freqs, enc,
-                   cap)
+    x = _run_units(cfg, _units(cfg, params), sub, x, _positions(b, s, x), freqs, enc,
+                   cap, shd)
     return x, {key: torch.stack(t) for key, t in cap.items() if t}
 
 
@@ -426,8 +545,22 @@ def _capture_kv_states(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
 # ===========================================================================
 
 
+def _cache_kv_spec(cfg: ModelConfig, shd: ShardingConfig) -> tuple:
+    """Sharding for (U, B, S, KV, hd): batch→data; heads→model when the
+    head count divides evenly, else sequence→model (flash-decoding
+    style)."""
+    if not shd.enabled:
+        return ()
+    mode = cfg.cache_shard
+    if mode == "auto":
+        mode = "heads" if cfg.num_kv_heads % 16 == 0 else "seq"
+    if mode == "heads":
+        return canonical((None, shd.fsdp, None, shd.tp, None))
+    return canonical((None, shd.fsdp, shd.tp, None, None))
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device=None) -> Cache:
+               device=None, shd: ShardingConfig = NO_SHARDING) -> Cache:
     """{"pos": (batch,) int64, "k"/"v": (n_attn, batch, max_len, KV, hd)};
     a hybrid model's also "ssm" (n_units, batch, H, N, P) f32; an audio
     model's also "cross_k"/"cross_v" (L, batch, encoder_seq, KV, hd); an
@@ -444,8 +577,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     n_attn = n_units * sum(1 for k in sub if k in ("attn", "hybrid"))
     dt = dtype or L.param_dtype(cfg)
     shape = (n_attn, batch, max_len, cfg.num_kv_heads, cfg.hd)
-    cache["k"] = torch.zeros(shape, dtype=dt, device=device)
-    cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    cache["k"] = L.shard(torch.zeros(shape, dtype=dt, device=device), shd,
+                         *_cache_kv_spec(cfg, shd))
+    cache["v"] = L.shard(torch.zeros(shape, dtype=dt, device=device), shd,
+                         *_cache_kv_spec(cfg, shd))
     if cfg.family == "hybrid":
         h, pd = M.mamba_heads(cfg)
         cache["ssm"] = torch.zeros((n_units, batch, h, cfg.ssm_state, pd),
@@ -468,14 +603,14 @@ def _attn_decode(cfg: ModelConfig, p: L.Attention, x: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
                  freqs: torch.Tensor, is_global: bool,
                  write_mask: Optional[torch.Tensor] = None,
-                 use_rope: bool = True) -> torch.Tensor:
+                 use_rope: bool = True, shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """x: (B, 1, d); k_cache/v_cache: (B, S, KV, hd), written in place at
     each row's ``pos`` (rows where ``write_mask`` is False keep their
     entry).  Returns the attention output (B, 1, d)."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     b, s_cache = x.shape[0], k_cache.shape[1]
     # the cache stores post-RoPE keys (Whisper's decoder: unrotated)
-    q, k, v = L.qkv(cfg, p, x, pos[:, None], freqs, use_rope=use_rope)
+    q, k, v = L.qkv(cfg, p, x, pos[:, None], freqs, use_rope=use_rope, shd=shd)
 
     rows = torch.arange(b, device=x.device)
     at = pos.clamp(0, s_cache - 1)          # as dynamic_update_slice clamps
@@ -507,25 +642,26 @@ def _write_state(old: torch.Tensor, new: torch.Tensor,
 
 
 def _decode_blocks(cfg: ModelConfig, params: Backbone, cache: Cache, x: torch.Tensor,
-                   write_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                   write_mask: Optional[torch.Tensor],
+                   shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """The xLSTM blocks' decode step, each block's state updated in place."""
     for block, state in zip(params.blocks, cache["blocks"]):
         kind = _block_kind(block)
         h = L.apply_norm(cfg, block["norm"], x)
         step = X.slstm_decode_step if kind == "slstm" else X.mlstm_decode_step
-        y, new = step(cfg, block[kind], h, state[kind])
+        y, new = step(cfg, block[kind], h, state[kind], shd=shd)
         for old_t, new_t in zip(state[kind], new):
             _write_state(old_t, new_t, write_mask)
         x = x + y
         mlp = block["mlp"]
-        x = x + L.mlp(cfg, mlp.w, L.apply_norm(cfg, mlp.norm, x))
+        x = x + L.mlp(cfg, mlp.w, L.apply_norm(cfg, mlp.norm, x), shd)
     return x
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Backbone, cache: Cache,
-                tokens: torch.Tensor, write_mask: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Cache]:
+                tokens: torch.Tensor, write_mask: Optional[torch.Tensor] = None,
+                shd: ShardingConfig = NO_SHARDING) -> Tuple[torch.Tensor, Cache]:
     """One autoregressive step: logits (B, 1, V) for the next token, and
     the cache, updated in place (``pos`` advanced by one on every row, or
     on the rows of ``write_mask`` only; the other rows' K/V entries and
@@ -533,9 +669,9 @@ def decode_step(cfg: ModelConfig, params: Backbone, cache: Cache,
     the cached cross K/V, which no step writes."""
     sub, n_units = unit_structure(cfg)
     pos = cache["pos"]
-    x = L.embed(cfg, params.embed, tokens)
+    x = L.embed(cfg, params.embed, tokens, shd)
     if cfg.family == "ssm":
-        x = _decode_blocks(cfg, params, cache, x, write_mask)
+        x = _decode_blocks(cfg, params, cache, x, write_mask, shd)
     else:
         flags = _global_flags(cfg, n_units, sub)
         freqs = L.rope_freqs(cfg, tokens.device)
@@ -549,32 +685,34 @@ def decode_step(cfg: ModelConfig, params: Backbone, cache: Cache,
                     y = _attn_decode(cfg, p.w if kind == "attn" else p.attn, hdn,
                                      cache["k"][layer], cache["v"][layer], pos, freqs,
                                      flag_row[fi], write_mask,
-                                     use_rope=cfg.family != "audio")
+                                     use_rope=cfg.family != "audio", shd=shd)
                     fi += 1
                     layer += 1
                     if kind == "hybrid":
-                        ys, new_ssm = M.mamba_decode_step(cfg, p.ssm, hdn, cache["ssm"][u])
+                        ys, new_ssm = M.mamba_decode_step(cfg, p.ssm, hdn, cache["ssm"][u],
+                                                          shd=shd)
                         _write_state(cache["ssm"][u], new_ssm, write_mask)
                         y = 0.5 * (L.apply_norm(cfg, p.norm_attn, y)
                                    + L.apply_norm(cfg, p.norm_ssm, ys))
                     x = x + y
                 elif kind == "cross":
                     x = x + L.mha(cfg, p.w, hdn, pos[:, None], freqs, True, causal=False,
-                                  kv_override=(cache["cross_k"][u], cache["cross_v"][u]))
+                                  kv_override=(cache["cross_k"][u], cache["cross_v"][u]),
+                                  shd=shd)
                 elif kind == "moe":
-                    x = x + MOE.moe(cfg, p.w, hdn, drop=False)[0]
+                    x = x + MOE.moe(cfg, p.w, hdn, drop=False, shd=shd)[0]
                 else:
-                    x = x + L.mlp(cfg, p.w, hdn)
+                    x = x + L.mlp(cfg, p.w, hdn, shd)
     step = torch.ones_like(pos) if write_mask is None else write_mask.to(pos.dtype)
     cache["pos"] = pos + step
     x = L.apply_norm(cfg, params.final_norm, x)
-    return L.unembed(cfg, params.embed, x), cache
+    return L.unembed(cfg, params.embed, x, shd), cache
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
-            max_len: int, extra_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, Cache]:
+            max_len: int, extra_embeds: Optional[torch.Tensor] = None,
+            shd: ShardingConfig = NO_SHARDING) -> Tuple[torch.Tensor, Cache]:
     """Process full prompts (B, S), vlm's ``extra_embeds`` (B, P, d)
     before them: logits (B, P + S, V) and a primed cache with ``pos`` =
     P + S on every row (and each SSM or xLSTM state after the prompt).
@@ -582,17 +720,18 @@ def prefill(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
     logits are (B, S, V), the cache holds each decoder layer's cross K/V,
     and ``pos`` = S."""
     b = tokens.shape[0]
-    cache = init_cache(cfg, b, max_len, device=tokens.device)
-    x = _embed(cfg, params, tokens, extra_embeds)
+    cache = init_cache(cfg, b, max_len, device=tokens.device, shd=shd)
+    x = _embed(cfg, params, tokens, extra_embeds, shd)
     s = x.shape[1]
     if cfg.family == "ssm":
         states = []
-        x = _run_blocks(cfg, params, x, states)
+        x = _run_blocks(cfg, params, x, states, shd)
         cache["blocks"] = states
     else:
         freqs = L.rope_freqs(cfg, tokens.device)
-        enc = _encode(cfg, params, extra_embeds, freqs) if cfg.family == "audio" else None
-        x, cap = _capture_kv_states(cfg, params, x, freqs, enc)
+        enc = (_encode(cfg, params, extra_embeds, freqs, shd) if cfg.family == "audio"
+               else None)
+        x, cap = _capture_kv_states(cfg, params, x, freqs, enc, shd)
         cache["k"][:, :, :s] = cap["k"].to(cache["k"].dtype)
         cache["v"][:, :, :s] = cap["v"].to(cache["v"].dtype)
         for key in ("ssm", "cross_k", "cross_v"):
@@ -600,7 +739,7 @@ def prefill(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
                 cache[key].copy_(cap[key])
     cache["pos"].fill_(s)
     x = L.apply_norm(cfg, params.final_norm, x)
-    return L.unembed(cfg, params.embed, x), cache
+    return L.unembed(cfg, params.embed, x, shd), cache
 
 
 def flash_launches_per_prefill(cfg: ModelConfig) -> int:

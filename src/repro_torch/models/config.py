@@ -1,12 +1,31 @@
-"""Model configuration — a copy of ``repro.models.config.ModelConfig``
-with every field and property, so the port imports nothing of the JAX
-package.  ``ShardingConfig`` is not copied: model sharding over a mesh
-is not ported (the data-parallel runtime is: ``runtime/executors.py``)."""
+"""Model and sharding configuration — a copy of
+``repro.models.config``'s ``ShardingConfig``, ``NO_SHARDING`` and
+``ModelConfig`` with every field and property, so the port imports
+nothing of the JAX package."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """Mesh-axis roles.  ``fsdp`` axes shard params+batch; ``tp`` shards
+    heads/d_ff/vocab/experts (the 'model' axis)."""
+
+    fsdp: Tuple[str, ...] = ("data",)
+    tp: Optional[str] = "model"
+    tp_extent: int = 16          # production model-axis size (spec choices)
+    dp_extent: int = 16          # total data-axes extent (local dispatch)
+    enabled: bool = True
+
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        return self.fsdp
+
+
+NO_SHARDING = ShardingConfig(fsdp=(), tp=None, enabled=False)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,10 +6,21 @@ Parameters live in ``nn.Module``s built on the target device and filled
 from an explicit ``torch.Generator`` with the reference's distributions.
 A dense weight is stored (out, in), ``nn.Linear``'s layout, where the
 reference stores (in, out); ``interop.backbone_params_from_numpy``
-transposes.  The reference's sharding arguments are dropped: one card
-has no mesh.  Cross-attention passes the encoder's K/V as
+transposes.  Cross-attention passes the encoder's K/V as
 ``kv_override``: only q is projected, and the path is naive (or
 chunked-query), as in the reference.
+
+Sharding, as the reference's: each layer takes ``shd`` (a
+``ShardingConfig``, keyword, default ``NO_SHARDING``) and constrains its
+activations at the reference's points through ``shard``.  A mesh is
+ranks of ``torch.distributed``, and a sharded tensor a DTensor on its
+``DeviceMesh``: ``shard`` redistributes a DTensor to the spec's
+placements (the counterpart of ``with_sharding_constraint``) and returns
+a plain tensor as it is, so an unsharded call computes exactly what it
+did before.  Where the reference reads the ambient mesh, the port reads
+the DTensor's own (``tp_size``); ``_attn_flash`` on DTensors runs the
+kernel on each rank's (batch, heads) piece through ``local_map``, the
+counterpart of ``shard_map``.
 """
 
 from __future__ import annotations
@@ -23,10 +34,71 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import attention_mask
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import NO_SHARDING, ModelConfig, ShardingConfig
+from repro_torch.models.sharding import placements_for
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 NEG = -1e30
+
+
+# -- sharding helpers ----------------------------------------------------------
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def shard(x: torch.Tensor, shd: ShardingConfig, *spec) -> torch.Tensor:
+    """A sharding constraint: a DTensor redistributed to ``spec``'s
+    placements on its own mesh (an axis name dropped where it does not
+    divide the dimension); a plain tensor, or a spec naming an axis the
+    mesh lacks, leaves ``x`` as it is (the reference's caught error)."""
+    if not shd.enabled or not is_dtensor(x):
+        return x
+    names = x.device_mesh.mesh_dim_names
+    for entry in spec:
+        for axis in ((entry,) if isinstance(entry, str) else entry or ()):
+            if axis not in names:
+                return x
+    placements = placements_for(x.shape, spec, x.device_mesh)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` as a replicated DTensor on ``like``'s mesh when ``like`` is a
+    DTensor (positions, RoPE frequencies, masks: the same on every rank);
+    else ``t`` as it is."""
+    if not is_dtensor(like) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def dp(shd: ShardingConfig):
+    """Batch/fsdp axes tuple (possibly multi-axis: ('pod','data'))."""
+    return shd.fsdp if shd.fsdp else None
+
+
+def tp_size(shd: ShardingConfig, x: torch.Tensor) -> int:
+    """Extent of the tensor-parallel axis in the mesh of ``x`` (1 for a
+    plain tensor: no mesh)."""
+    if not shd.enabled or shd.tp is None or not is_dtensor(x):
+        return 1
+    names = x.device_mesh.mesh_dim_names or ()
+    return x.device_mesh.size(names.index(shd.tp)) if shd.tp in names else 1
+
+
+def tp_if_divisible(shd: ShardingConfig, dim: int, x: torch.Tensor):
+    """'model' axis name if it divides ``dim`` evenly in ``x``'s mesh, else
+    None (8 kv heads on a 16-way model axis → replicate kv, shard q
+    heads)."""
+    t = tp_size(shd, x)
+    return shd.tp if (t > 1 and dim % t == 0) else None
 
 
 def param_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -116,13 +188,18 @@ class Attention(nn.Module):
 def _attn_mask(cfg: ModelConfig, q_pos: torch.Tensor, k_pos: torch.Tensor,
                is_global: bool, causal: bool = True) -> torch.Tensor:
     """(Sq, Sk) boolean mask — full / sliding-window / chunked-local (the
-    flash kernel's mask, so every attention path masks alike)."""
-    return attention_mask(q_pos, k_pos, cfg.attention, cfg.window, causal, is_global)
+    flash kernel's mask, so every attention path masks alike).  Replicated
+    positions give a replicated mask."""
+    local = lambda t: t.to_local() if is_dtensor(t) else t   # noqa: E731
+    mask = attention_mask(local(q_pos), local(k_pos), cfg.attention, cfg.window, causal,
+                          is_global)
+    return replicate_like(mask, q_pos)
 
 
 def qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor,
         freqs: torch.Tensor, causal: bool = True, use_rope: bool = True,
-        kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        shd: ShardingConfig = NO_SHARDING
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Projected q (B, S, H, hd) and k, v (B, S, KV, hd), RoPE applied to
     q and k of causal self-attention with ``use_rope``.  With
@@ -147,41 +224,47 @@ def qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor
 def mha_kv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor,
            freqs: torch.Tensor, is_global: bool, causal: bool = True,
            use_rope: bool = True,
-           kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+           kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+           shd: ShardingConfig = NO_SHARDING
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``mha`` that also returns this layer's k and v (post-RoPE), which
     prefill writes into the cache."""
     b, s, _ = x.shape
-    q, k, v = qkv(cfg, p, x, positions, freqs, causal, use_rope, kv_override)
+    q, k, v = qkv(cfg, p, x, positions, freqs, causal, use_rope, kv_override, shd)
     if kv_override is None:
         k_pos = positions[0]
     else:
         k_pos = torch.arange(k.shape[1], device=x.device)
     if (cfg.attn_impl == "flash" and kv_override is None
             and s == k.shape[1] and s % 128 == 0):
-        out = _attn_flash(cfg, q, k, v, is_global, causal)
+        out = _attn_flash(cfg, shd, q, k, v, is_global, causal)
     elif cfg.attn_impl == "chunked_q":
-        out = _attn_chunked_q(cfg, q, k, v, positions, k_pos, is_global, causal)
+        out = _attn_chunked_q(cfg, shd, q, k, v, positions, k_pos, is_global, causal)
     else:
-        out = _attn_naive(cfg, q, k, v, positions, k_pos, is_global, causal)
+        out = _attn_naive(cfg, shd, q, k, v, positions, k_pos, is_global, causal)
     out = out.reshape(b, s, cfg.num_heads * cfg.hd)
+    out = shard(out, shd, dp(shd), None, shd.tp)
     return F.linear(out, p.wo), k, v
 
 
 def mha(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor,
         freqs: torch.Tensor, is_global: bool, causal: bool = True,
         use_rope: bool = True,
-        kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """x: (B, S, d); positions: (B, S); ``kv_override`` (k, v), each (B,
     Sk, KV, hd), attends to them at key positions 0..Sk-1.  Flash is
     taken when ``attn_impl == "flash"``, there is no override and S is a
     multiple of 128, as in the reference; otherwise the naive path."""
-    return mha_kv(cfg, p, x, positions, freqs, is_global, causal, use_rope, kv_override)[0]
+    return mha_kv(cfg, p, x, positions, freqs, is_global, causal, use_rope, kv_override,
+                  shd)[0]
 
 
-def _attn_naive(cfg, q, k, v, positions, k_pos, is_global, causal):
+def _attn_naive(cfg, shd, q, k, v, positions, k_pos, is_global, causal):
     """Paper-faithful baseline: full (…,S,S) score materialization."""
     b, s, h, hd = q.shape
+    q = shard(q, shd, dp(shd), None, tp_if_divisible(shd, h, q), None)
+    k = shard(k, shd, dp(shd), None, tp_if_divisible(shd, k.shape[2], k), None)
     qg = q.reshape(b, s, k.shape[2], -1, hd)          # grouped-query folding
     scores = torch.einsum("bsgqh,btgh->bgqst", qg, k).float() / math.sqrt(hd)
     mask = _attn_mask(cfg, positions[0], k_pos, is_global, causal)
@@ -191,33 +274,67 @@ def _attn_naive(cfg, q, k, v, positions, k_pos, is_global, causal):
 
 
 def _expand_kv(k: torch.Tensor, v: torch.Tensor, h: int):
-    """GQA → full heads (each KV head repeated for its query group)."""
-    kvh = k.shape[2]
-    if kvh != h:
-        k = k.repeat_interleave(h // kvh, dim=2)
-        v = v.repeat_interleave(h // kvh, dim=2)
-    return k, v
+    """GQA → full heads (each KV head repeated for its query group), as a
+    broadcast and a reshape: ``repeat_interleave``'s result, and views
+    that keep a DTensor's head sharding (``repeat_interleave`` has no
+    sharding rule)."""
+    b, s, kvh, hd = k.shape
+    if kvh == h:
+        return k, v
+    grow = lambda x: x[:, :, :, None].expand(b, s, kvh, h // kvh, hd).reshape(  # noqa: E731
+        b, s, h, hd)
+    return grow(k), grow(v)
 
 
-def _attn_flash(cfg, q, k, v, is_global, causal):
+def _flash_local(cfg, is_global, causal):
+    """The flash kernels on (B, S, H, hd) pieces, folded to (B·H, S, hd)."""
+    window = cfg.window if cfg.attention in ("sliding", "chunked") else 0
+
+    def local(q, k, v):
+        b, s, h, hd = q.shape
+        fold = lambda x: x.transpose(1, 2).reshape(b * h, s, hd).contiguous()   # noqa: E731
+        o = ops.flash_attention_nhsd(fold(q), fold(k), fold(v), cfg.attention,
+                                     window, causal, bool(is_global))
+        return o.reshape(b, h, s, hd).transpose(1, 2)
+
+    return local
+
+
+def _attn_flash(cfg, shd, q, k, v, is_global, causal):
     """The flash-attention kernels on (B·H, S, hd): KV heads expanded to
-    full heads and folded with the batch (no head padding: one card).
-    Differentiable: the backward of the ``repeat_interleave`` sums dK and
-    dV over each query group, as ``jnp.repeat``'s does."""
+    full heads and folded with the batch.  Differentiable: the backward of
+    the expansion sums dK and dV over each query group, as
+    ``jnp.repeat``'s does.  On DTensors (a mesh) the heads are padded to
+    a multiple of the model axis, the kernel runs on each rank's (batch,
+    heads) piece through ``local_map`` (the reference's ``shard_map``),
+    and the padding is sliced off."""
     b, s, h, hd = q.shape
     k, v = _expand_kv(k, v, h)
-    window = cfg.window if cfg.attention in ("sliding", "chunked") else 0
-    fold = lambda x: x.transpose(1, 2).reshape(b * h, s, hd).contiguous()   # noqa: E731
-    o = ops.flash_attention_nhsd(fold(q), fold(k), fold(v), cfg.attention,
-                                 window, causal, bool(is_global))
-    return o.reshape(b, h, s, hd).transpose(1, 2)
+    local = _flash_local(cfg, is_global, causal)
+    if not is_dtensor(q):
+        return local(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+
+    t = tp_size(shd, q)
+    h_pad = -(-h // t) * t
+    if h_pad != h:
+        # pad on replicated heads, then split them over the model axis
+        q, k, v = (F.pad(shard(x, shd, dp(shd), None, None, None), (0, 0, 0, h_pad - h))
+                   for x in (q, k, v))
+    q, k, v = (shard(x, shd, dp(shd), None, shd.tp, None) for x in (q, k, v))
+    placements = q.placements
+    k, v = (x.redistribute(q.device_mesh, placements) for x in (k, v))
+    out = local_map(local, out_placements=list(placements), in_placements=(placements,) * 3,
+                    device_mesh=q.device_mesh)(q, k, v)
+    return out[:, :, :h] if h_pad != h else out
 
 
-def _attn_chunked_q(cfg, q, k, v, positions, k_pos, is_global, causal):
+def _attn_chunked_q(cfg, shd, q, k, v, positions, k_pos, is_global, causal):
     """Query chunks of ``attn_q_chunk`` rows, each an exact row softmax:
     scores residency (b, h, Qc, S) per chunk instead of (b, h, S, S)."""
     b, s, h, hd = q.shape
     k, v = _expand_kv(k, v, h)
+    q, k, v = (shard(x, shd, dp(shd), None, shd.tp, None) for x in (q, k, v))
     qc = min(cfg.attn_q_chunk, s)
     nc = s // qc if s % qc == 0 else 1
     qc = s // nc
@@ -259,8 +376,10 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(cfg.act)
 
 
-def mlp(cfg: ModelConfig, p: GLU, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(_act(cfg, F.linear(x, p.w_gate)) * F.linear(x, p.w_up), p.w_down)
+def mlp(cfg: ModelConfig, p: GLU, x: torch.Tensor,
+        shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
+    hdn = _act(cfg, F.linear(x, p.w_gate)) * F.linear(x, p.w_up)
+    return F.linear(shard(hdn, shd, dp(shd), None, shd.tp), p.w_down)
 
 
 # -- embeddings ----------------------------------------------------------------------
@@ -286,9 +405,34 @@ class Embed(nn.Module):
             dense_init_(self.out, gen)
 
 
-def embed(cfg: ModelConfig, p: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    return p.tok[tokens]
+def embed(cfg: ModelConfig, p: Embed, tokens: torch.Tensor,
+          shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
+    e = _embed_replicated(p.tok, tokens) if is_dtensor(p.tok) else p.tok[tokens]
+    return shard(e, shd, dp(shd), None, None)
 
 
-def unembed(cfg: ModelConfig, p: Embed, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, p.tok if cfg.tie_embeddings else p.out)
+def _embed_replicated(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup on a mesh: the (vocab- and fsdp-sharded) table replicated
+    (an all-gather, where GSPMD gathers too) and indexed on each rank's
+    tokens through ``local_map``, the unsharded op itself.  DTensor's rule
+    for the lookup's backward (``index_put`` into a sharded table) fails in
+    torch 2.11.  The table's gradient is a partial sum over the mesh axes
+    that split the tokens and the same on the others."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = tok.device_mesh
+    if not is_dtensor(tokens):
+        tokens = replicate_like(tokens, tok)
+    rep = (Replicate(),) * mesh.ndim
+    grad = tuple(Partial() if p.is_shard() else Replicate() for p in tokens.placements)
+    idx = tuple(tokens.placements)
+    return local_map(lambda t, i: t[i], out_placements=list(idx), in_placements=(rep, idx),
+                     in_grad_placements=(grad, idx), device_mesh=mesh)(
+        tok.redistribute(mesh, rep), tokens)
+
+
+def unembed(cfg: ModelConfig, p: Embed, x: torch.Tensor,
+            shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
+    logits = F.linear(x, p.tok if cfg.tie_embeddings else p.out)
+    return shard(logits, shd, dp(shd), None, shd.tp)

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import NO_SHARDING, ModelConfig, ShardingConfig
 
 CHUNK = 128
 
@@ -87,7 +87,8 @@ def _proj(cfg: ModelConfig, p: Mamba, x: torch.Tensor):
     return xv, z, bm, cm, dt_, a
 
 
-def mamba_scan(cfg: ModelConfig, p: Mamba, x: torch.Tensor, return_state: bool = False):
+def mamba_scan(cfg: ModelConfig, p: Mamba, x: torch.Tensor, return_state: bool = False,
+               shd: ShardingConfig = NO_SHARDING):
     """Training/prefill path — chunked SSD.  x: (B, S, d) → (B, S, d), and
     with ``return_state`` the final state (B, H, N, P) f32 too.  The chunk
     is min(CHUNK, S), which must divide S (so a sequence past 128 tokens is
@@ -131,15 +132,17 @@ def mamba_scan(cfg: ModelConfig, p: Mamba, x: torch.Tensor, return_state: bool =
     y_inter = torch.einsum("bcqhn,bchnp,bcqh->bcqhp", cm, prev_states, torch.exp(acs))
     y = (y_intra + y_inter).reshape(b, s, h, pd)
     y = y * F.silu(z.float())
+    y = L.shard(y, shd, L.dp(shd), None, shd.tp, None)
     out = F.linear(y.reshape(b, s, h * pd).to(x.dtype), p.w_out)
     if return_state:
         return out, carry
     return out
 
 
-def mamba_prefill_state(cfg: ModelConfig, p: Mamba, x: torch.Tensor) -> torch.Tensor:
+def mamba_prefill_state(cfg: ModelConfig, p: Mamba, x: torch.Tensor,
+                        shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """Final (B, H, N, P) state after processing x (prefill priming)."""
-    return mamba_scan(cfg, p, x, return_state=True)[1]
+    return mamba_scan(cfg, p, x, return_state=True, shd=shd)[1]
 
 
 def mamba_decode_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -148,8 +151,8 @@ def mamba_decode_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
     return torch.zeros((batch, h, cfg.ssm_state, pd), dtype=dtype, device=device)
 
 
-def mamba_decode_step(cfg: ModelConfig, p: Mamba, x: torch.Tensor, state: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+def mamba_decode_step(cfg: ModelConfig, p: Mamba, x: torch.Tensor, state: torch.Tensor,
+                      shd: ShardingConfig = NO_SHARDING) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, 1, d), state (B, H, N, P) → (out (B, 1, d), the new state)."""
     b = x.shape[0]
     h, pd = mamba_heads(cfg)

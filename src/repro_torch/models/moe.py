@@ -22,9 +22,22 @@ in one call, so ``decode_step`` routes with ``drop=False``: the capacity
 is T, no token is dropped, and each row gets what the reference's
 per-slot call gives it (free slots take no capacity from busy ones).
 
-One card has no mesh, so the reference's data-shard count ``ds`` is 1:
-``moe_local_dispatch`` and ``moe_ff_tp_fallback`` are sharding options,
-ported with the sharded model (ROADMAP Queue 1 item 21).
+Sharding, as the reference's (``shd``): with ``cfg.moe_local_dispatch``,
+an enabled ``shd`` with data axes, and T a multiple of ``shd.dp_extent``,
+the T tokens split into ``ds = dp_extent`` consecutive shards, each with
+its own ranks and its own capacity over T / ds tokens, so a different set
+of tokens can drop (per-shard GShard semantics).  The buffer is (E, ds·C,
+d), shard i's slots at [i·C, (i+1)·C): the expert GLU is one ``bmm`` over
+every shard's rows, and with ds = 1 the call is the unsharded one.  This
+holds whether or not a mesh is installed: a one-process run under
+``launch/train.py --mesh 16x16`` routes so, as the reference's does.
+``moe_ff_tp_fallback`` picks the expert axis of the constraints: the
+experts over the model axis (EP) when they divide ``shd.tp_extent`` or the
+fallback is off, else d_ff over it.  On DTensors (a mesh of ranks) the
+dispatch's ops (the rank ``cumsum`` over tokens, the scatter-add into the
+buffer, ``topk``) have no sharding rules, so ``moe`` replicates its input
+and the expert weights explicitly (where the reference's GSPMD gathers)
+and computes the layer on every rank.
 
 Two measurement aids: ``recording()`` collects each call's metrics and
 expert ids, which the backbone discards as the reference's ``_apply_sub``
@@ -38,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from types import SimpleNamespace
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -45,7 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import NO_SHARDING, ModelConfig, ShardingConfig
 
 _RECORD: Optional[List[Dict[str, torch.Tensor]]] = None
 _ROUTES: Optional[Iterator[torch.Tensor]] = None
@@ -114,14 +128,25 @@ def route(cfg: ModelConfig, p: MoE, xt: torch.Tensor
     return probs, gate_w, expert_id
 
 
-def moe(cfg: ModelConfig, p: MoE, x: torch.Tensor, drop: bool = True
-        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def local_shards(cfg: ModelConfig, shd: ShardingConfig, tokens: int) -> int:
+    """The reference's ``ds``: ``shd.dp_extent`` dispatch shards with
+    ``moe_local_dispatch`` on an enabled ``shd`` with data axes when it
+    divides the tokens, else 1."""
+    if cfg.moe_local_dispatch and shd.enabled and shd.fsdp and tokens % shd.dp_extent == 0:
+        return shd.dp_extent
+    return 1
+
+
+def moe(cfg: ModelConfig, p: MoE, x: torch.Tensor, drop: bool = True,
+        shd: ShardingConfig = NO_SHARDING) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, d) → (y (B, S, d) in x's dtype, {"aux_loss",
-    "dropped_frac"}).  With ``drop=False`` the capacity is T, so every
-    token reaches its k experts (the batched decode)."""
+    "dropped_frac"}).  With ``drop=False`` the capacity is a shard's token
+    count, so every token reaches its k experts (the batched decode)."""
+    if L.is_dtensor(x):
+        return _moe_replicated(cfg, p, x, drop, shd)
     b, s, d = x.shape
     t, e, k = b * s, cfg.num_experts, cfg.experts_per_token
-    xt = x.reshape(t, d)
+    xt = L.shard(x.reshape(t, d), shd, L.dp(shd), None)
     probs, gate_w, expert_id = route(cfg, p, xt)
 
     # load-balancing auxiliary loss (Switch/GShard), from the first choice
@@ -129,36 +154,82 @@ def moe(cfg: ModelConfig, p: MoE, x: torch.Tensor, drop: bool = True
     ce = F.one_hot(expert_id[:, 0], e).float().mean(0)
     aux_loss = e * torch.sum(me * ce)
 
-    c = capacity(cfg, t) if drop else t
+    # expert-dim sharding when E divides the model axis (EP), else d_ff over
+    # the model axis (dense-style TP inside each expert)
+    ep = e % max(1, shd.tp_extent) == 0 or not cfg.moe_ff_tp_fallback
+    e_ax, f_ax = (shd.tp, None) if ep else (None, shd.tp)
+    ds = local_shards(cfg, shd, t)
+    tl = t // ds
+    c = capacity(cfg, tl) if drop else tl
     out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
     dropped = torch.zeros((), dtype=torch.float32, device=x.device)
     keeps = []
     for slot in range(k):
         eid = expert_id[:, slot]                          # (T,)
-        onehot = F.one_hot(eid, e)                        # (T, E)
-        rank = onehot.cumsum(0) - onehot                  # rank within the expert
-        pos = rank.gather(1, eid[:, None])[:, 0]
-        keep = pos < c
+        onehot = F.one_hot(eid, e).reshape(ds, tl, e)     # (DS, Tl, E)
+        rank = onehot.cumsum(1) - onehot                  # rank within the shard's expert
+        pos = rank.gather(2, eid.reshape(ds, tl, 1))[..., 0]
+        keep = (pos < c).reshape(t)
         keeps.append(keep)
         dropped = dropped + (~keep).sum().float()
-        safe_pos = torch.where(keep, pos, c - 1)
+        safe_pos = torch.where(pos < c, pos, c - 1)
+        if ds > 1:                                        # shard i's slots from i·C
+            safe_pos = safe_pos + (torch.arange(ds, device=x.device) * c)[:, None]
+        safe_pos = safe_pos.reshape(t)
         contrib = torch.where(keep[:, None], xt, torch.zeros_like(xt))
-        buf = torch.zeros((e, c, d), dtype=x.dtype, device=x.device)
+        buf = torch.zeros((e, ds * c, d), dtype=x.dtype, device=x.device)
         buf = buf.index_put((eid, safe_pos), contrib, accumulate=True)
+        buf = L.shard(buf, shd, e_ax, L.dp(shd) if ds > 1 else None, None)
         h = L._act(cfg, torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
-        y_e = torch.bmm(h, p.w_down)                      # (E, C, d)
+        h = L.shard(h, shd, e_ax, L.dp(shd) if ds > 1 else None, f_ax)
+        y_e = torch.bmm(h, p.w_down)                      # (E, DS·C, d)
         y_t = y_e[eid, safe_pos]                          # (T, d)
         out = out + torch.where(keep[:, None], y_t.float() * gate_w[:, slot:slot + 1],
                                 torch.zeros_like(out))
 
     if p.shared is not None:
-        out = out + L.mlp(cfg, p.shared, x).reshape(t, d).float()
+        out = out + L.mlp(cfg, p.shared, x, shd).reshape(t, d).float()
 
     metrics = {"aux_loss": aux_loss, "dropped_frac": dropped / (t * k)}
     if _RECORD is not None:
         _RECORD.append(dict(metrics, expert_id=expert_id.detach(), probs=probs.detach(),
-                            keep=torch.stack(keeps, dim=1), tokens=t, capacity=c))
+                            keep=torch.stack(keeps, dim=1), tokens=t, capacity=c,
+                            shards=ds))
     return out.reshape(b, s, d).to(x.dtype), metrics
+
+
+def _moe_replicated(cfg: ModelConfig, p: MoE, x: torch.Tensor, drop: bool,
+                    shd: ShardingConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``moe`` on DTensors: the input and every weight replicated
+    (all-gathered) and the layer computed on each rank's full copy through
+    ``local_map``; the output and metrics replicated.  Each rank's weight
+    gradients are the full ones, so they stay replicated too."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    names = [n for n, _ in p.named_parameters()]
+
+    def local(xl, *weights):
+        return _moe_with(cfg, p, dict(zip(names, weights)), xl, drop, shd)
+
+    args = [t.redistribute(mesh, rep) for t in (x, *p.parameters())]
+    y, aux, frac = local_map(local, out_placements=(rep, rep, rep),
+                             in_placements=(rep,) * len(args), device_mesh=mesh)(*args)
+    return y, {"aux_loss": aux, "dropped_frac": frac}
+
+
+def _moe_with(cfg, p, weights, x, drop, shd):
+    """``moe`` of plain tensors with ``p``'s parameters replaced by
+    ``weights`` ({name: tensor}) → (y, aux_loss, dropped_frac)."""
+    local = SimpleNamespace(**{n: weights[n] for n in ("router", "w_gate", "w_up", "w_down")},
+                            shared=None)
+    if p.shared is not None:
+        local.shared = SimpleNamespace(**{n: weights[f"shared.{n}"]
+                                          for n in ("w_gate", "w_up", "w_down")})
+    y, m = moe(cfg, local, x, drop, shd)
+    return y, m["aux_loss"], m["dropped_frac"]
 
 
 @contextlib.contextmanager

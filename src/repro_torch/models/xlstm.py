@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import NO_SHARDING, ModelConfig, ShardingConfig
 
 NEG_INIT = -1e30      # the stabilizer's initial value
 MLSTM_CHUNK = 64
@@ -129,16 +129,19 @@ def _mlstm_scan(cfg: ModelConfig, p: MLSTM, x: torch.Tensor):
     return torch.stack(hs, dim=1), og, state
 
 
-def _mlstm_out(p: MLSTM, hs: torch.Tensor, og: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _mlstm_out(p: MLSTM, hs: torch.Tensor, og: torch.Tensor, x: torch.Tensor,
+               shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     b, s = hs.shape[:2]
-    return F.linear((hs * og).reshape(b, s, -1).to(x.dtype), p.w_out)
+    y = L.shard((hs * og).reshape(b, s, -1).to(x.dtype), shd, L.dp(shd), None, shd.tp)
+    return F.linear(y, p.w_out)
 
 
-def mlstm_forward(cfg: ModelConfig, p: MLSTM, x: torch.Tensor, return_state: bool = False):
+def mlstm_forward(cfg: ModelConfig, p: MLSTM, x: torch.Tensor, return_state: bool = False,
+                  shd: ShardingConfig = NO_SHARDING):
     """Training path: the exact recurrence over the sequence.  x (B, S, d)
     → (B, S, d), and with ``return_state`` the final ``MLSTMState``."""
     hs, og, state = _mlstm_scan(cfg, p, x)
-    out = _mlstm_out(p, hs, og, x)
+    out = _mlstm_out(p, hs, og, x, shd)
     return (out, state) if return_state else out
 
 
@@ -147,7 +150,8 @@ def mlstm_prefill_state(cfg: ModelConfig, p: MLSTM, x: torch.Tensor) -> MLSTMSta
     return _mlstm_scan(cfg, p, x)[2]
 
 
-def mlstm_forward_chunked(cfg: ModelConfig, p: MLSTM, x: torch.Tensor) -> torch.Tensor:
+def mlstm_forward_chunked(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
+                          shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """Chunkwise-parallel stabilized mLSTM (the reference's §Perf training
     path): the matrix state is kept per chunk of MLSTM_CHUNK, not per step,
     and the interactions within a chunk are masked quadratic einsums.  Equal
@@ -206,11 +210,11 @@ def mlstm_forward_chunked(cfg: ModelConfig, p: MLSTM, x: torch.Tensor) -> torch.
         n = n * decay[..., None] + torch.einsum("bjh,bjhk->bhk", wl, kb)
         m = btot[:, c] + mxl
     hs = torch.stack(hs, dim=1).reshape(b, s, h, hd)
-    return _mlstm_out(p, hs, og, x)
+    return _mlstm_out(p, hs, og, x, shd)
 
 
-def mlstm_decode_step(cfg: ModelConfig, p: MLSTM, x: torch.Tensor, state: MLSTMState
-                      ) -> Tuple[torch.Tensor, MLSTMState]:
+def mlstm_decode_step(cfg: ModelConfig, p: MLSTM, x: torch.Tensor, state: MLSTMState,
+                      shd: ShardingConfig = NO_SHARDING) -> Tuple[torch.Tensor, MLSTMState]:
     """x (B, 1, d) → (out (B, 1, d), the new state)."""
     q, k, v, it, logf, og = _mlstm_qkvif(cfg, p, x)
     state, h_t = mlstm_step(state, q[:, 0].float(), k[:, 0].float(), v[:, 0].float(),
@@ -301,7 +305,8 @@ def _slstm_scan(cfg: ModelConfig, p: SLSTM, x: torch.Tensor):
     return torch.stack(hs, dim=1), state
 
 
-def slstm_forward(cfg: ModelConfig, p: SLSTM, x: torch.Tensor, return_state: bool = False):
+def slstm_forward(cfg: ModelConfig, p: SLSTM, x: torch.Tensor, return_state: bool = False,
+                  shd: ShardingConfig = NO_SHARDING):
     """x (B, S, d) → (B, S, d), and with ``return_state`` the final
     ``SLSTMState``."""
     b, s, _ = x.shape
@@ -314,8 +319,8 @@ def slstm_prefill_state(cfg: ModelConfig, p: SLSTM, x: torch.Tensor) -> SLSTMSta
     return _slstm_scan(cfg, p, x)[1]
 
 
-def slstm_decode_step(cfg: ModelConfig, p: SLSTM, x: torch.Tensor, state: SLSTMState
-                      ) -> Tuple[torch.Tensor, SLSTMState]:
+def slstm_decode_step(cfg: ModelConfig, p: SLSTM, x: torch.Tensor, state: SLSTMState,
+                      shd: ShardingConfig = NO_SHARDING) -> Tuple[torch.Tensor, SLSTMState]:
     b = x.shape[0]
     xz, xi, xf, xo = _slstm_inputs(cfg, p, x)
     state, h_t = slstm_step(p, state, xz[:, 0], xi[:, 0], xf[:, 0], xo[:, 0])

@@ -82,8 +82,28 @@ def _groups(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(torch.stack([torch.sum(torch.square(x.float()))
-                                   for x in tensors]).sum())
+    """The l2 norm over every element of every tensor.  A DTensor's sum of
+    squares is reduced over its shards first (``full_tensor``), so on a
+    mesh the norm is the whole model's on every rank, never a rank's own
+    piece's."""
+    sq = [torch.sum(torch.square(x.float())) for x in tensors]
+    sq = [t.full_tensor() if _is_dtensor(t) else t for t in sq]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _copy_(dst: List[torch.Tensor], src: List[torch.Tensor]) -> None:
+    """``torch._foreach_copy_``; DTensor has no sharding rule for it, so
+    DTensors (pieces placed alike) take one ``copy_`` each."""
+    if dst and _is_dtensor(dst[0]):
+        for d, x in zip(dst, src):
+            d.copy_(x)
+    else:
+        torch._foreach_copy_(dst, src)
 
 
 def _sqrt_(xs: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -113,8 +133,8 @@ def _update_rounded_once(g, m, v, p, cfg: AdamConfig, b1c, b2c) -> None:
     torch._foreach_mul_(sq, 1 - cfg.b2)
     torch._foreach_add_(v32, sq)
     del sq
-    torch._foreach_copy_(m, m32)
-    torch._foreach_copy_(v, v32)
+    _copy_(m, m32)
+    _copy_(v, v32)
     # step = lr · (m / b1c) / (sqrt(v / b2c) + eps)
     torch._foreach_div_(m32, b1c)
     torch._foreach_mul_(m32, cfg.lr)
@@ -187,4 +207,4 @@ def ema_update(target: Sequence[torch.Tensor], online: Sequence[torch.Tensor],
         torch._foreach_add_(new, torch._foreach_mul([online[i].float() for i in group], tau))
         if where is not None:
             new = [torch.where(where, n, x) for n, x in zip(new, t)]
-        torch._foreach_copy_(t, new)
+        _copy_(t, new)

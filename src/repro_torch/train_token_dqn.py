@@ -48,7 +48,7 @@ from repro_torch.agents.base import state_tensors
 from repro_torch.core.replay import ReplayConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.train import collect, peak_memory, token_config, token_setup
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import NO_SHARDING, ModelConfig
 from repro_torch.runtime.loop import LoopConfig, RatioSchedule
 
 # the reference's "~100M" config: 8L × d512 × vocab 8192 GQA, 39.9 M params
@@ -129,7 +129,7 @@ def main(argv=None) -> dict:
         if it % schedule.period == 0:
             for _ in range(schedule.learns):
                 idx, items, w = replay.sample(rst, gens["sample"], args.batch)
-                state, metrics, tds = token_dqn.train_step(cfg, tcfg, state,
+                state, metrics, tds = token_dqn.train_step(cfg, NO_SHARDING, tcfg, state,
                                                            dict(items, is_weights=w))
                 rst = replay.update_priorities(rst, idx, tds)
                 learns.append({"it": it, **{k: float(v) for k, v in metrics.items()}})

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro.optim import adam as jadam
+from repro_torch.models.config import NO_SHARDING as NO_SHARDING_T
 from repro_torch.optim import adam as tadam
 
 SHAPES = [(64, 33), (77,), (128, 256), (5,)]
@@ -191,7 +192,7 @@ def test_checkpoint_restores_bf16_moments_bit_for_bit(tmp_path):
     tcfg = tdqn.TokenDQNConfig(opt=tadam.AdamConfig(lr=1e-3, state_dtype="bfloat16"))
     state = tdqn.init_train_state(cfg, tcfg, torch.Generator().manual_seed(0))
     _, batch = _reference_bf16_state()
-    state, _, _ = tdqn.train_step(cfg, tcfg, state,
+    state, _, _ = tdqn.train_step(cfg, NO_SHARDING_T, tcfg, state,
                                   {k: torch.from_numpy(v) for k, v in batch.items()})
     assert all(x.dtype == torch.bfloat16 for x in state.opt.m + state.opt.v)
     assert any(float(m.abs().max()) > 0 for m in state.opt.m)

@@ -42,6 +42,7 @@ from repro_torch import interop
 from repro_torch.agents import token_dqn as tdqn
 from repro_torch.configs import get_config as tget_config
 from repro_torch.envs import token_mdp as tmdp
+from repro_torch.models.config import NO_SHARDING as NO_SHARDING_T
 from repro_torch.optim import adam as tadam
 
 torch.set_num_threads(2)
@@ -116,7 +117,7 @@ def check_step(cfg, tcfg, jstate, batch, jnew, jmetrics, jtds):
     against the reference's result, under the rules of the module
     docstring."""
     state = interop.train_state_from_numpy(cfg, jax.device_get(jstate))
-    new, metrics, tds = tdqn.train_step(cfg, tcfg, state,
+    new, metrics, tds = tdqn.train_step(cfg, NO_SHARDING_T, tcfg, state,
                                         {k: torch.from_numpy(v) for k, v in batch.items()})
     want = interop.train_state_from_numpy(cfg, jax.device_get(jnew))
 
@@ -194,7 +195,7 @@ def test_double_q_and_max_targets_differ():
         state = tdqn.init_train_state(cfg, tcfg, torch.Generator().manual_seed(0))
         other = tdqn.init_train_state(cfg, tcfg, torch.Generator().manual_seed(1))
         state = state._replace(target=other.params.requires_grad_(False))
-        losses.append(float(tdqn.train_step(cfg, tcfg, state, batch)[1]["loss"]))
+        losses.append(float(tdqn.train_step(cfg, NO_SHARDING_T, tcfg, state, batch)[1]["loss"]))
     assert abs(losses[0] - losses[1]) > 1e-3 * abs(losses[1]), losses
 
 

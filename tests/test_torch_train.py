@@ -1,10 +1,14 @@
 """The port's training entry point (``python -m repro_torch.launch.train``)
 on the CPU at SMOKE size: it trains through the flash path, checkpoints,
-resumes from its checkpoint, applies a planner's plan, and refuses model
-sharding (``--mesh``), which is not ported; it trains the hybrid
-(Hymba, flash) and ssm (xLSTM) families.  ``--wall-clock`` is in
-tests/test_torch_gang.py."""
+resumes from its checkpoint, applies a planner's plan, runs ``--mesh
+16x16`` and ``2x16x16`` as the reference's one-process run (bit for bit
+``--mesh host`` on a dense arch; per-shard moe routing with
+``moe_local_dispatch``); it trains the hybrid (Hymba, flash) and ssm
+(xLSTM) families.  ``--wall-clock`` is in tests/test_torch_gang.py."""
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -13,6 +17,7 @@ from repro_torch.agents.base import state_tensors
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import train
+from repro_torch.models import moe
 
 torch.set_num_threads(2)
 
@@ -95,12 +100,79 @@ def test_trains_the_hybrid_and_ssm_families(arch, flash_layers, tmp_path, monkey
     assert CheckpointManager(str(tmp_path)).all_steps() == [3]
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "16x16"]])
-def test_unported_modes_exit_2(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        train.main(ARGS + flag)
-    assert e.value.code == 2
-    assert "ROADMAP Queue 1 item 21" in capsys.readouterr().err
+def local_dispatch_keep(expert_id: np.ndarray, shards: int, cap: int) -> np.ndarray:
+    """The reference's per-shard keep rule (``repro/models/moe.py:80-100``):
+    the T tokens in ``shards`` consecutive shards; a token's rank at a top-k
+    slot counts the earlier tokens of its shard routed to the same expert
+    at that slot; it is kept when its rank is below the capacity."""
+    t, k = expert_id.shape
+    keep = np.zeros((t, k), bool)
+    for i in range(shards):
+        part = expert_id[i * (t // shards):(i + 1) * (t // shards)]
+        for j in range(k):
+            seen = {}
+            for row, e in enumerate(part[:, j]):
+                keep[i * (t // shards) + row, j] = seen.get(e, 0) < cap
+                seen[e] = seen.get(e, 0) + 1
+    return keep
+
+
+@pytest.mark.parametrize("arch,mesh", [("internlm2_1_8b", "16x16"),
+                                       ("internlm2_1_8b", "2x16x16"),
+                                       ("mixtral_8x7b", "16x16")])
+def test_mesh_runs_as_the_reference(arch, mesh, tmp_path, monkeypatch, capsys):
+    """``--mesh 16x16|2x16x16`` runs one process with the production
+    sharding config and a shape-only mesh, as the reference's run.  On a
+    dense arch it equals ``--mesh host`` bit for bit (one intra-op thread:
+    the CPU backward is bit-reproducible only so).  At a moe SMOKE arch
+    with ``moe_local_dispatch`` (and capacity factor 0.01) every moe call
+    over a multiple of
+    ``dp_extent`` tokens routes in ``dp_extent`` shards, each with its own
+    ranks and capacity (the reference's rule); ``--mesh host`` routes in
+    one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    if arch == "mixtral_8x7b":
+        # capacity_factor 0.01: a shard's 16 learner tokens get the floor
+        # capacity 8, so tokens drop; one shard's 256 get 128
+        cfg = dataclasses.replace(train.get_config(arch, smoke=True), moe_local_dispatch=True,
+                                  capacity_factor=0.01)
+        monkeypatch.setattr(train, "get_config", lambda a, smoke=False: cfg)
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--seq", "64", "--n-envs", "4",
+            "--batch", "4", "--steps", "2", "--ckpt-every", "0"]
+    try:
+        runs = {}
+        for m in ("host", mesh):
+            with moe.recording() as rec:
+                runs[m] = train.main(args + ["--mesh", m, "--ckpt-dir", str(tmp_path / m)])
+            runs[m]["records"] = list(rec)
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert f"mesh={mesh}" in out
+    res = runs[mesh]
+    assert res["mesh"].axis_sizes == ((2, 16, 16) if mesh == "2x16x16" else (16, 16))
+    assert not res["mesh"].groups and res["shd"].enabled
+    assert res["shd"].dp_extent == (32 if mesh == "2x16x16" else 16)
+    host, sharded = (state_tensors(runs[m]["state"]) for m in ("host", mesh))
+    if arch != "mixtral_8x7b":
+        for k, t in host.items():
+            assert torch.equal(t, sharded[k]), k
+        assert [h["loss"] for h in runs["host"]["history"]] == [
+            h["loss"] for h in res["history"]]
+        return
+    shards = {m: [r["shards"] for r in runs[m]["records"]] for m in runs}
+    assert set(shards["host"]) == {1}
+    assert 16 in shards[mesh]
+    # per-shard capacities drop other tokens than one shard's, and some
+    drops = {m: sum(int((~r["keep"]).sum()) for r in runs[m]["records"]) for m in runs}
+    assert drops[mesh] > 0 and drops[mesh] != drops["host"]
+    for r in res["records"]:
+        want = 16 if r["tokens"] % 16 == 0 else 1
+        assert r["shards"] == want
+        assert r["capacity"] == moe.capacity(cfg, r["tokens"] // want)
+        keep = local_dispatch_keep(r["expert_id"].numpy(), r["shards"], r["capacity"])
+        np.testing.assert_array_equal(r["keep"].numpy(), keep)
 
 
 def test_plan_applies_the_planned_env_count(tmp_path, capsys):
