@@ -357,6 +357,27 @@ failure and prints no result):
                 and #2 launched as there; (e) every config's state bytes per
                 device at 16x16 and 2x16x16, f32 and bf16 moments, from
                 shapes alone.
+ 27. sharded serving — prefill, decode_step, serve_step, DecodeEngine and
+                ActorServer with shd: InternLM2-1.8B at full width and depth
+                (bf16, flash) serving 8 requests of 128-512 tokens (bucket
+                edges: every prefill takes #5) x 8 new tokens; (a) on a 1x1
+                mesh of one NCCL rank in this process, the tokens, each
+                prompt's prefill logits, K/V cache and next decode logits
+                bit for bit the unsharded server's, 24 #5 launches a prefill
+                on both; (b) on a 1x2 (data, model) mesh of two gloo ranks
+                sharing the card (phase 26's ranks, their state freed): the
+                prefill logits of each length no farther (relative
+                l2) from the f32 model than 1.1x the unsharded bf16 logits
+                (phase 21's rule), the tokens the unsharded server's but
+                where its pick was a near tie (a top-2 gap within four bf16
+                ulps), the same on both ranks, 24 #5 launches a prefill on
+                each rank's 8 heads, each rank's cache pieces equal to
+                tree_device_bytes (half the whole), one decode step's wall
+                time, collectives and host-staged all-gathers printed; (c)
+                launch.dryrun on InternLM2-1.8B's train_4k, prefill_32k and
+                decode_32k cells at 16x16 over a fake group of 256 ranks on
+                the meta device (started in a process of its own before
+                phase 21): each ends ok, its three terms printed.
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration.
@@ -1139,24 +1160,34 @@ def same_td_grads(torch, on: dict, off: dict) -> dict:
 
 
 @contextlib.contextmanager
-def unwritten_saves():
-    """``CheckpointManager.save`` observed and not written, for a run whose
-    final checkpoint nothing reads (26.4 GB at InternLM2-1.8B, ~30-40 s a
-    write): yields the (step, tensor count) of each call."""
+def unwritten_saves(written_from=None):
+    """``CheckpointManager.save`` and ``save_async`` observed and not
+    written, for a checkpoint that nothing reads (26.4 GB at InternLM2-1.8B,
+    ~30-40 s a write): yields the (step, tensor count) of each call.  With
+    ``written_from`` the saves of that step and later are written too."""
     from repro_torch.checkpoint.manager import CheckpointManager
 
     calls = []
-    real = CheckpointManager.save
+    real, real_async = CheckpointManager.save, CheckpointManager.save_async
+
+    def written(step, tensors) -> bool:
+        calls.append((step, len(tensors)))
+        return written_from is not None and step >= written_from
 
     def observed(self, step, tensors, extra=None):
-        calls.append((step, len(tensors)))
+        if written(step, tensors):
+            return real(self, step, tensors, extra)
         return os.path.join(self.dir, f"step_{step}")
 
-    CheckpointManager.save = observed
+    def observed_async(self, step, tensors):
+        if written(step, tensors):
+            real_async(self, step, tensors)
+
+    CheckpointManager.save, CheckpointManager.save_async = observed, observed_async
     try:
         yield calls
     finally:
-        CheckpointManager.save = real
+        CheckpointManager.save, CheckpointManager.save_async = real, real_async
 
 
 def train_phases(torch, dev, card: str) -> list:
@@ -1353,7 +1384,10 @@ def train_phases(torch, dev, card: str) -> list:
     try:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        res = train.main(argv + ["--steps", str(TRAIN_STEPS)])
+        # the step-1 save (save_async) observed and not written: the
+        # restart reads only the last step's checkpoint
+        with unwritten_saves(written_from=TRAIN_STEPS) as first_saves:
+            res = train.main(argv + ["--steps", str(TRAIN_STEPS)])
         train_counts = dict(ops.launch_counts)
         hist, state = res["history"], res["state"]
         steps = len(hist)
@@ -1386,8 +1420,11 @@ def train_phases(torch, dev, card: str) -> list:
               f"the tree's root total did not change at the flush after update_priorities "
               f"({res['root_before_flush']})")
         mgr = CheckpointManager(ckpt, keep=2)
-        check(mgr.all_steps() == [TRAIN_STEPS - 1, TRAIN_STEPS],
-              f"checkpoints {mgr.all_steps()}, expected [{TRAIN_STEPS - 1}, {TRAIN_STEPS}]")
+        n_tensors = len(PHASE13_HOST["fingerprints"])
+        check(first_saves == [(step, n_tensors) for step in range(1, TRAIN_STEPS + 1)]
+              and mgr.all_steps() == [TRAIN_STEPS],
+              f"saves {first_saves} and checkpoints {mgr.all_steps()}, expected a save of "
+              f"{n_tensors} tensors at every step from 1 and step {TRAIN_STEPS}'s written")
         # the replay kernels against their plain versions on the run's own
         # tree and token rows
         replay, rst = res["replay"], res["replay_state"]
@@ -1406,14 +1443,11 @@ def train_phases(torch, dev, card: str) -> list:
         del res, state, replay, rst, items, w, idx, prof
         gc.collect()
         torch.cuda.empty_cache()
-        # the card's machine has ~75 GB of disk
-        shutil.rmtree(os.path.join(ckpt, f"step_{TRAIN_STEPS - 1}"))
         # a second call resumes from the last step.  The checkpoint of the
         # last step restores into that call's fresh state bit for bit: every
         # tensor's fingerprint equals that of the first call's final state
         # (one 26.4 GB read, where a separate restore took another ~41 s).
-        # Its final save is observed and not written: the first call wrote
-        # two, and nothing reads a third
+        # Its final save is observed and not written: nothing reads it
         printed = io.StringIO()
         ops.reset_launch_counts()
         restored = {}
@@ -2370,21 +2404,6 @@ def sharded_phase(torch, dev, card: str) -> dict:
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     res = {}
-    # (a) world 1 over NCCL
-    a = meshlib.spawn(_sharded_world1, 1, backend="nccl", device="cuda:0", timeout_s=600)[0]
-    for name in ("data_mesh(1)", "pod_data_mesh(1, 1)"):
-        r = a[name]
-        check(not r["metrics"] and not r["state"] and r["learn_steps"] > 0,
-              f"18(a) ShardedExecutor({name}) is not FusedExecutor bit for bit: metrics "
-              f"{r['metrics']}, state {r['state'][:4]}, learner calls {r['learn_steps']}")
-    check(a["sync"] is None and a["learn_steps_after"] > a["pod_data_mesh(1, 1)"]["learn_steps"],
-          f"18(a) a sharded step over NCCL synchronized with the host: {a['sync']}")
-    print(f"[sharded a] world 1 over {a['backend']}: ShardedExecutor on data_mesh(1) and on "
-          f"pod_data_mesh(1, 1) against FusedExecutor, 40 iterations from seed 7 (4 envs, "
-          f"capacity 1,024 K=8, batch 32): {a['data_mesh(1)']['n_metrics']} metrics and "
-          f"{a['data_mesh(1)']['n_state']} state tensors bit for bit; three more steps with "
-          f"learning under set_sync_debug_mode('error'): no host sync | {card}", flush=True)
-    res["a"] = a
     ckpt2 = tempfile.mkdtemp(prefix="chip_smoke_world2_")
     ckpt1 = tempfile.mkdtemp(prefix="chip_smoke_world1_")
     try:
@@ -2461,11 +2480,17 @@ def sharded_phase(torch, dev, card: str) -> dict:
         print(f"[sharded c] async at publish interval 3, max staleness 1: the shards' ages "
               f"at the end {ages} | {card}", flush=True)
         res["c"] = c
-        # (d) elastic: world 2's learner state at world 1, world 1's at world 2
-        d1 = meshlib.spawn(_elastic_world, 1, ckpt2, ckpt1, backend="nccl", device="cuda:0",
-                           timeout_s=600)
-        d2 = meshlib.spawn(_elastic_world, 2, ckpt1, None, backend="gloo", device="cuda:0",
-                           timeout_s=600)
+        # (d) elastic: world 2's learner state at world 1, world 1's at world 2;
+        # beside it (a), world 1 over NCCL (neither is timed, and (a) needs
+        # nothing of the others: one spawn's wait saved)
+        with ThreadPoolExecutor(1) as pool:
+            a_run = pool.submit(meshlib.spawn, _sharded_world1, 1, backend="nccl",
+                                device="cuda:0", timeout_s=600)
+            d1 = meshlib.spawn(_elastic_world, 1, ckpt2, ckpt1, backend="nccl",
+                               device="cuda:0", timeout_s=600)
+            d2 = meshlib.spawn(_elastic_world, 2, ckpt1, None, backend="gloo",
+                               device="cuda:0", timeout_s=600)
+            a = a_run.result()[0]
         for where, rs, want in (("world 2 -> 1", d1, SHARDED_ITERS + 20),
                                 ("world 1 -> 2", d2, SHARDED_ITERS + 21)):
             for rank, r in enumerate(rs):
@@ -2478,6 +2503,20 @@ def sharded_phase(torch, dev, card: str) -> dict:
               f"refilled, one more step's loss {d1[0]['loss']:.6g} / {d2[0]['loss']:.6g} | {card}",
               flush=True)
         res["d"] = {"world1": d1, "world2": d2}
+        for name in ("data_mesh(1)", "pod_data_mesh(1, 1)"):
+            r = a[name]
+            check(not r["metrics"] and not r["state"] and r["learn_steps"] > 0,
+                  f"18(a) ShardedExecutor({name}) is not FusedExecutor bit for bit: metrics "
+                  f"{r['metrics']}, state {r['state'][:4]}, learner calls {r['learn_steps']}")
+        check(a["sync"] is None
+              and a["learn_steps_after"] > a["pod_data_mesh(1, 1)"]["learn_steps"],
+              f"18(a) a sharded step over NCCL synchronized with the host: {a['sync']}")
+        print(f"[sharded a] world 1 over {a['backend']}: ShardedExecutor on data_mesh(1) and on "
+              f"pod_data_mesh(1, 1) against FusedExecutor, 40 iterations from seed 7 (4 envs, "
+              f"capacity 1,024 K=8, batch 32): {a['data_mesh(1)']['n_metrics']} metrics and "
+              f"{a['data_mesh(1)']['n_state']} state tensors bit for bit; three more steps with "
+              f"learning under set_sync_debug_mode('error'): no host sync | {card}", flush=True)
+        res["a"] = a
     finally:
         shutil.rmtree(ckpt2, ignore_errors=True)
         shutil.rmtree(ckpt1, ignore_errors=True)
@@ -2490,7 +2529,7 @@ def sharded_phase(torch, dev, card: str) -> dict:
 # -- phase 19: the replay service, its roles as processes on the one card ------
 
 SERVICE_LEARN_STEPS = 1400     # 19(a): the reference's run length, never shortened
-SERVICE_RESTART_STEPS = 400    # 19(b): the 2-shard fused gang, restarted at 200 (600 until PR 25)
+SERVICE_RESTART_STEPS = 200    # 19(b): the 2-shard fused gang, restarted at 100 (400 until PR 27)
 SERVICE_EXEC_ITERS = 200       # 19(c): ServiceExecutor against FusedExecutor
 SERVICE_GANG = dict(n_actors=2, samples_per_insert=8.0, batch_size=64, warmup=400,
                     n_envs=8, actor_chunk=8, epsilon=0.2, seed=1, device="cuda")
@@ -2701,8 +2740,8 @@ def service_phase(torch, dev, card: str) -> dict:
 DSE_LANES = (1, 2, 4, 8)        # 20(a): the profiled lane counts (fig12_dse's)
 DSE_ITERS = 100                 # 20(a): the plan-built executor's run (200 until PR 25)
 GANG_FUSED_ITERS = 30           # 20(b): tests/test_multiprocess.py's degenerate launch
-GANG_BENCH = ["--mode", "bench", "--n-data", "2", "--n-envs", "8", "--iters", "24",
-              "--repeats", "3", "--scan-chunk", "20"]      # 20(c)
+GANG_BENCH = ["--mode", "bench", "--n-data", "2", "--n-envs", "8", "--iters", "12",
+              "--repeats", "3", "--scan-chunk", "20"]      # 20(c) (24 iters until PR 27)
 WALLCLOCK_STEPS = 3             # 20(e): each worker's train steps
 
 
@@ -4062,12 +4101,18 @@ def recurrent_train(torch, dev, card: str, arch: str) -> dict:
     try:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        res = train.main(argv)
+        # the run's final checkpoint (18.8 GB at Hymba), which nothing
+        # reads, observed and not written
+        with unwritten_saves() as saves:
+            res = train.main(argv)
         counts = dict(ops.launch_counts)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     cfg, hist, state = res["cfg"], res["history"], res["state"]
     steps = len(hist)
+    check([step for step, _ in saves] == [RECURRENT_TRAIN_STEPS],
+          f"{cfg.name} training: final saves {saves}, expected one at step "
+          f"{RECURRENT_TRAIN_STEPS}")
     layers = cfg.num_layers if cfg.family == "hybrid" else 0
     want = {"sumtree_sample": steps, "gather": steps, fa.SM90_NAME: 3 * layers * steps,
             fa.DQ_SM90_NAME: layers * steps, fa.DKV_SM90_NAME: layers * steps,
@@ -4631,7 +4676,10 @@ def _f32_step_rank(torch, dev, shd, mesh_shape) -> dict:
 def _sharding_ranks(rank: int, device: str) -> dict:
     """26(b) and (c) on one of two gloo ranks sharing the card: InternLM2-1.8B
     at full width and depth on a 1×2 (data, model) mesh, then its SMOKE
-    width in bf16 on a 2×1 mesh."""
+    width in bf16 on a 2×1 mesh; then 27(b)'s serving (``_serve27_rank``),
+    which phase 27 checks."""
+    import gc
+
     import torch
 
     from repro_torch.agents import token_dqn
@@ -4650,6 +4698,10 @@ def _sharding_ranks(rank: int, device: str) -> dict:
                                 dtype="bfloat16")
     out["c"] = _sharded_step_rank(torch, dev, smoke, token_dqn.TokenDQNConfig(), shd, (2, 1))
     out["c32"] = [_f32_step_rank(torch, dev, shd, m) for m in ((2, 1), (1, 2))]
+    # 27(b) on the same two ranks, their training state freed (a spawn saved)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve27"] = _serve27_rank(rank, device)
     return out
 
 
@@ -4747,6 +4799,7 @@ def sharding_phase(torch, dev, card: str, parts: str = "abcde") -> dict:
         t0 = time.perf_counter()
         ranks = meshlib.spawn(_sharding_ranks, 2, str(dev), backend="gloo", device=str(dev),
                               timeout_s=900)
+        res["serve27"] = [r.pop("serve27") for r in ranks]
         res.update(_sharding_check_bc(ranks, card, want_flash))
         took["b, c"] = time.perf_counter() - t0
     gc.collect()
@@ -4955,6 +5008,381 @@ def _sharding_bytes_table(card: str) -> dict:
 
 
 # -- the phases ----------------------------------------------------------------
+
+
+# -- phase 27: serving on a mesh of ranks, and the dry run ----------------------
+
+SERVE27 = dict(slots=8, max_len=520, buckets=(128, 256, 384, 512), max_new_tokens=8)
+# prompts on the bucket edges, so every prefill is a multiple of 128 and takes flash
+SERVE27_LENS = (128, 256, 384, 512, 512, 384, 256, 128)
+SERVE27_POSITIONS = 32          # logits compared at this many seeded positions a prompt
+SERVE27_LOGIT_PROMPTS = 4       # 27(b)'s logits rule on the first four: each length once
+SERVE27_SEED = SEED + 27
+DRYRUN27_ARCH = "internlm2_1_8b"
+DRYRUN27_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+
+
+def serve27_inputs(vocab: int):
+    """The requests' prompts and, for each, its compared positions (seeded,
+    the last included)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SERVE27_SEED)
+    prompts = [rng.randint(0, vocab, size=n).astype(np.int32) for n in SERVE27_LENS]
+    positions = [sorted(set(rng.choice(n - 1, SERVE27_POSITIONS - 1, replace=False).tolist())
+                        | {n - 1}) for n in SERVE27_LENS]
+    return prompts, positions
+
+
+def serve27_run(torch, dev, cfg, params, shd, prompts) -> dict:
+    """The requests through ``ActorServer`` (``shd``; the parameters cut by
+    ``shard_params`` where it is on) after one warm-up request → each
+    request's tokens, the flash launches, the seconds."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ActorServeConfig, ActorServer
+
+    scfg = ActorServeConfig(**SERVE27)
+    server = ActorServer(cfg, params, scfg, shd, device=dev)
+    server.submit(prompts[0], 2)
+    server.drain(timeout=600)
+    torch.cuda.synchronize()
+    warm = server.stats()["admissions"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [server.submit(p) for p in prompts]
+    server.drain(timeout=600)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _flash_counts(ops, fa)
+    st = server.stats()
+    return {"tokens": [h.result(0).tokens for h in handles], "launches": counts,
+            "seconds": secs, "admissions": st["admissions"] - warm, "decode_steps": st["steps"],
+            "server": server}
+
+
+def serve27_prefills(torch, dev, cfg, params, shd, prompts, positions,
+                     decode: bool = True) -> dict:
+    """Each prompt's prefill (batch 1) and, with ``decode``, one decode step
+    after it: the logits at the prompt's positions (bf16, on the host), and
+    fingerprints of the whole logits, the K/V cache and the decode logits."""
+    from repro_torch.models import backbone
+
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t  # noqa: E731
+    rows, prints = [], []
+    with torch.no_grad():
+        for p, pos in zip(prompts, positions):
+            tokens = torch.from_numpy(p).to(dev).long()[None]
+            logits, cache = backbone.prefill(cfg, params, tokens, SERVE27["max_len"], shd=shd)
+            lf = full(logits)[0]
+            rows.append(lf[pos].cpu())
+            if decode:
+                tok = torch.argmax(lf[-1]).reshape(1, 1)
+                lg = full(backbone.decode_step(cfg, params, cache, tok, shd=shd)[0])
+                prints.append(fingerprints(torch, {"logits": lf, "k": full(cache["k"]),
+                                                   "v": full(cache["v"]), "decode": lg}))
+            del logits, cache, lf
+    return {"logits": rows, "prints": prints}
+
+
+def _serve27_rank(rank: int, device: str) -> dict:
+    """27(b) on one of two gloo ranks sharing the card: InternLM2-1.8B at
+    full width and depth (bf16, flash) drawn from SERVE27_SEED, cut by
+    ``shard_params`` on a 1×2 (data, model) mesh and served through
+    ``ActorServer(shd)``: the tokens, the flash launches (each rank's 8 of the
+    16 heads), the server's cache pieces against ``tree_device_bytes``, one
+    more decode step's wall time, collectives and host copies (the step
+    runs every slot, busy or not), and the prefill logits."""
+    import dataclasses as dc
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded
+    from repro_torch.launch import specs as S
+    from repro_torch.models import backbone
+    from repro_torch.models import layers as L
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    shd = meshlib.sharding_config(False)
+    cfg = dc.replace(get_config("internlm2_1_8b"), attn_impl="flash")
+    dm = meshlib.to_device_mesh(meshlib.small_mesh(1, 2), dev.type)
+    params = backbone.init_params(cfg, torch.Generator(device=dev).manual_seed(SERVE27_SEED))
+    sharded.shard_params(cfg, shd, params, dm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts, positions = serve27_inputs(cfg.vocab_size)
+    out = serve27_run(torch, dev, cfg, params, shd, prompts)
+    # the server's slot cache: this rank's pieces against tree_device_bytes,
+    # one more decode step of its 8 slots (the last requests' caches, the
+    # slots released) timed, its collectives and host copies
+    server = out.pop("server")
+    eng, state = server.engine, server.scheduler.state
+    leaves = {k: v for k, v in S.flat_leaves(state.cache).items() if k != "pos"}
+    held = sum(L.local(t).numel() * L.local(t).element_size() for t in leaves.values())
+    want = S.tree_device_bytes(leaves, S.flat_leaves(S.cache_specs(cfg, shd, state.cache)), dm)
+    full_bytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    torch.cuda.synchronize()
+    meshlib.HOST_COPIES["all_gather_into_tensor"] = 0
+    with collective_traffic(torch) as traffic:
+        t0 = time.perf_counter()
+        eng.step(params, state)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    out.update(cache_held=held, cache_want=want, cache_full=full_bytes, decode_step_s=step_s,
+               decode_collectives=traffic.ops, decode_host_copies=dict(meshlib.HOST_COPIES))
+    del server, eng, state, leaves
+    gc.collect()
+    n = SERVE27_LOGIT_PROMPTS
+    out.update(serve27_prefills(torch, dev, cfg, params, shd, prompts[:n], positions[:n],
+                                decode=False))
+    if rank:
+        del out["logits"]                       # the same whole logits on both ranks
+    return out
+
+
+def _serve27_one_by_one(torch, dev, card: str) -> dict:
+    """27(a): InternLM2-1.8B at full width and depth (bf16, flash) served
+    unsharded, its prefill logits beside the f32 model's, then the same
+    weights cut onto a 1×1 mesh over NCCL (world 1 in this process) and
+    served through ``ActorServer(shd)``: tokens, prefill and decode logits
+    and the cache bit for bit."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded
+    from repro_torch.models import backbone
+    from repro_torch.models.config import NO_SHARDING
+
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"), attn_impl="flash")
+    prompts, positions = serve27_inputs(cfg.vocab_size)
+    params = backbone.init_params(cfg, torch.Generator(device=dev).manual_seed(SERVE27_SEED))
+    res = {"unsharded": serve27_run(torch, dev, cfg, params, NO_SHARDING, prompts)}
+    del res["unsharded"]["server"]
+    res["unsharded"].update(serve27_prefills(torch, dev, cfg, params, NO_SHARDING, prompts,
+                                             positions))
+    # the unsharded decode's top-2 margins along the served tokens (teacher
+    # forced, one prompt at a time): how near a tie each pick was
+    margins = []
+    with torch.no_grad():
+        for p, toks in zip(prompts, res["unsharded"]["tokens"]):
+            logits, cache = backbone.prefill(cfg, params, torch.from_numpy(p).to(dev).long()[None],
+                                             SERVE27["max_len"])
+            last, row = logits[0, -1], []
+            for t in toks:
+                top2 = torch.topk(last.float(), 2).values
+                row.append((float(top2[0] - top2[1]), float(top2[0])))
+                last = backbone.decode_step(cfg, params, cache,
+                                            torch.tensor([[t]], device=dev))[0][0, -1]
+            margins.append(row)
+            del logits, cache
+    res["margins"] = margins
+    # the f32 model on the same weights (naive attention, TF32 off)
+    exact_cfg = dataclasses.replace(cfg, attn_impl="naive", dtype="float32")
+    exact = backbone.Backbone(exact_cfg, dev)
+    with torch.no_grad():
+        for a, b in zip(exact.parameters(), params.parameters(), strict=True):
+            a.copy_(b)
+    res["f32_logits"] = serve27_prefills(torch, dev, exact_cfg, exact, NO_SHARDING, prompts,
+                                         positions)["logits"]
+    del exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        shd = meshlib.sharding_config(False)
+        dm = meshlib.to_device_mesh(meshlib.small_mesh(1, 1), dev.type)
+        sharded.shard_params(cfg, shd, params, dm)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["sharded"] = serve27_run(torch, dev, cfg, params, shd, prompts)
+        del res["sharded"]["server"]
+        res["sharded"].update(serve27_prefills(torch, dev, cfg, params, shd, prompts, positions))
+    finally:
+        dist.destroy_process_group()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def dryrun27_start(out_dir: str):
+    """27(c)'s dry run, started early in a process of its own (its fake
+    process group is that process's): ``launch.dryrun`` on DRYRUN27_ARCH's
+    cells at 16×16, its output to a file.  It runs on the host's cores
+    beside the card's phases, which are bound by one core each."""
+    import tempfile
+
+    log = tempfile.NamedTemporaryFile("w+", prefix="chip_smoke_dryrun_", suffix=".log",
+                                      delete=False)
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN27_ARCH,
+           "--out", out_dir, "--force"]
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(HERE))
+    return proc, log, time.perf_counter()
+
+
+def dryrun27_check(proc, log, t_start: float, out_dir: str, card: str) -> dict:
+    """27(c): the dry run's exit code and each cell's record: every
+    DRYRUN27_SHAPES cell ``ok`` with finite terms."""
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    secs = time.perf_counter() - t_start
+    log.seek(0)
+    text = log.read()
+    log.close()
+    os.unlink(log.name)
+    check(rc == 0, f"27(c) the dry run exited {rc}:\n{text[-3000:]}")
+    cells = {}
+    for shape in DRYRUN27_SHAPES:
+        path = Path(out_dir) / f"{DRYRUN27_ARCH}_{shape}_pod1.json"
+        check(path.exists(), f"27(c) no record for {shape}:\n{text[-2000:]}")
+        rec = json.loads(path.read_text())
+        check(rec["status"] == "ok", f"27(c) {shape}: {rec['status']} {rec.get('error')}")
+        terms = {k: rec[k] for k in ("t_compute", "t_memory", "t_collective")}
+        check(all(math.isfinite(v) and v >= 0 for v in terms.values())
+              and rec["t_compute"] > 0 and rec["t_memory"] > 0,
+              f"27(c) {shape}: terms {terms}")
+        cells[shape] = {**terms, "dominant": rec["dominant"], "total_s": rec["total_s"],
+                        "state_bytes_per_device": rec["state_bytes_per_device"],
+                        "bytes_unfused_per_device": rec["bytes_unfused_per_device"],
+                        "collective_bytes_per_device": rec["collective_bytes_per_device"],
+                        "flops_global": rec["flops_global"], "collectives": rec["collectives"]}
+        print(f"[dryrun] {DRYRUN27_ARCH} {shape} at 16x16 on a fake group of 256 ranks "
+              f"(meta device; computed from shapes, H100 SXM datasheet constants): "
+              f"t_compute {terms['t_compute']:.6g} s, t_memory {terms['t_memory']:.6g} s "
+              f"(bytes_unfused {rec['bytes_unfused_per_device']:.6g} B a device), "
+              f"t_collective {terms['t_collective']:.6g} s, dominant {rec['dominant']}; state "
+              f"{rec['state_bytes_per_device']:,.0f} B a device; the cell took "
+              f"{rec['total_s']} s", flush=True)
+    print(f"[dryrun] launch.dryrun --arch {DRYRUN27_ARCH} in {secs:.1f} s (its own process, "
+          f"beside phases 21-27) | {card}", flush=True)
+    return {"cells": cells, "seconds": secs}
+
+
+def sharded_serve_phase(torch, dev, card: str, dryrun=None, ranks=None) -> dict:
+    """Phase 27: serving on a mesh of ranks — (a) a 1×1 mesh over NCCL bit
+    for bit against the unsharded server; (b) a 1×2 mesh of two gloo ranks
+    sharing the card, held to the f32 model and the unsharded server
+    (``ranks``: what phase 26's ranks served, or None to spawn them here);
+    (c) the dry run's InternLM2-1.8B cells at 16×16 (``dryrun``: the process
+    ``dryrun27_start`` began, or None to run it here)."""
+    import gc
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as meshlib
+
+    t_phase = time.perf_counter()
+    took = {}
+    layers = get_config("internlm2_1_8b").num_layers
+    n_req = len(SERVE27_LENS)
+    want_flash = {fa.SM90_NAME: layers * n_req, fa.DQ_SM90_NAME: 0, fa.DKV_SM90_NAME: 0,
+                  fa.NAME: 0, fa.DQ_NAME: 0, fa.DKV_NAME: 0}
+    empty_card(torch, dev, "27")
+    a = _serve27_one_by_one(torch, dev, card)
+    took["a"] = time.perf_counter() - t_phase
+    u, s1 = a["unsharded"], a["sharded"]
+    check(u["admissions"] == s1["admissions"] == n_req, f"27(a) admissions {u['admissions']}, "
+          f"{s1['admissions']}")
+    check(u["launches"] == s1["launches"] == want_flash,
+          f"27(a) flash launches unsharded {u['launches']}, 1x1 {s1['launches']}, expected "
+          f"{want_flash} ({layers} a prefill)")
+    check(s1["tokens"] == u["tokens"], f"27(a) the 1x1 server's tokens differ: "
+          f"{s1['tokens']} against {u['tokens']}")
+    differ = [(i, k) for i, (x, y) in enumerate(zip(s1["prints"], u["prints"]))
+              for k in x if x[k] != y[k]]
+    check(not differ, f"27(a) 1x1 prefill/decode logits or cache not bit for bit: {differ}")
+    print(f"[sharded serve a] internlm2-1.8b at full width and depth (bf16, flash) through "
+          f"ActorServer(shd) on a 1x1 mesh over nccl: {n_req} requests of {SERVE27_LENS} "
+          f"tokens x {SERVE27['max_new_tokens']} new, the same tokens as the unsharded server; "
+          f"each prompt's prefill logits, K/V cache and next decode logits bit for bit; "
+          f"{fa.SM90_NAME} {s1['launches'][fa.SM90_NAME]} = {layers} x {n_req} prefills on "
+          f"both; served in {s1['seconds']:.2f} s (unsharded {u['seconds']:.2f} s) | {card}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    if ranks is None:
+        ranks = meshlib.spawn(_serve27_rank, 2, str(dev), backend="gloo", device=str(dev),
+                              timeout_s=900)
+    took["b"] = time.perf_counter() - t0
+    b = ranks[0]
+    check(ranks[1]["tokens"] == b["tokens"], "27(b) the two ranks answered differently")
+    for rank, r in enumerate(ranks):
+        check(r["admissions"] == n_req and r["launches"] == want_flash,
+              f"27(b) rank {rank}: admissions {r['admissions']}, flash launches "
+              f"{r['launches']}, expected {want_flash}")
+        check(r["cache_held"] == r["cache_want"] and r["cache_held"] * 2 == r["cache_full"],
+              f"27(b) rank {rank}: cache pieces {r['cache_held']:,} B against "
+              f"tree_device_bytes {r['cache_want']:,.0f} (whole {r['cache_full']:,})")
+    sums = {"sx": [0.0, 0.0], "ux": [0.0, 0.0]}
+    worst = 0.0
+    for ls, lu, lx in zip(b["logits"], u["logits"], a["f32_logits"]):
+        for key, x in (("sx", ls), ("ux", lu)):
+            sums[key] = [v + w for v, w in zip(sums[key], l2_sums(x, lx))]
+        worst = max(worst, float((ls.float() - lu.float()).abs().max()))
+    rel = {k: math.sqrt(num / den) for k, (num, den) in sums.items()}
+    check(rel["sx"] <= 1.1 * rel["ux"], f"27(b) the 1x2 prefill logits are {rel['sx']:.4g} "
+          f"relative l2 from the f32 model, the unsharded bf16 ones {rel['ux']:.4g}: the mesh "
+          "adds error")
+    # the tokens: equal but where the unsharded pick was a near tie (a top-2
+    # gap within four bf16 ulps of the top logit); the rest of such a
+    # request is not compared
+    departures = []
+    for i, (got, want, gaps) in enumerate(zip(b["tokens"], u["tokens"], a["margins"])):
+        for t, (x, y, (gap, top)) in enumerate(zip(got, want, gaps)):
+            if x != y:
+                ulp = 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - 7)
+                check(gap <= 4 * ulp, f"27(b) request {i} token {t}: {x} against the "
+                      f"unsharded {y} at a top-2 gap {gap:.4g} > 4 bf16 ulps ({4 * ulp:.3g})")
+                departures.append((i, t, round(gap, 6)))
+                break
+    print(f"[sharded serve b] internlm2-1.8b on a 1x2 (data x model) mesh of two gloo ranks on "
+          f"the card (phase 26's; each rank 8 of the 16 heads): prefill logits of the "
+          f"{SERVE27_LOGIT_PROMPTS} lengths {rel['sx']:.4g} relative l2 "
+          f"from the f32 model, the unsharded bf16 {rel['ux']:.4g} (<= 1.1x), largest "
+          f"difference from the unsharded logits {worst:.4g}; tokens as the unsharded server's "
+          f"but {len(departures)} near-tie departures {departures}, the same on both ranks; "
+          f"{fa.SM90_NAME} {b['launches'][fa.SM90_NAME]} a rank; cache pieces "
+          f"{b['cache_held']:,} B a rank = tree_device_bytes (half the whole); served in "
+          f"{b['seconds']:.2f} s; one decode step of {SERVE27['slots']} slots "
+          f"{b['decode_step_s'] * 1e3:.1f} ms wall, its collectives {b['decode_collectives']} "
+          f"(calls, input bytes), host-staged all-gathers {b['decode_host_copies']} | {card}",
+          flush=True)
+    rows = [{k: r[k] for k in ("launches", "seconds", "cache_held", "cache_want",
+                               "decode_step_s", "decode_collectives", "decode_host_copies")}
+            for r in ranks]
+    del ranks, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if dryrun is None:
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        dryrun = (*dryrun27_start(out_dir), out_dir)
+    proc, log, t_start, out_dir = dryrun
+    c = dryrun27_check(proc, log, t_start, out_dir, card)
+    took["c (waited)"] = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_phase
+    print(f"[sharded serve] phase 27 in {seconds:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")", flush=True)
+    return {"a": {"unsharded": {k: u[k] for k in ("launches", "seconds", "decode_steps")},
+                  "sharded": {k: s1[k] for k in ("launches", "seconds", "decode_steps")}},
+            "b": rows, "c": c, "seconds": seconds, "rel_l2_from_f32": rel,
+            "departures": departures}
 
 
 def main() -> None:
@@ -5361,6 +5789,10 @@ def main() -> None:
     dse_res = dse_phase(torch, dev, card)
     # 21. Qwen1.5-32B and Command-R-35B at full width, each alone on the card,
     # the forward's launches counted from 0 over each one's served requests
+    # 27(c)'s dry run starts here, in a process of its own beside phases 21-27
+    import tempfile
+    dryrun_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dryrun = (*dryrun27_start(dryrun_dir), dryrun_dir)
     clock("21 (big dense serving)")
     big = big_dense_phase(torch, dev, card)
     # 22. the ratio-scheduled token-DQN trainer, its launches counted from 0
@@ -5439,6 +5871,14 @@ def main() -> None:
             "26(b) 1x2, each rank": [r["launches"].get(name, 0) for r in shard_res["b"]],
             "26(c) 2x1 SMOKE, each rank": [r["launches"].get(name, 0) for r in shard_res["c"]],
             "26(d) --mesh 16x16 run": shard_res["d"]["replay_launches"].get(name, 0)}
+    clock("27 (sharded serving, dry run)")
+    serve27 = sharded_serve_phase(torch, dev, card, dryrun, shard_res.get("serve27"))
+    for entry in kernels:
+        name = entry["name"]
+        entry["sharded_serve_launches"] = {
+            "27(a) unsharded server": serve27["a"]["unsharded"]["launches"].get(name, 0),
+            "27(a) 1x1 server": serve27["a"]["sharded"]["launches"].get(name, 0),
+            "27(b) 1x2, each rank": [r["launches"].get(name, 0) for r in serve27["b"]]}
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -115,13 +115,13 @@ def _td_loss(cfg: ModelConfig, tcfg: TokenDQNConfig, params: backbone.Backbone,
     # (an all-gather over the model axis, where GSPMD gathers too)
     q = L.shard(logits[:, off:].float(), shd, L.dp(shd), None, None)
     del logits
-    q_sa = torch.gather(q, -1, actions[..., None])[..., 0]
+    q_sa = _take(q, actions)
     with torch.no_grad():
         qt = L.shard(backbone.forward(cfg, target, tokens, extra, shd)[:, off:].float(),
                      shd, L.dp(shd), None, None)
         if tcfg.double_q:   # DDQN: select with online, evaluate with target
             sel = torch.argmax(q, dim=-1)
-            v_next_all = torch.gather(qt, -1, sel[..., None])[..., 0]
+            v_next_all = _take(qt, sel)
         else:
             v_next_all = qt.max(dim=-1).values
         del qt
@@ -133,6 +133,25 @@ def _td_loss(cfg: ModelConfig, tcfg: TokenDQNConfig, params: backbone.Backbone,
     td, q_sa = td.detach(), q_sa.detach()
     return loss, {"seq_td": td.abs().mean(dim=1), "q_mean": q_sa.mean(), "td": td,
                   "q_sa": q_sa}
+
+
+def _take(q: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
+    """``q[..., actions]`` (b, S) of q (b, S, V).  On a mesh each rank
+    gathers its own rows (q's vocabulary whole, the actions placed as q):
+    DTensor's rule for the gather replicates q over the batch, and its
+    backward makes the whole batch's (b, S, V) zeros on every rank and
+    reduce-scatters them, the largest collective of a train step."""
+    def take(q_, a):
+        return torch.gather(q_, -1, a[..., None])[..., 0]
+
+    if not L.is_dtensor(q):
+        return take(q, actions)
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(q.placements)
+    return local_map(take, out_placements=list(pl), in_placements=(pl, pl),
+                     in_grad_placements=(pl, pl), device_mesh=q.device_mesh)(
+        q, L.with_placements(actions, q, pl))
 
 
 def _pin_batch(shd: ShardingConfig, mb: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -179,9 +198,15 @@ def train_step(cfg: ModelConfig, shd: ShardingConfig, tcfg: TokenDQNConfig,
             grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
             loss = qmean = torch.zeros((), dtype=torch.float32, device=params[0].device)
             parts = []
+            # on a mesh the batch is made whole on every rank once (as the
+            # reference's (accum, B/accum) reshape moves it once), so that
+            # each microbatch is a local slice, pinned to the data axes by a
+            # local split: a slice of the split batch would gather it whole
+            # again at every microbatch
+            whole = {k: L.shard(v, shd, *(None,) * v.dim()) for k, v in batch.items()}
             for i in range(accum):
                 mb = _pin_batch(shd, {k: v[i * mb_size:(i + 1) * mb_size]
-                                      for k, v in batch.items()})
+                                      for k, v in whole.items()})
                 mloss, aux = _td_loss(cfg, tcfg, state.params, state.target, mb, shd)
                 mgrads = torch.autograd.grad(mloss, params)
                 if sharded:
@@ -218,7 +243,11 @@ def serve_step(cfg: ModelConfig, params: backbone.Backbone, cache: backbone.Cach
     stale slot never advances between a release and the next admission.
     """
     logits, cache = backbone.decode_step(cfg, params, cache, tokens, slot_mask, shd)
-    action = torch.argmax(logits[:, -1, :], dim=-1)
+    # on a mesh the logits are vocab-sharded over the model axis, and the
+    # argmax over the vocabulary has no sharding rule there: replicated
+    # over the vocabulary first, as the TD loss's, and the actions come
+    # back whole, the same on every rank
+    action = _full(torch.argmax(L.shard(logits[:, -1, :], shd, L.dp(shd), None), dim=-1))
     if slot_mask is None:
         return action, cache
-    return torch.where(slot_mask, action, torch.zeros_like(action)), cache
+    return torch.where(L.local(slot_mask), action, torch.zeros_like(action)), cache

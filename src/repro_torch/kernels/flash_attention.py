@@ -22,7 +22,11 @@ take any S (the TPU kernels need S divisible by their block) and hd in
 saves q, k, v, O and the LSE; the backward computes
 ``delta = rowsum(O·dO)`` in f32 as a plain op, as the reference does
 outside its kernels, and launches dQ and dK/dV (on CPU tensors: their
-plain version).  The dry-run stand-in ``REPRO_FLASH_STUB`` is not ported.
+plain version).  On meta tensors (the dry run, ``launch/dryrun.py``) the
+forward and the backward are stand-ins that return their outputs' shapes
+and compute nothing, the counterpart of the reference's
+``REPRO_FLASH_STUB``: chosen by the device alone, so a CUDA tensor never
+takes them and a failed build or launch still raises.
 """
 
 from __future__ import annotations
@@ -288,9 +292,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, is_global: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (O, LSE).  The plain version for CPU tensors, and only then; on
-    CUDA the kernel or an error."""
-    if q.device.type == "cpu":
+    meta tensors the shapes alone; on CUDA the kernel or an error."""
+    if q.device.type in ("cpu", "meta"):
         check_inputs(q, k, v, attention, window)
+        if q.device.type == "meta":
+            return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
         return flash_attention_plain(q, k, v, attention, window, causal, is_global)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
@@ -388,9 +394,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, is_global: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """→ (dQ, dK, dV).  The plain version for CPU tensors, and only then;
-    on CUDA the two kernels or an error."""
-    if q.device.type == "cpu":
+    on meta tensors the shapes alone; on CUDA the two kernels or an
+    error."""
+    if q.device.type in ("cpu", "meta"):
         check_bwd_inputs(q, k, v, o, lse, do, attention, window)
+        if q.device.type == "meta":
+            return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         return flash_attention_bwd_plain(q, k, v, o, lse, do, attention, window, causal,
                                          is_global)
     if q.device.type != "cuda":

@@ -201,6 +201,52 @@ def sharding_config(multi_pod: bool = False) -> ShardingConfig:
     )
 
 
+def fake_device_mesh(axis_names: Sequence[str], axis_sizes: Sequence[int]):
+    """A ``DeviceMesh`` of ``axis_sizes`` over a fake process group of that
+    many ranks (``torch.testing._internal.distributed.fake_pg``), this
+    process rank 0: with DTensors of meta pieces on it (the caller's),
+    DTensor ops run on rank 0's pieces, allocate nothing, and every
+    collective returns at once with its output's shape.  The mesh's device
+    type is the CPU's (DTensor's strategies read the device's handle,
+    which the meta device lacks).  The dry run's counterpart of the
+    reference's forced host devices; the process group is this process's
+    default one, so the mesh is for a process of its own (a fake group of
+    another size is replaced; any other group is refused)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = math.prod(axis_sizes)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a fake mesh needs a process of its own; this one runs "
+                               f"a {dist.get_backend()} group")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    return DeviceMesh("cpu", torch.arange(world).reshape(tuple(axis_sizes)),
+                      mesh_dim_names=tuple(axis_names))
+
+
+def dryrun_mesh(multi_pod: bool = False):
+    """The production mesh as a fake ``DeviceMesh`` (``fake_device_mesh``):
+    16×16 (data, model) of 256 ranks; with ``multi_pod`` the 2×16×16 (pod,
+    data, model) mesh of 512 as its equivalent 32×16 (data, model), run with
+    ``dryrun_sharding``.  Every tensor that the production specs split over
+    (pod, data) is split over those 32 ranks in the same order, so each
+    rank holds the same piece; a collective over them is one collective of
+    32, as XLA's replica groups of 32, where DTensor would run two nested
+    ones; and DTensor's planner, which searches the placements of every
+    mesh dimension, takes minutes an op on three."""
+    return fake_device_mesh(("data", "model"), (32, 16) if multi_pod else (16, 16))
+
+
+def dryrun_sharding(multi_pod: bool = False) -> ShardingConfig:
+    """``sharding_config(multi_pod)`` for ``dryrun_mesh``: the fsdp axes
+    (pod, data) as the one data axis of 32."""
+    return dataclasses.replace(sharding_config(multi_pod), fsdp=("data",))
+
+
 def small_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
     """(data, model) mesh for tests and examples over the current process
     group (``n_data`` defaults to world // n_model); without a group, a

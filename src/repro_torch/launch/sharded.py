@@ -1,5 +1,7 @@
 """Model sharding over a mesh of ranks: the token-DQN train step with its
-state and batch as DTensors.
+state and batch as DTensors, and the serving parameters (``shard_params``)
+that ``prefill``, ``decode_step``, ``serve_step``, ``DecodeEngine`` and
+``ActorServer`` take with ``shd``.
 
 The reference shards the model with GSPMD in one program over a device
 mesh.  Here each shard is a rank of ``torch.distributed`` (``launch/mesh.py::
@@ -45,6 +47,15 @@ def shard_module_(module: nn.Module, specs: Dict[str, tuple], device_mesh) -> No
         setattr(owner, leaf, nn.Parameter(piece, requires_grad=p.requires_grad))
 
 
+def shard_params(cfg: ModelConfig, shd: ShardingConfig, params: backbone.Backbone,
+                 device_mesh) -> backbone.Backbone:
+    """The serving parameters on a mesh: the full network (the same on
+    every rank) cut in place into this rank's pieces by ``param_specs``;
+    returns ``params``."""
+    shard_module_(params, backbone.param_specs(cfg, shd, params), device_mesh)
+    return params
+
+
 def shard_train_state(cfg: ModelConfig, shd: ShardingConfig, tcfg: token_dqn.TokenDQNConfig,
                       params: backbone.Backbone, target: backbone.Backbone,
                       device_mesh) -> token_dqn.TrainState:
@@ -57,9 +68,8 @@ def shard_train_state(cfg: ModelConfig, shd: ShardingConfig, tcfg: token_dqn.Tok
     (3.8 GB) until it is cut, and never the 15.1 GB of full f32 moments.
     ``count`` and ``step`` are plain zero scalars, the same on every
     rank."""
-    pspec = backbone.param_specs(cfg, shd, params)
-    shard_module_(params, pspec, device_mesh)
-    shard_module_(target, pspec, device_mesh)
+    shard_params(cfg, shd, params, device_mesh)
+    shard_params(cfg, shd, target, device_mesh)
     dev = next(iter(params.parameters())).device
     return token_dqn.TrainState(params=params, target=target,
                                 opt=adam.init(params.parameters(), tcfg.opt),

@@ -88,6 +88,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
 from repro_torch.models.config import NO_SHARDING, ModelConfig, ShardingConfig
 from repro_torch.models.sharding import canonical
+from repro_torch.models.sharding import full as sharding_full
 
 Cache = Dict[str, Any]
 
@@ -387,8 +388,8 @@ def _cross_kv(cfg: ModelConfig, p: L.Attention, enc: torch.Tensor,
     from the encoder output without biases, as the reference's."""
     b, se, _ = enc.shape
     shape = (b, se, cfg.num_kv_heads, cfg.hd)
-    return (torch.nn.functional.linear(enc, p.wk).reshape(shape),
-            torch.nn.functional.linear(enc, p.wv).reshape(shape))
+    return (L.linear(enc, p.wk, shd=shd).reshape(shape),
+            L.linear(enc, p.wv, shd=shd).reshape(shape))
 
 
 def _unit(cfg: ModelConfig, sub: Tuple[str, ...], unit: nn.ModuleDict,
@@ -435,6 +436,14 @@ def _unit(cfg: ModelConfig, sub: Tuple[str, ...], unit: nn.ModuleDict,
     return x
 
 
+def _carry(x: torch.Tensor, shd: ShardingConfig) -> torch.Tensor:
+    """The residual stream at a unit's (or block's) entry, its batch over
+    the data axes and the rest whole: the one sharding that the
+    reference's scan carries through every unit, so that on a mesh every
+    unit runs the same ops (a plain tensor as it is)."""
+    return L.shard(x, shd, L.dp(shd), None, None)
+
+
 def _run_units(cfg: ModelConfig, units: nn.ModuleList, sub: Tuple[str, ...],
                x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor,
                enc: Optional[torch.Tensor] = None,
@@ -445,6 +454,7 @@ def _run_units(cfg: ModelConfig, units: nn.ModuleList, sub: Tuple[str, ...],
     flags = _global_flags(cfg, len(units), sub)
     remat = cfg.remat and torch.is_grad_enabled() and cap is None
     for unit, flag_row in zip(units, flags):
+        x = _carry(x, shd)
         if remat:
             x = checkpoint(_unit, cfg, sub, unit, flag_row, x, positions, freqs, enc, None,
                            shd, use_reentrant=False, preserve_rng_state=False)
@@ -462,6 +472,7 @@ def _run_blocks(cfg: ModelConfig, params: Backbone, x: torch.Tensor,
     reference's ``prefill``; without, ``cfg.mlstm_chunked`` picks the
     chunkwise mLSTM."""
     for block in params.blocks:
+        x = _carry(x, shd)
         kind = _block_kind(block)
         h = L.apply_norm(cfg, block["norm"], x)
         if kind == "mlstm" and cfg.mlstm_chunked and states is None:
@@ -483,8 +494,17 @@ def _embed(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
     """Embedded tokens, vlm's patch embeddings prepended (B, P + S, d)."""
     x = L.embed(cfg, params.embed, tokens, shd)
     if cfg.family == "vlm" and extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        x = torch.cat([_on_batch(extra_embeds, x, shd).to(x.dtype), x], dim=1)
     return x
+
+
+def _on_batch(t: torch.Tensor, like: torch.Tensor, shd: ShardingConfig) -> torch.Tensor:
+    """An input ``t`` (B, ...) on ``like``'s mesh with its batch over the
+    data axes (a plain ``t`` is the same on every rank: each keeps its
+    rows); as it is without a mesh."""
+    if not L.is_dtensor(like):
+        return t
+    return L.shard(L.replicate_like(t, like), shd, L.dp(shd), *(None,) * (t.dim() - 1))
 
 
 def _encode(cfg: ModelConfig, params: Backbone, frames: Optional[torch.Tensor],
@@ -494,7 +514,7 @@ def _encode(cfg: ModelConfig, params: Backbone, frames: Optional[torch.Tensor],
     if frames is None:
         raise ValueError(f"{cfg.name}: the audio family takes its frame embeddings "
                          f"(B, {cfg.encoder_seq}, {cfg.d_model}) as extra_embeds")
-    enc = frames.to(L.param_dtype(cfg)) + params.enc_pos[None]
+    enc = _on_batch(frames, params.enc_pos, shd).to(L.param_dtype(cfg)) + params.enc_pos[None]
     b, se, _ = enc.shape
     enc = _run_units(cfg, params.enc_units, ENCODER_SUB, enc, _positions(b, se, enc),
                      freqs, shd=shd)
@@ -560,36 +580,86 @@ def _cache_kv_spec(cfg: ModelConfig, shd: ShardingConfig) -> tuple:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device=None, shd: ShardingConfig = NO_SHARDING) -> Cache:
+               device=None, shd: ShardingConfig = NO_SHARDING, device_mesh=None) -> Cache:
     """{"pos": (batch,) int64, "k"/"v": (n_attn, batch, max_len, KV, hd)};
     a hybrid model's also "ssm" (n_units, batch, H, N, P) f32; an audio
     model's also "cross_k"/"cross_v" (L, batch, encoder_seq, KV, hd); an
     ssm model's "pos" and "blocks", one {"mlstm" | "slstm": state} a
-    block."""
+    block.  With ``shd`` and a ``device_mesh`` every leaf is this rank's
+    piece under ``launch/specs.py::cache_specs`` (K/V by ``_cache_kv_spec``,
+    the recurrent states over the data axes on their batch dimension,
+    ``pos`` replicated), a DTensor, and no rank makes a whole leaf."""
     sub, n_units = unit_structure(cfg)
-    cache: Cache = {"pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
+    mesh = device_mesh if shd.enabled else None
+    dp = L.dp(shd)
+
+    def full(shape, value, dt, spec=()):
+        return sharding_full(shape, value, dt, spec, mesh, device)
+
+    cache: Cache = {"pos": full((batch,), 0, torch.int64)}
     if cfg.family == "ssm":
-        cache["blocks"] = [{"slstm": X.slstm_decode_init(cfg, batch, device)}
+        def state(shape, value, dt):
+            return full(shape, value, dt, (dp,) + (None,) * (len(shape) - 1))
+
+        cache["blocks"] = [{"slstm": X.slstm_decode_init(cfg, batch, device, state)}
                            if i in cfg.slstm_at else
-                           {"mlstm": X.mlstm_decode_init(cfg, batch, device)}
+                           {"mlstm": X.mlstm_decode_init(cfg, batch, device, state)}
                            for i in range(cfg.num_layers)]
         return cache
     n_attn = n_units * sum(1 for k in sub if k in ("attn", "hybrid"))
     dt = dtype or L.param_dtype(cfg)
+    kv_spec = _cache_kv_spec(cfg, shd)
     shape = (n_attn, batch, max_len, cfg.num_kv_heads, cfg.hd)
-    cache["k"] = L.shard(torch.zeros(shape, dtype=dt, device=device), shd,
-                         *_cache_kv_spec(cfg, shd))
-    cache["v"] = L.shard(torch.zeros(shape, dtype=dt, device=device), shd,
-                         *_cache_kv_spec(cfg, shd))
+    cache["k"] = full(shape, 0.0, dt, kv_spec)
+    cache["v"] = full(shape, 0.0, dt, kv_spec)
     if cfg.family == "hybrid":
         h, pd = M.mamba_heads(cfg)
-        cache["ssm"] = torch.zeros((n_units, batch, h, cfg.ssm_state, pd),
-                                   dtype=torch.float32, device=device)
+        cache["ssm"] = full((n_units, batch, h, cfg.ssm_state, pd), 0.0, torch.float32,
+                            (None, dp, None, None, None))
     if cfg.family == "audio":
         shape = (n_units, batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.hd)
-        cache["cross_k"] = torch.zeros(shape, dtype=dt, device=device)
-        cache["cross_v"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["cross_k"] = full(shape, 0.0, dt, kv_spec)
+        cache["cross_v"] = full(shape, 0.0, dt, kv_spec)
     return cache
+
+
+def write_seq_prefix(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst[:, :, :s] = src`` for a cache leaf (U, B, S, ...) and ``src``
+    (U, B, s, ...).  On a mesh each rank writes only the positions of its
+    own segment of ``dst``: ``src`` is placed as ``dst`` is, its sequence
+    whole (where ``dst`` splits the heads ``src`` does too, and nothing
+    moves; where ``dst`` splits the sequence, ``src``'s heads are gathered
+    whole where the model axis split them, replicated K/V need nothing)."""
+    s = src.shape[2]
+    if not L.is_dtensor(dst):
+        dst[:, :, :s] = src.to(dst.dtype)
+        return
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate() if p.is_shard(2) else p for p in dst.placements]
+    src = L.local(L.with_placements(src, dst, want)).to(dst.dtype)
+    out, lo = L.local(dst), L.local_offset(dst, 2)
+    hi = min(lo + out.shape[2], s)
+    if hi > lo:
+        out[:, :, :hi - lo] = src[:, :, lo:hi]
+
+
+def write_slot(dst: torch.Tensor, slot: int, src: torch.Tensor, dim: int = 1) -> None:
+    """``dst.select(dim, slot)[...] = src.select(dim, 0)``: a batch-1 leaf
+    written into row ``slot`` of a batched one.  On a mesh only the rank
+    that holds the row writes it, from its own piece of ``src`` (placed
+    as ``dst``, its batch whole: a batch-1 leaf is replicated over the
+    data axes already)."""
+    if not L.is_dtensor(dst):
+        dst.select(dim, slot).copy_(src.select(dim, 0))
+        return
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate() if p.is_shard(dim) else p for p in dst.placements]
+    src = L.local(L.with_placements(src, dst, want))
+    out, lo = L.local(dst), L.local_offset(dst, dim)
+    if lo <= slot < lo + out.shape[dim]:
+        out.select(dim, slot - lo).copy_(src.select(dim, 0))
 
 
 def _decode_mask(cfg: ModelConfig, k_pos: torch.Tensor, pos: torch.Tensor,
@@ -606,30 +676,98 @@ def _attn_decode(cfg: ModelConfig, p: L.Attention, x: torch.Tensor,
                  use_rope: bool = True, shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """x: (B, 1, d); k_cache/v_cache: (B, S, KV, hd), written in place at
     each row's ``pos`` (rows where ``write_mask`` is False keep their
-    entry).  Returns the attention output (B, 1, d)."""
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    entry).  Returns the attention output (B, 1, d).  The cache is
+    written by ``_write_token`` and read by ``_attend_pieces``, each on
+    this rank's pieces on a mesh."""
+    h, hd = cfg.num_heads, cfg.hd
     b, s_cache = x.shape[0], k_cache.shape[1]
     # the cache stores post-RoPE keys (Whisper's decoder: unrotated)
     q, k, v = L.qkv(cfg, p, x, pos[:, None], freqs, use_rope=use_rope, shd=shd)
+    _write_token(k_cache, k, pos, write_mask)
+    _write_token(v_cache, v, pos, write_mask)
+    mask = _decode_mask(cfg, torch.arange(s_cache, device=L.local(pos).device), pos, is_global)
+    out = _attend_pieces(cfg, q, k_cache, v_cache, mask)
+    return L.linear(out.reshape(b, 1, h * hd), p.wo, shd=shd)
 
-    rows = torch.arange(b, device=x.device)
-    at = pos.clamp(0, s_cache - 1)          # as dynamic_update_slice clamps
-    k_new, v_new = k[:, 0].to(k_cache.dtype), v[:, 0].to(v_cache.dtype)
+
+def _seq_split_dims(cache: torch.Tensor) -> List[int]:
+    """The mesh dimensions of more than one rank that split a (B, S, KV,
+    hd) cache's sequence."""
+    return [m for m, p in enumerate(cache.placements)
+            if p.is_shard(1) and cache.device_mesh.size(m) > 1]
+
+
+def _write_token(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 write_mask: Optional[torch.Tensor]) -> None:
+    """A cache (B, S, KV, hd) ← ``new`` (B, 1, KV, hd) at each row's
+    ``pos`` (clamped, as dynamic_update_slice clamps), in place, on the
+    rows of ``write_mask`` only.  On a mesh each rank writes the rows of
+    its batch piece whose position falls in its sequence segment (``new``
+    placed as the cache, its one position whole: where the cache splits
+    the heads so does ``new``; where it splits the sequence, ``new``'s
+    heads are gathered whole, one token's K or V)."""
+    if L.is_dtensor(cache):
+        from torch.distributed.tensor import Replicate
+
+        want = [Replicate() if p.is_shard(1) else p for p in cache.placements]
+        new = L.local(L.with_placements(new, cache, want))
+    new = new[:, 0].to(cache.dtype)
+    out = L.local(cache)
+    b0, s0 = L.local_offset(cache, 0), L.local_offset(cache, 1)
+    nb, ns = out.shape[:2]
+    at = L.local(pos)[b0:b0 + nb].clamp(0, cache.shape[1] - 1) - s0
+    ok = (at >= 0) & (at < ns)
     if write_mask is not None:
-        keep = ~write_mask[:, None, None]
-        k_new = torch.where(keep, k_cache[rows, at], k_new)
-        v_new = torch.where(keep, v_cache[rows, at], v_new)
-    k_cache[rows, at] = k_new
-    v_cache[rows, at] = v_new
+        ok &= L.local(write_mask)[b0:b0 + nb]
+    rows, at = torch.arange(nb, device=out.device), at.clamp(0, ns - 1)
+    out[rows, at] = torch.where(ok[:, None, None], new, out[rows, at])
 
-    qg = q.reshape(b, 1, kv, cfg.q_per_kv, hd)
-    scores = torch.einsum("bsgqh,btgh->bgqst", qg, k_cache).float()
-    scores = scores / math.sqrt(hd)         # f32(sqrt(hd)), as jnp.sqrt(f32(hd))
-    mask = _decode_mask(cfg, torch.arange(s_cache, device=x.device), pos, is_global)
-    scores = scores.masked_fill(~mask[:, None, None, None, :], L.NEG)
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bgqst,btgh->bsgqh", w, v_cache).reshape(b, 1, h * hd)
-    return torch.nn.functional.linear(out, p.wo)
+
+def _attend_pieces(cfg: ModelConfig, q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Decode attention of q (B, 1, H, hd) over a cache (B, S, KV, hd),
+    masked by ``mask`` (B, S).  On a mesh it runs on each rank's pieces: q
+    placed as the cache (its heads split where the cache's KV heads are,
+    whole where they are whole, its one position whole), the scores of the
+    rank's own segment.  Where the cache's sequence is split over the mesh
+    (flash-decoding) the row softmax is put together by three all-reduces
+    over the splitting axes (the row max, the sum of exponentials, the
+    weighted values), the log-sum-exp combine that GSPMD inserts for the
+    reference; else it is the unsharded op.  Returns (B, 1, KV, q_per_kv,
+    hd), on a mesh a DTensor placed as q."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate
+
+    kc, vc = L.local(k_cache), L.local(v_cache)
+    nb, ns, kvl, hd = kc.shape
+    b0, s0 = L.local_offset(k_cache, 0), L.local_offset(k_cache, 1)
+    mesh, want, dims = L.mesh_of(k_cache), None, []
+    if mesh is not None:
+        want = [Replicate() if p.is_shard(1) else p for p in k_cache.placements]
+        q, dims = L.local(L.with_placements(q, k_cache, want)), _seq_split_dims(k_cache)
+
+    def placed(out):
+        return out if mesh is None else DTensor.from_local(out, mesh, want, run_check=False)
+
+    qg = q.reshape(nb, 1, kvl, -1, hd)
+    scores = torch.einsum("bsgqh,btgh->bgqst", qg, kc).float()
+    scores = scores / math.sqrt(hd)
+    m = L.local(mask)[b0:b0 + nb, s0:s0 + ns]
+    scores = scores.masked_fill(~m[:, None, None, None, :], L.NEG)
+    if not dims:
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        return placed(torch.einsum("bgqst,btgh->bsgqh", w, vc))
+
+    def reduce(t, op):
+        for d in dims:
+            t = funcol.all_reduce(t, op, (mesh, d))
+        return funcol.wait_tensor(t)
+
+    row_max = reduce(scores.amax(dim=-1, keepdim=True), "max")
+    e = torch.exp(scores - row_max)
+    total = reduce(e.sum(dim=-1, keepdim=True), "sum")
+    w = (e / total).to(q.dtype)
+    return placed(reduce(torch.einsum("bgqst,btgh->bsgqh", w, vc), "sum"))
 
 
 def _write_state(old: torch.Tensor, new: torch.Tensor,
@@ -638,7 +776,7 @@ def _write_state(old: torch.Tensor, new: torch.Tensor,
     only (every row without one)."""
     if write_mask is not None:
         new = torch.where(write_mask.reshape(-1, *(1,) * (new.dim() - 1)), new, old)
-    old.copy_(new)
+    _assign(old, new)
 
 
 def _decode_blocks(cfg: ModelConfig, params: Backbone, cache: Cache, x: torch.Tensor,
@@ -646,6 +784,7 @@ def _decode_blocks(cfg: ModelConfig, params: Backbone, cache: Cache, x: torch.Te
                    shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
     """The xLSTM blocks' decode step, each block's state updated in place."""
     for block, state in zip(params.blocks, cache["blocks"]):
+        x = _carry(x, shd)
         kind = _block_kind(block)
         h = L.apply_norm(cfg, block["norm"], x)
         step = X.slstm_decode_step if kind == "slstm" else X.mlstm_decode_step
@@ -670,13 +809,16 @@ def decode_step(cfg: ModelConfig, params: Backbone, cache: Cache,
     sub, n_units = unit_structure(cfg)
     pos = cache["pos"]
     x = L.embed(cfg, params.embed, tokens, shd)
+    if write_mask is not None:
+        write_mask = _replicated(write_mask, x)
     if cfg.family == "ssm":
         x = _decode_blocks(cfg, params, cache, x, write_mask, shd)
     else:
         flags = _global_flags(cfg, n_units, sub)
-        freqs = L.rope_freqs(cfg, tokens.device)
+        freqs = L.replicate_like(L.rope_freqs(cfg, L.local(x).device), x)
         layer = 0
         for u, (unit, flag_row) in enumerate(zip(_units(cfg, params), flags)):
+            x = _carry(x, shd)
             fi = 0
             for kind in sub:
                 p = unit[kind]
@@ -720,26 +862,48 @@ def prefill(cfg: ModelConfig, params: Backbone, tokens: torch.Tensor,
     logits are (B, S, V), the cache holds each decoder layer's cross K/V,
     and ``pos`` = S."""
     b = tokens.shape[0]
-    cache = init_cache(cfg, b, max_len, device=tokens.device, shd=shd)
+    mesh = L.mesh_of(params.embed.tok) if shd.enabled else None
+    cache = init_cache(cfg, b, max_len, device=L.local(tokens).device, shd=shd,
+                       device_mesh=mesh)
     x = _embed(cfg, params, tokens, extra_embeds, shd)
     s = x.shape[1]
     if cfg.family == "ssm":
         states = []
         x = _run_blocks(cfg, params, x, states, shd)
-        cache["blocks"] = states
+        for old, new in zip(cache["blocks"], states):
+            for kind, state in new.items():
+                for dst, src in zip(old[kind], state):
+                    _assign(dst, src)
     else:
-        freqs = L.rope_freqs(cfg, tokens.device)
+        freqs = L.replicate_like(L.rope_freqs(cfg, L.local(x).device), x)
         enc = (_encode(cfg, params, extra_embeds, freqs, shd) if cfg.family == "audio"
                else None)
         x, cap = _capture_kv_states(cfg, params, x, freqs, enc, shd)
-        cache["k"][:, :, :s] = cap["k"].to(cache["k"].dtype)
-        cache["v"][:, :, :s] = cap["v"].to(cache["v"].dtype)
+        write_seq_prefix(cache["k"], cap["k"])
+        write_seq_prefix(cache["v"], cap["v"])
         for key in ("ssm", "cross_k", "cross_v"):
             if key in cap:
-                cache[key].copy_(cap[key])
-    cache["pos"].fill_(s)
+                _assign(cache[key], cap[key])
+    L.local(cache["pos"]).fill_(s)
     x = L.apply_norm(cfg, params.final_norm, x)
     return L.unembed(cfg, params.embed, x, shd), cache
+
+
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; on a mesh ``src`` is placed as ``dst`` first and
+    each rank copies its own piece."""
+    if L.is_dtensor(dst):
+        src = L.with_placements(src, dst, dst.placements)
+    L.local(dst).copy_(L.local(src))
+
+
+def _replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` replicated on ``like``'s mesh where ``like`` is a DTensor."""
+    if not L.is_dtensor(like):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return L.with_placements(t, like, [Replicate()] * like.device_mesh.ndim)
 
 
 def flash_launches_per_prefill(cfg: ModelConfig) -> int:

@@ -67,6 +67,131 @@ def shard(x: torch.Tensor, shd: ShardingConfig, *spec) -> torch.Tensor:
     return x.redistribute(x.device_mesh, placements)
 
 
+def gathered(w: Optional[torch.Tensor], shd: ShardingConfig) -> Optional[torch.Tensor]:
+    """A parameter whole over the fsdp axes, its model-axis split kept:
+    FSDP's all-gather of a layer's weights before their use, as GSPMD
+    gathers the reference's.  Without it DTensor contracts over the
+    fsdp-split dimension instead, making partial sums of the whole batch's
+    activations on every rank and reduce-scattering them.  The gradient
+    comes back reduce-scattered onto the pieces.  A plain tensor (or None)
+    as it is, and an axis of one rank left alone (its one piece is whole)."""
+    if w is None or not shd.enabled or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    mesh = w.device_mesh
+    pl = tuple(Replicate() if mesh.mesh_dim_names[m] in shd.fsdp and mesh.size(m) > 1 else p
+               for m, p in enumerate(w.placements))
+    return w if pl == tuple(w.placements) else w.redistribute(w.device_mesh, pl)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
+    """``F.linear`` on the parameters ``gathered`` over the fsdp axes."""
+    if is_dtensor(x) and not x.to_local().is_contiguous():
+        # DTensor's linear views its local piece, which a redistribution
+        # that padded an uneven split leaves strided (its ``contiguous``
+        # keeps that piece)
+        from torch.distributed.tensor import DTensor
+
+        x = DTensor.from_local(x.to_local().contiguous(), x.device_mesh, x.placements,
+                               run_check=False, shape=x.shape, stride=x.stride())
+    return F.linear(x, gathered(w, shd), gathered(b, shd))
+
+
+class Gathered:
+    """A module's parameters, each ``gathered`` at its first use (once
+    per wrapper, so a recurrence's loop gathers nothing again); a plain
+    module's as they are."""
+
+    def __init__(self, module: nn.Module, shd: ShardingConfig):
+        self._module, self._shd, self._memo = module, shd, {}
+
+    def __getattr__(self, name):
+        if name not in self._memo:
+            value = getattr(self._module, name)
+            self._memo[name] = (gathered(value, self._shd) if isinstance(value, torch.Tensor)
+                                else value)
+        return self._memo[name]
+
+
+def merge_heads(y: torch.Tensor, shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
+    """Heads (B, S, n, w) flattened to (B, S, n·w) and split over the model
+    axis, as the reference constrains an attention output: a head count the
+    axis does not divide leaves the heads whole, and the flat dimension's
+    split (with its redistribution's backward) keeps the gradient's head
+    view possible."""
+    b, s = y.shape[:2]
+    return shard(y.reshape(b, s, -1), shd, dp(shd), None, shd.tp)
+
+
+def split_heads(y: torch.Tensor, n: int, shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
+    """A projection's output (B, S, n·w) viewed as n heads (B, S, n, w).
+    On a mesh the output is split over the model axis; the head view needs
+    whole heads on every rank, so the model axis stays on it only where it
+    divides the head count (8 KV heads on a 16-wide axis: replicated)."""
+    y = shard(y, shd, dp(shd), None, tp_if_divisible(shd, n, y))
+    return y.reshape(*y.shape[:2], n, y.shape[2] // n)
+
+
+def batch_head_placements(shd: ShardingConfig, like: torch.Tensor, h: int) -> tuple:
+    """Placements of a (B, S, H, ·) tensor on ``like``'s mesh for work on
+    each rank's own rows and heads (a recurrence, a scan): the batch over
+    the data axes where they divide it, the heads over the model axis where
+    it divides them, else whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, out = like.device_mesh, []
+    for m, name in enumerate(mesh.mesh_dim_names):
+        size = mesh.size(m)
+        if name in shd.fsdp and like.shape[0] % size == 0:
+            out.append(Shard(0))
+        elif name == shd.tp and h % size == 0:
+            out.append(Shard(2))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def moved(placements, dims: dict, partial: bool = False) -> tuple:
+    """``placements`` with each ``Shard(d)`` moved to ``Shard(dims[d])``; a
+    split dimension with no place in ``dims`` becomes ``Replicate()``, or
+    with ``partial`` ``Partial()`` (the gradient of a tensor that each of
+    those ranks used on its own rows)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    return tuple((Shard(dims[p.dim]) if p.dim in dims else (Partial() if partial else Replicate()))
+                 if p.is_shard() else p for p in placements)
+
+
+def scan_on_pieces(shd: ShardingConfig, h: int, loop, inputs, weights, n_state: int):
+    """``loop(*inputs, *weights)`` → (hidden states, state) on each rank's
+    piece through ``local_map``: the (B, S, H, ·) inputs placed by
+    ``batch_head_placements``, the (H, ·) weights by their heads (whole over
+    the data axes; their gradient a partial sum there), and no DTensor op
+    inside the recurrence, so every step runs the same local ops and the
+    scan sends nothing.  Returns the hidden states and the ``n_state``
+    state leaves ((B, H, ...), placed by their batch and heads; a state of
+    one tensor or a tuple of them)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    like = inputs[0]
+    pl = batch_head_placements(shd, like, h)
+    st_pl = moved(pl, {0: 0, 2: 1})
+    w_pl, w_grad = moved(pl, {2: 0}), moved(pl, {2: 0}, partial=True)
+    inputs = [with_placements(t, like, pl) for t in inputs]
+    weights = [with_placements(w, like, w_pl) for w in weights]
+
+    def flat(*args):
+        hs, state = loop(*args)
+        return (hs, *(state if isinstance(state, tuple) else (state,)))
+
+    return local_map(flat, out_placements=(pl,) + (st_pl,) * n_state,
+                     in_placements=(pl,) * len(inputs) + (w_pl,) * len(weights),
+                     in_grad_placements=(pl,) * len(inputs) + (w_grad,) * len(weights),
+                     device_mesh=like.device_mesh)(*inputs, *weights)
+
+
 def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """``t`` as a replicated DTensor on ``like``'s mesh when ``like`` is a
     DTensor (positions, RoPE frequencies, masks: the same on every rank);
@@ -77,6 +202,42 @@ def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
     mesh = like.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def local(x: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of a DTensor (a view of its storage); a plain
+    tensor as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def mesh_of(x: torch.Tensor):
+    """The ``DeviceMesh`` of a DTensor, None for a plain tensor."""
+    return x.device_mesh if is_dtensor(x) else None
+
+
+def local_offset(x: torch.Tensor, dim: int) -> int:
+    """Where this rank's piece of ``x`` starts along ``dim`` of the whole
+    tensor (0 for a plain tensor).  A dimension split over several mesh
+    axes is split by the first, then each piece by the next, as DTensor
+    splits it; the specs split only dimensions they divide evenly."""
+    if not is_dtensor(x):
+        return 0
+    mesh, coords = x.device_mesh, x.device_mesh.get_coordinate()
+    size, off = x.shape[dim], 0
+    for mdim, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            size //= mesh.size(mdim)
+            off += coords[mdim] * size
+    return off
+
+
+def with_placements(x: torch.Tensor, like: torch.Tensor, placements) -> torch.Tensor:
+    """``x`` as a DTensor on ``like``'s mesh with ``placements`` (a plain
+    ``x``, the same on every rank, is replicated first: no communication)."""
+    x = replicate_like(x, like)
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
 
 
 def dp(shd: ShardingConfig):
@@ -190,7 +351,6 @@ def _attn_mask(cfg: ModelConfig, q_pos: torch.Tensor, k_pos: torch.Tensor,
     """(Sq, Sk) boolean mask — full / sliding-window / chunked-local (the
     flash kernel's mask, so every attention path masks alike).  Replicated
     positions give a replicated mask."""
-    local = lambda t: t.to_local() if is_dtensor(t) else t   # noqa: E731
     mask = attention_mask(local(q_pos), local(k_pos), cfg.attention, cfg.window, causal,
                           is_global)
     return replicate_like(mask, q_pos)
@@ -205,13 +365,12 @@ def qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor
     q and k of causal self-attention with ``use_rope``.  With
     ``kv_override`` (cross-attention) only q is projected and k, v are
     the override's, unrotated."""
-    b, s, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = F.linear(x, p.wq, p.bq).reshape(b, s, h, hd)
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    q = split_heads(linear(x, p.wq, p.bq, shd), h, shd)
     rope = causal and use_rope     # RoPE on self-attention only (Whisper: none)
     if kv_override is None:
-        k = F.linear(x, p.wk, p.bk).reshape(b, s, kv, hd)
-        v = F.linear(x, p.wv, p.bv).reshape(b, s, kv, hd)
+        k = split_heads(linear(x, p.wk, p.bk, shd), kv, shd)
+        v = split_heads(linear(x, p.wv, p.bv, shd), kv, shd)
         if rope:
             k = apply_rope(k, positions, freqs)
     else:
@@ -244,7 +403,7 @@ def mha_kv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Ten
         out = _attn_naive(cfg, shd, q, k, v, positions, k_pos, is_global, causal)
     out = out.reshape(b, s, cfg.num_heads * cfg.hd)
     out = shard(out, shd, dp(shd), None, shd.tp)
-    return F.linear(out, p.wo), k, v
+    return linear(out, p.wo, shd=shd), k, v
 
 
 def mha(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor,
@@ -261,16 +420,73 @@ def mha(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor
 
 
 def _attn_naive(cfg, shd, q, k, v, positions, k_pos, is_global, causal):
-    """Paper-faithful baseline: full (…,S,S) score materialization."""
-    b, s, h, hd = q.shape
-    q = shard(q, shd, dp(shd), None, tp_if_divisible(shd, h, q), None)
-    k = shard(k, shd, dp(shd), None, tp_if_divisible(shd, k.shape[2], k), None)
-    qg = q.reshape(b, s, k.shape[2], -1, hd)          # grouped-query folding
-    scores = torch.einsum("bsgqh,btgh->bgqst", qg, k).float() / math.sqrt(hd)
-    mask = _attn_mask(cfg, positions[0], k_pos, is_global, causal)
-    scores = scores.masked_fill(~mask, NEG)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bgqst,btgh->bsgqh", w, v)
+    """Paper-faithful baseline: full (…,S,S) score materialization, the
+    queries folded by KV head.  On a mesh each rank attends with its own
+    (batch, heads) piece through ``local_map`` (``head_pieces``), the
+    unsharded op on it: DTensor's rules for the grouped einsums would flatten
+    a batch and a head dimension that are both split."""
+    fn = _naive_local(cfg, is_global, causal)
+    if not is_dtensor(q):
+        return fn(q, k, v, positions[0], k_pos)
+    from torch.distributed.tensor.experimental import local_map
+
+    q, k, v = head_pieces(shd, q, k, v)
+    pl = tuple(q.placements)
+
+    def on_pieces(q, k, v, q_pos, k_pos):
+        # the pieces' gradients leave contiguous (DTensor views them) and
+        # the heads come back flat (B, S, H·hd)
+        q, k, v = (_ContiguousGrad.apply(x) for x in (q, k, v))
+        return fn(q, k, v, q_pos, k_pos).flatten(2)
+
+    return local_map(on_pieces, out_placements=list(pl), in_placements=(pl, pl, pl, None, None),
+                     in_grad_placements=(pl, pl, pl, None, None), device_mesh=q.device_mesh)(
+        q, k, v, local(positions[0]), local(k_pos))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous: DTensor's ops on a
+    gradient piece view it as its global layout says, which a piece that an
+    einsum's backward left strided does not match."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _naive_local(cfg, is_global, causal):
+    """The naive attention on plain (B, S, ·, hd) tensors → (B, S, KV, G, hd)."""
+
+    def attend(q, k, v, q_pos, k_pos):
+        b, s, _, hd = q.shape
+        qg = q.reshape(b, s, k.shape[2], -1, hd)          # grouped-query folding
+        scores = torch.einsum("bsgqh,btgh->bgqst", qg, k).float() / math.sqrt(hd)
+        mask = attention_mask(q_pos, k_pos, cfg.attention, cfg.window, causal, is_global)
+        scores = scores.masked_fill(~mask, NEG)
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("bgqst,btgh->bsgqh", w, v)
+
+    return attend
+
+
+def head_pieces(shd: ShardingConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q (B, S, H, hd) and k, v (B, S, KV, hd) placed alike for attention on
+    each rank's heads: the batch over the data axes, the heads over the
+    model axis where it divides the query heads, else whole.  Where it
+    divides the query heads but not the KV heads (8 KV heads on a 16-wide
+    axis) the KV heads are expanded to full heads first (``_expand_kv``, a
+    local broadcast of the replicated K/V): no gather, the per-rank work of
+    GSPMD's factored (KV, group) split."""
+    h = q.shape[2]
+    tq = tp_if_divisible(shd, h, q)
+    if tq and not tp_if_divisible(shd, k.shape[2], k):
+        k, v = _expand_kv(k, v, h)
+    q = shard(q, shd, dp(shd), None, tq, None)
+    return (q, *(with_placements(x, q, q.placements) for x in (k, v)))
 
 
 def _expand_kv(k: torch.Tensor, v: torch.Tensor, h: int):
@@ -378,8 +594,8 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def mlp(cfg: ModelConfig, p: GLU, x: torch.Tensor,
         shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
-    hdn = _act(cfg, F.linear(x, p.w_gate)) * F.linear(x, p.w_up)
-    return F.linear(shard(hdn, shd, dp(shd), None, shd.tp), p.w_down)
+    hdn = _act(cfg, linear(x, p.w_gate, shd=shd)) * linear(x, p.w_up, shd=shd)
+    return linear(shard(hdn, shd, dp(shd), None, shd.tp), p.w_down, shd=shd)
 
 
 # -- embeddings ----------------------------------------------------------------------
@@ -434,5 +650,5 @@ def _embed_replicated(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(cfg: ModelConfig, p: Embed, x: torch.Tensor,
             shd: ShardingConfig = NO_SHARDING) -> torch.Tensor:
-    logits = F.linear(x, p.tok if cfg.tie_embeddings else p.out)
+    logits = linear(x, p.tok if cfg.tie_embeddings else p.out, shd=shd)
     return shard(logits, shd, dp(shd), None, shd.tp)

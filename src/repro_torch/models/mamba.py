@@ -29,6 +29,7 @@ module: the reference computes it outside any Pallas kernel.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -72,16 +73,14 @@ class Mamba(nn.Module):
             L.dense_init_(w, gen)
 
 
-def _proj(cfg: ModelConfig, p: Mamba, x: torch.Tensor):
+def _proj(cfg: ModelConfig, p: Mamba, x: torch.Tensor, shd: ShardingConfig = NO_SHARDING):
     """x (B, S, d) → xv, z (B, S, H, P), B, C (B, S, H, N) in x's dtype,
     the step size Δt and the log-decay a = −exp(A_log)·Δt (B, S, H) f32."""
-    b, s, _ = x.shape
-    h, pd = mamba_heads(cfg)
-    n = cfg.ssm_state
-    xv = F.linear(x, p.w_x).reshape(b, s, h, pd)
-    z = F.linear(x, p.w_z).reshape(b, s, h, pd)
-    bm = F.linear(x, p.w_B).reshape(b, s, h, n)
-    cm = F.linear(x, p.w_C).reshape(b, s, h, n)
+    h, _ = mamba_heads(cfg)
+    xv = L.split_heads(F.linear(x, p.w_x), h, shd)
+    z = L.split_heads(F.linear(x, p.w_z), h, shd)
+    bm = L.split_heads(F.linear(x, p.w_B), h, shd)
+    cm = L.split_heads(F.linear(x, p.w_C), h, shd)
     dt_ = F.softplus(F.linear(x, p.w_dt).float())
     a = -torch.exp(p.A_log)[None, None] * dt_
     return xv, z, bm, cm, dt_, a
@@ -93,27 +92,46 @@ def mamba_scan(cfg: ModelConfig, p: Mamba, x: torch.Tensor, return_state: bool =
     with ``return_state`` the final state (B, H, N, P) f32 too.  The chunk
     is min(CHUNK, S), which must divide S (so a sequence past 128 tokens is
     a multiple of 128), as the reference asserts."""
-    b, s, _ = x.shape
-    h, pd = mamba_heads(cfg)
-    n = cfg.ssm_state
+    p = L.Gathered(p, shd) if shd.enabled else p
+    s = x.shape[1]
+    h, _ = mamba_heads(cfg)
     q = min(CHUNK, s)
     if s % q:
         raise ValueError(f"mamba_scan: a sequence of {s} tokens is not a multiple of its "
                          f"chunk {q} (sequences past {CHUNK} tokens must be multiples of "
                          f"{CHUNK})")
-    nc = s // q
 
-    xv, z, bm, cm, dt_, a = _proj(cfg, p, x)
+    xv, z, bm, cm, dt_, a = _proj(cfg, p, x, shd)
     xv = xv * dt_[..., None]                               # fold Δt into the input
+    inputs = (xv.float(), bm.float(), cm.float(), a)
+    ssd = functools.partial(_ssd, q=q)
+    y, carry = (L.scan_on_pieces(shd, h, ssd, inputs, (), 1) if L.is_dtensor(x)
+                else ssd(*inputs))
+    y = y * F.silu(z.float())
+    y = L.shard(y, shd, L.dp(shd), None, shd.tp, None)
+    out = F.linear(L.merge_heads(y.to(x.dtype), shd), p.w_out)
+    if return_state:
+        return out, carry
+    return out
+
+
+def _ssd(xv: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, a: torch.Tensor, q: int
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD of (B, S, H, ·) inputs (xv with Δt folded in, B, C
+    in f32; the log-decay a (B, S, H)) in chunks of q → y (B, S, H, P) f32
+    and the final state (B, H, N, P) f32.  Every (batch, head) is
+    independent of the others."""
+    b, s, h, pd = xv.shape
+    n, nc = bm.shape[-1], s // q
 
     def ch(t):
         return t.reshape(b, nc, q, *t.shape[2:])
 
-    xv, bm, cm, a = ch(xv.float()), ch(bm.float()), ch(cm.float()), ch(a)
+    xv, bm, cm, a = ch(xv), ch(bm), ch(cm), ch(a)
     acs = torch.cumsum(a, dim=2)                           # (B, NC, Q, H) within a chunk
     # -- intra-chunk: the masked quadratic in Q, masked before the exp --
     decay = acs[:, :, :, None, :] - acs[:, :, None, :, :]  # (B, NC, Qq, Qk, H)
-    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    causal = torch.ones((q, q), dtype=torch.bool, device=xv.device).tril()[None, None, :, :, None]
     gm = torch.exp(decay.masked_fill(~causal, -math.inf))
     scores = torch.einsum("bcqhn,bckhn->bcqkh", cm, bm) * gm
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", scores, xv)
@@ -122,7 +140,7 @@ def mamba_scan(cfg: ModelConfig, p: Mamba, x: torch.Tensor, return_state: bool =
     tail = acs[:, :, -1:, :] - acs                         # decay to the chunk's end
     st = torch.einsum("bcqhn,bcqhp,bcqh->bchnp", bm, xv, torch.exp(tail))
     chunk_decay = torch.exp(acs[:, :, -1, :])              # (B, NC, H)
-    carry = torch.zeros((b, h, n, pd), dtype=torch.float32, device=x.device)
+    carry = torch.zeros((b, h, n, pd), dtype=torch.float32, device=xv.device)
     prev = []
     for c in range(nc):
         prev.append(carry)                                 # the state BEFORE chunk c
@@ -130,13 +148,7 @@ def mamba_scan(cfg: ModelConfig, p: Mamba, x: torch.Tensor, return_state: bool =
     prev_states = torch.stack(prev, dim=1)                 # (B, NC, H, N, P)
 
     y_inter = torch.einsum("bcqhn,bchnp,bcqh->bcqhp", cm, prev_states, torch.exp(acs))
-    y = (y_intra + y_inter).reshape(b, s, h, pd)
-    y = y * F.silu(z.float())
-    y = L.shard(y, shd, L.dp(shd), None, shd.tp, None)
-    out = F.linear(y.reshape(b, s, h * pd).to(x.dtype), p.w_out)
-    if return_state:
-        return out, carry
-    return out
+    return (y_intra + y_inter).reshape(b, s, h, pd), carry
 
 
 def mamba_prefill_state(cfg: ModelConfig, p: Mamba, x: torch.Tensor,
@@ -154,14 +166,15 @@ def mamba_decode_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
 def mamba_decode_step(cfg: ModelConfig, p: Mamba, x: torch.Tensor, state: torch.Tensor,
                       shd: ShardingConfig = NO_SHARDING) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, 1, d), state (B, H, N, P) → (out (B, 1, d), the new state)."""
+    p = L.Gathered(p, shd) if shd.enabled else p
     b = x.shape[0]
     h, pd = mamba_heads(cfg)
-    xv, z, bm, cm, dt_, a = _proj(cfg, p, x)
+    xv, z, bm, cm, dt_, a = _proj(cfg, p, x, shd)
     xv = (xv * dt_[..., None]).float()[:, 0]               # (B, H, P)
     bm, cm, a = bm.float()[:, 0], cm.float()[:, 0], a[:, 0]
     new_state = (state * torch.exp(a)[:, :, None, None]
                  + torch.einsum("bhn,bhp->bhnp", bm, xv))
     y = torch.einsum("bhn,bhnp->bhp", cm, new_state)
     y = y * F.silu(z.float()[:, 0])
-    out = F.linear(y.reshape(b, 1, h * pd).to(x.dtype), p.w_out)
+    out = F.linear(L.merge_heads(y.reshape(b, 1, h, pd).to(x.dtype), shd), p.w_out)
     return out, new_state

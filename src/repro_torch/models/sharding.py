@@ -13,7 +13,10 @@ spells it).
 the reference does before it builds a ``NamedSharding``;
 ``placements_for`` turns a valid spec into DTensor placements on a mesh
 (``Shard(dim)`` on each mesh dimension a tensor dimension is split over,
-``Replicate()`` on the others), the counterpart of ``shardings_for``.
+``Replicate()`` on the others), the counterpart of ``shardings_for``; a
+dimension of one element stays whole (it can be "split" only over an axis
+of one rank, where both hold the same data, and DTensor's view rules take
+such a split for a real one).
 A mesh here is ``launch.mesh.Mesh`` (or a ``DeviceMesh``): only its axis
 names and sizes are read, so a mesh that only describes a shape serves
 the spec arithmetic.
@@ -23,6 +26,8 @@ from __future__ import annotations
 
 import math
 from typing import Any, Dict, Sequence, Tuple
+
+import torch
 
 Spec = Tuple[Any, ...]
 
@@ -66,6 +71,8 @@ def placements_for(shape: Sequence[int], spec: Spec, mesh) -> tuple:
     names = tuple(mesh_shape(mesh))
     out = [Replicate() for _ in names]
     for dim, entry in enumerate(valid_spec(shape, spec, mesh)):
+        if shape[dim] == 1:
+            continue
         for axis in ((entry,) if isinstance(entry, str) else entry or ()):
             out[names.index(axis)] = Shard(dim)
     return tuple(out)
@@ -74,3 +81,23 @@ def placements_for(shape: Sequence[int], spec: Spec, mesh) -> tuple:
 def num_shards(shape: Sequence[int], spec: Spec, mesh) -> int:
     """Into how many pieces a tensor of ``shape`` is split under ``spec``."""
     return math.prod(axis_size(mesh, e) for e in valid_spec(shape, spec, mesh))
+
+
+def full(shape: Sequence[int], value: float, dtype, spec: Spec = (), device_mesh=None,
+         device=None):
+    """``torch.full(shape, value)`` on ``device``; with a ``device_mesh``
+    this rank's piece of it under ``spec`` (on ``device``, the meta device
+    included), a DTensor on the mesh: no rank makes the whole tensor.  The
+    valid spec splits only dimensions it divides, so every piece is the
+    same size."""
+    if device_mesh is None:
+        return torch.full(tuple(shape), value, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+
+    placements = placements_for(shape, spec, device_mesh)
+    local = list(shape)
+    for mdim, p in enumerate(placements):
+        if p.is_shard():
+            local[p.dim] //= device_mesh.size(mdim)
+    piece = torch.full(tuple(local), value, dtype=dtype, device=device)
+    return DTensor.from_local(piece, device_mesh, placements, run_check=False)

@@ -22,6 +22,7 @@ module: the reference computes it outside any Pallas kernel.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import NamedTuple, Tuple
 
 import torch
@@ -76,19 +77,31 @@ class MLSTM(nn.Module):
             L.dense_init_(w, gen)
 
 
-def _mlstm_qkvif(cfg: ModelConfig, p: MLSTM, x: torch.Tensor):
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a DTensor each rank's piece through
+    ``local_map`` (DTensor has no sharding rule for its backward)."""
+    if not L.is_dtensor(x):
+        return F.logsigmoid(x)
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(x.placements)
+    return local_map(F.logsigmoid, out_placements=list(pl), in_placements=(pl,),
+                     in_grad_placements=(pl,), device_mesh=x.device_mesh)(x)
+
+
+def _mlstm_qkvif(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
+                 shd: ShardingConfig = NO_SHARDING):
     """x (B, S, d) → q, k (scaled by 1/√hd), v (B, S, H, hd) in x's dtype,
     the log-space input gate and log forget gate (B, S, H) f32, and the
     output gate (B, S, H, hd) f32."""
-    b, s, _ = x.shape
     h, hd = _heads(cfg)
-    q = F.linear(x, p.wq).reshape(b, s, h, hd)
-    k = F.linear(x, p.wk).reshape(b, s, h, hd) / math.sqrt(hd)
-    v = F.linear(x, p.wv).reshape(b, s, h, hd)
+    q = L.split_heads(F.linear(x, p.wq), h, shd)
+    k = L.split_heads(F.linear(x, p.wk), h, shd) / math.sqrt(hd)
+    v = L.split_heads(F.linear(x, p.wv), h, shd)
     it = F.linear(x.float(), p.wi)
-    logf = F.logsigmoid(F.linear(x.float(), p.wf))
+    logf = _logsigmoid(F.linear(x.float(), p.wf))
     og = torch.sigmoid(F.linear(x, p.wo_gate).float())
-    return q, k, v, it, logf, og.reshape(b, s, h, hd)
+    return q, k, v, it, logf, L.split_heads(og, h, shd)
 
 
 def mlstm_step(state: MLSTMState, q, k, v, it, logf):
@@ -108,25 +121,58 @@ def mlstm_step(state: MLSTMState, q, k, v, it, logf):
     return MLSTMState(c, n, m_new), num / den
 
 
-def mlstm_decode_init(cfg: ModelConfig, batch: int, device=None) -> MLSTMState:
+def _full(shape, value, device, full):
+    """An f32 state leaf: ``torch.full`` on ``device``, or ``full(shape,
+    value, dtype)`` where the caller gives one (a cache on a mesh)."""
+    if full is None:
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+    return full(shape, value, torch.float32)
+
+
+def _beside(x: torch.Tensor):
+    """The ``full`` of a scan's initial state beside ``x``: on a mesh each
+    leaf replicated on x's mesh (the same on every rank), else None."""
+    if not L.is_dtensor(x):
+        return None
+    return lambda shape, value, dtype: L.replicate_like(
+        torch.full(shape, value, dtype=dtype, device=L.local(x).device), x)
+
+
+def mlstm_decode_init(cfg: ModelConfig, batch: int, device=None, full=None) -> MLSTMState:
     h, hd = _heads(cfg)
-    return MLSTMState(
-        c=torch.zeros((batch, h, hd, hd), dtype=torch.float32, device=device),
-        n=torch.zeros((batch, h, hd), dtype=torch.float32, device=device),
-        m=torch.full((batch, h), NEG_INIT, dtype=torch.float32, device=device))
+    return MLSTMState(c=_full((batch, h, hd, hd), 0.0, device, full),
+                      n=_full((batch, h, hd), 0.0, device, full),
+                      m=_full((batch, h), NEG_INIT, device, full))
 
 
-def _mlstm_scan(cfg: ModelConfig, p: MLSTM, x: torch.Tensor):
+def _mlstm_scan(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
+                shd: ShardingConfig = NO_SHARDING):
     """The exact recurrence over x's sequence → (hidden states (B, S, H, hd),
-    the output gate, the final state)."""
-    q, k, v, it, logf, og = _mlstm_qkvif(cfg, p, x)
-    q, k, v = q.float(), k.float(), v.float()
-    state = mlstm_decode_init(cfg, x.shape[0], x.device)
+    the output gate, the final state).  On a mesh it runs on each rank's
+    (batch, heads) piece (``layers.scan_on_pieces``)."""
+    q, k, v, it, logf, og = _mlstm_qkvif(cfg, p, x, shd)
+    inputs = (q.float(), k.float(), v.float(), it, logf)
+    if L.is_dtensor(x):
+        hs, *state = L.scan_on_pieces(shd, _heads(cfg)[0], _mlstm_loop, inputs, (), 3)
+        return hs, og, MLSTMState(*state)
+    hs, state = _mlstm_loop(*inputs)
+    return hs, og, state
+
+
+def _mlstm_loop(q, k, v, it, logf):
+    """The mLSTM recurrence over plain (B, S, H, ·) tensors → (hidden states
+    (B, S, H, hd), the final state)."""
+    b, _, h, hd = q.shape
+    state = MLSTMState(c=torch.zeros((b, h, hd, hd), dtype=torch.float32, device=q.device),
+                       n=torch.zeros((b, h, hd), dtype=torch.float32, device=q.device),
+                       m=torch.full((b, h), NEG_INIT, dtype=torch.float32, device=q.device))
     hs = []
-    for t in range(x.shape[1]):
-        state, h_t = mlstm_step(state, q[:, t], k[:, t], v[:, t], it[:, t], logf[:, t])
+    # unbind, not x[:, t]: its backward is one stack, where each step's
+    # select would make a whole (B, S, ...) gradient of zeros
+    for step in zip(*(t.unbind(1) for t in (q, k, v, it, logf))):
+        state, h_t = mlstm_step(state, *step)
         hs.append(h_t)
-    return torch.stack(hs, dim=1), og, state
+    return torch.stack(hs, dim=1), state
 
 
 def _mlstm_out(p: MLSTM, hs: torch.Tensor, og: torch.Tensor, x: torch.Tensor,
@@ -140,7 +186,8 @@ def mlstm_forward(cfg: ModelConfig, p: MLSTM, x: torch.Tensor, return_state: boo
                   shd: ShardingConfig = NO_SHARDING):
     """Training path: the exact recurrence over the sequence.  x (B, S, d)
     → (B, S, d), and with ``return_state`` the final ``MLSTMState``."""
-    hs, og, state = _mlstm_scan(cfg, p, x)
+    p = L.Gathered(p, shd) if shd.enabled else p
+    hs, og, state = _mlstm_scan(cfg, p, x, shd)
     out = _mlstm_out(p, hs, og, x, shd)
     return (out, state) if return_state else out
 
@@ -165,9 +212,10 @@ def mlstm_forward_chunked(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
     and the carry advances with mx_L = max(m, M_L):
         S̃' = S̃·e^{m−mx_L} + Σ_j e^{g_j−mx_L} k_j v_jᵀ ,  m' = F_L + mx_L.
     """
+    p = L.Gathered(p, shd) if shd.enabled else p
     b, s, _ = x.shape
     h, hd = _heads(cfg)
-    q, k, v, it, logf, og = _mlstm_qkvif(cfg, p, x)
+    q, k, v, it, logf, og = _mlstm_qkvif(cfg, p, x, shd)
     chunk = min(MLSTM_CHUNK, s)
     if s % chunk:
         raise ValueError(f"mlstm_forward_chunked: {s} tokens are not a multiple of the "
@@ -183,15 +231,14 @@ def mlstm_forward_chunked(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
     g = itc - F_
     M = torch.cummax(g, dim=2).values
     btot = F_[:, :, -1, :]                             # (B, NC, H)
-    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    causal = L.replicate_like(
+        torch.ones((chunk, chunk), dtype=torch.bool, device=L.local(x).device).tril(), x)
     causal = causal[None, :, :, None]
 
-    S = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
-    n = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
-    m = torch.full((b, h), NEG_INIT, dtype=torch.float32, device=x.device)
+    S, n, m = mlstm_decode_init(cfg, b, L.local(x).device, _beside(x))
     hs = []
-    for c in range(nc):
-        qb, kb, vb, Fb, gb, Mb = qc[:, c], kc[:, c], vc[:, c], F_[:, c], g[:, c], M[:, c]
+    # the chunks by unbind, as the recurrences' steps (one stack backward)
+    for qb, kb, vb, Fb, gb, Mb, bl in zip(*(t.unbind(1) for t in (qc, kc, vc, F_, g, M, btot))):
         mx = torch.maximum(m[:, None], Mb)             # (B, Q, H)
         wmat = torch.exp(gb[:, None, :, :] - mx[:, :, None, :])
         wmat = torch.where(causal, wmat, torch.zeros_like(wmat))   # (B, Tq, Tj, H)
@@ -208,7 +255,7 @@ def mlstm_forward_chunked(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
         decay = torch.exp(m - mxl)
         S = S * decay[..., None, None] + torch.einsum("bjh,bjhk,bjhv->bhkv", wl, kb, vb)
         n = n * decay[..., None] + torch.einsum("bjh,bjhk->bhk", wl, kb)
-        m = btot[:, c] + mxl
+        m = bl + mxl
     hs = torch.stack(hs, dim=1).reshape(b, s, h, hd)
     return _mlstm_out(p, hs, og, x, shd)
 
@@ -216,7 +263,8 @@ def mlstm_forward_chunked(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
 def mlstm_decode_step(cfg: ModelConfig, p: MLSTM, x: torch.Tensor, state: MLSTMState,
                       shd: ShardingConfig = NO_SHARDING) -> Tuple[torch.Tensor, MLSTMState]:
     """x (B, 1, d) → (out (B, 1, d), the new state)."""
-    q, k, v, it, logf, og = _mlstm_qkvif(cfg, p, x)
+    p = L.Gathered(p, shd) if shd.enabled else p
+    q, k, v, it, logf, og = _mlstm_qkvif(cfg, p, x, shd)
     state, h_t = mlstm_step(state, q[:, 0].float(), k[:, 0].float(), v[:, 0].float(),
                             it[:, 0], logf[:, 0])
     return _mlstm_out(p, h_t[:, None], og, x), state
@@ -266,7 +314,7 @@ def slstm_step(p: SLSTM, state: SLSTMState, xz, xi, xf, xo):
 
     zt = torch.tanh(xz + rec("z"))
     it = xi + rec("i")                                 # log-space input gate
-    ft = F.logsigmoid(xf + rec("f"))                   # log forget gate
+    ft = _logsigmoid(xf + rec("f"))                    # log forget gate
     ot = torch.sigmoid(xo + rec("o"))
     m_new = torch.maximum(ft + state.m, it)
     i_ = torch.exp(it - m_new)
@@ -277,30 +325,49 @@ def slstm_step(p: SLSTM, state: SLSTMState, xz, xi, xf, xo):
     return SLSTMState(c, n, m_new, h_new), h_new
 
 
-def _slstm_inputs(cfg: ModelConfig, p: SLSTM, x: torch.Tensor):
-    b, s, _ = x.shape
-    h, hd = _heads(cfg)
+def _slstm_inputs(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
+                  shd: ShardingConfig = NO_SHARDING):
+    h, _ = _heads(cfg)
     xf32 = x.float()
-    return tuple(F.linear(xf32, getattr(p, f"w{g}")).reshape(b, s, h, hd) for g in GATES)
+    return tuple(L.split_heads(F.linear(xf32, getattr(p, f"w{g}")), h, shd) for g in GATES)
 
 
-def slstm_decode_init(cfg: ModelConfig, batch: int, device=None) -> SLSTMState:
+def slstm_decode_init(cfg: ModelConfig, batch: int, device=None, full=None) -> SLSTMState:
     h, hd = _heads(cfg)
-
-    def z():
-        return torch.zeros((batch, h, hd), dtype=torch.float32, device=device)
-
-    return SLSTMState(c=z(), n=z(), h=z(),
-                      m=torch.full((batch, h, hd), NEG_INIT, dtype=torch.float32,
-                                   device=device))
+    shape = (batch, h, hd)
+    return SLSTMState(c=_full(shape, 0.0, device, full), n=_full(shape, 0.0, device, full),
+                      h=_full(shape, 0.0, device, full),
+                      m=_full(shape, NEG_INIT, device, full))
 
 
-def _slstm_scan(cfg: ModelConfig, p: SLSTM, x: torch.Tensor):
-    xz, xi, xf, xo = _slstm_inputs(cfg, p, x)
-    state = slstm_decode_init(cfg, x.shape[0], x.device)
+def _slstm_scan(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
+                shd: ShardingConfig = NO_SHARDING):
+    """The sLSTM recurrence over x's sequence → (hidden states (B, S, H, hd),
+    the final state); on a mesh on each rank's piece
+    (``layers.scan_on_pieces``)."""
+    inputs = _slstm_inputs(cfg, p, x, shd)
+    weights = tuple(getattr(p, f"r{g}") for g in GATES)
+    if L.is_dtensor(x):
+        hs, *state = L.scan_on_pieces(shd, _heads(cfg)[0], _slstm_loop, inputs, weights, 4)
+        return hs, SLSTMState(*state)
+    return _slstm_loop(*inputs, *weights)
+
+
+def _slstm_loop(xz, xi, xf, xo, *r):
+    """The sLSTM recurrence over plain (B, S, H, hd) pre-activations with
+    the recurrent weights ``r`` (one (H, hd, hd) a gate) → (hidden states,
+    the final state)."""
+    b, _, h, hd = xz.shape
+    p = SimpleNamespace(**{f"r{g}": w for g, w in zip(GATES, r)})
+
+    def zeros():
+        return torch.zeros((b, h, hd), dtype=torch.float32, device=xz.device)
+
+    state = SLSTMState(c=zeros(), n=zeros(), h=zeros(),
+                       m=torch.full((b, h, hd), NEG_INIT, dtype=torch.float32, device=xz.device))
     hs = []
-    for t in range(x.shape[1]):
-        state, h_t = slstm_step(p, state, xz[:, t], xi[:, t], xf[:, t], xo[:, t])
+    for step in zip(*(t.unbind(1) for t in (xz, xi, xf, xo))):
+        state, h_t = slstm_step(p, state, *step)
         hs.append(h_t)
     return torch.stack(hs, dim=1), state
 
@@ -309,9 +376,9 @@ def slstm_forward(cfg: ModelConfig, p: SLSTM, x: torch.Tensor, return_state: boo
                   shd: ShardingConfig = NO_SHARDING):
     """x (B, S, d) → (B, S, d), and with ``return_state`` the final
     ``SLSTMState``."""
-    b, s, _ = x.shape
-    hs, state = _slstm_scan(cfg, p, x)
-    out = F.linear(hs.reshape(b, s, -1).to(x.dtype), p.w_out)
+    p = L.Gathered(p, shd) if shd.enabled else p
+    hs, state = _slstm_scan(cfg, p, x, shd)
+    out = F.linear(L.merge_heads(hs.to(x.dtype), shd), p.w_out)
     return (out, state) if return_state else out
 
 
@@ -321,7 +388,7 @@ def slstm_prefill_state(cfg: ModelConfig, p: SLSTM, x: torch.Tensor) -> SLSTMSta
 
 def slstm_decode_step(cfg: ModelConfig, p: SLSTM, x: torch.Tensor, state: SLSTMState,
                       shd: ShardingConfig = NO_SHARDING) -> Tuple[torch.Tensor, SLSTMState]:
-    b = x.shape[0]
-    xz, xi, xf, xo = _slstm_inputs(cfg, p, x)
+    p = L.Gathered(p, shd) if shd.enabled else p
+    xz, xi, xf, xo = _slstm_inputs(cfg, p, x, shd)
     state, h_t = slstm_step(p, state, xz[:, 0], xi[:, 0], xf[:, 0], xo[:, 0])
-    return F.linear(h_t.reshape(b, 1, -1).to(x.dtype), p.w_out), state
+    return F.linear(L.merge_heads(h_t[:, None].to(x.dtype), shd), p.w_out), state

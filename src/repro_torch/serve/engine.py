@@ -17,6 +17,13 @@ by the slot mask.
 * ``step``   — the decode over all slots, in place: serving holds one
                live KV cache.
 
+On a mesh (``shd`` and a ``device_mesh``; the parameters cut by
+``launch/sharded.py::shard_params``) the slot cache is placed by
+``cache_specs`` (slots over the data axes, the sequence or the KV heads
+over the model axis), ``insert`` writes a slot on the ranks that hold it,
+and the actions come back whole: every rank takes the same admission and
+release decisions and gets the same answers.
+
 Families: dense | moe, as the reference's.  Pad-then-rewind needs state
 that is purely position-indexed; vlm prompts carry patch embeddings the
 request queue does not model.  A moe prefill routes its padded bucket in
@@ -35,7 +42,8 @@ import torch
 from repro_torch.agents import token_dqn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import backbone
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.config import NO_SHARDING, ModelConfig, ShardingConfig
 from repro_torch.serve.buckets import BucketSpec
 
 SUPPORTED_FAMILIES = ("dense", "moe")
@@ -52,8 +60,9 @@ class DecodeState(NamedTuple):
 
 
 class DecodeEngine:
-    def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int,
-                 buckets: BucketSpec, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: ModelConfig, shd: ShardingConfig = NO_SHARDING, *, slots: int,
+                 max_len: int, buckets: BucketSpec, device: DeviceLike = "cuda",
+                 device_mesh=None):
         if cfg.family not in SUPPORTED_FAMILIES:
             raise ValueError(
                 f"DecodeEngine serves {SUPPORTED_FAMILIES} families only, "
@@ -65,7 +74,11 @@ class DecodeEngine:
             raise ValueError(
                 f"largest bucket edge {buckets.max_prompt_len} exceeds "
                 f"max_len={max_len}: prefill could not fit in the cache")
+        if shd.enabled and device_mesh is None:
+            raise ValueError("a sharded DecodeEngine needs the parameters' device_mesh")
         self.cfg = cfg
+        self.shd = shd
+        self.device_mesh = device_mesh if shd.enabled else None
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.buckets = buckets
@@ -78,7 +91,8 @@ class DecodeEngine:
     def init_state(self) -> DecodeState:
         return DecodeState(
             cache=backbone.init_cache(self.cfg, self.slots, self.max_len,
-                                      device=self.device),
+                                      device=self.device, shd=self.shd,
+                                      device_mesh=self.device_mesh),
             tokens=torch.zeros((self.slots, 1), dtype=torch.int64, device=self.device),
             active=torch.zeros((self.slots,), dtype=torch.bool, device=self.device))
 
@@ -107,19 +121,21 @@ class DecodeEngine:
         prompt = np.asarray(prompt, np.int32)
         padded = torch.from_numpy(self.buckets.pad(prompt)).to(self.device, torch.int64)
         self._prime_shapes.add(tuple(padded.shape))
-        logits, cache = backbone.prefill(self.cfg, params, padded, max_len=self.max_len)
+        logits, cache = backbone.prefill(self.cfg, params, padded, max_len=self.max_len,
+                                         shd=self.shd)
         true_len = prompt.shape[0]
         off = logits.shape[1] - padded.shape[1]
-        tok = torch.argmax(logits[0, off + true_len - 1], dim=-1)
-        cache["pos"].fill_(true_len)
+        last = L.shard(logits[0, off + true_len - 1], self.shd, None)   # the whole vocabulary
+        tok = torch.argmax(L.local(last), dim=-1)
+        L.local(cache["pos"]).fill_(true_len)
         return tok, cache
 
     @torch.no_grad()
     def insert(self, state: DecodeState, slot: int, slot_cache: backbone.Cache,
                tok: torch.Tensor) -> DecodeState:
         for name in ("k", "v"):
-            state.cache[name][:, slot] = slot_cache[name][:, 0]
-        state.cache["pos"][slot] = slot_cache["pos"][0]
+            backbone.write_slot(state.cache[name], slot, slot_cache[name])
+        L.local(state.cache["pos"])[slot] = L.local(slot_cache["pos"])[0]
         state.tokens[slot, 0] = tok
         state.active[slot] = True
         return state
@@ -135,7 +151,7 @@ class DecodeEngine:
         slots are frozen in place by the slot mask."""
         self._decode_shapes.add(tuple(state.tokens.shape))
         actions, cache = token_dqn.serve_step(self.cfg, params, state.cache,
-                                              state.tokens, state.active)
+                                              state.tokens, state.active, self.shd)
         state = DecodeState(cache=cache, tokens=actions.reshape(self.slots, 1),
                             active=state.active)
         return actions, state

@@ -18,6 +18,17 @@ the published ``state_dict``.
 The serve thread selects the server's CUDA device first: PyTorch's
 current device is set per thread.
 
+With ``shd`` (the reference's argument) the server runs on a mesh of
+ranks: every rank builds one ``ActorServer`` on its pieces of the
+parameters (``launch/sharded.py::shard_params``; the engine takes their
+``DeviceMesh``), is given the same requests and steps in lockstep, and
+answers them alike.  Every rank must admit the same requests and swap the
+same weights at the same step, or their collectives part ways: so such a
+server steps in the foreground only (``drain()``/``serve_step()``, with
+``submit`` and ``publish`` called between steps on every rank alike), and
+refuses ``start()`` and a ``param_source``, whose timing is each rank's
+own.  A published model must be cut the same way.
+
 Threading contract: the scheduler and engine are touched by the serve
 loop ONLY.  Cross-thread state (the submit inbox, the handle table, the
 completion log) lives behind ``self._cond``; the loop drains the inbox
@@ -37,7 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.config import NO_SHARDING, ModelConfig, ShardingConfig
 from repro_torch.serve.buckets import BucketSpec
 from repro_torch.serve.engine import DecodeEngine
 from repro_torch.serve.params import ParamDoubleBuffer, ServiceParamChannel, module_loader
@@ -85,14 +97,20 @@ class ServeHandle:
 
 class ActorServer:
     def __init__(self, cfg: ModelConfig, params: Pytree,
-                 serve_cfg: ActorServeConfig = ActorServeConfig(), *,
+                 serve_cfg: ActorServeConfig = ActorServeConfig(),
+                 shd: ShardingConfig = NO_SHARDING, *,
                  params_version: int = 1, param_source: Any = None,
                  device: DeviceLike = "cuda"):
+        if shd.enabled and param_source is not None:
+            raise ValueError("a sharded ActorServer polls no param_source: each rank "
+                             "would swap at a step of its own")
         self.cfg = cfg
         self.serve_cfg = serve_cfg
+        self.shd = shd
         self.engine = DecodeEngine(
-            cfg, slots=serve_cfg.slots, max_len=serve_cfg.max_len,
-            buckets=BucketSpec(serve_cfg.buckets), device=device)
+            cfg, shd, slots=serve_cfg.slots, max_len=serve_cfg.max_len,
+            buckets=BucketSpec(serve_cfg.buckets), device=device,
+            device_mesh=L.mesh_of(next(iter(params.parameters()))) if shd.enabled else None)
         self.device = self.engine.device
         self.scheduler = Scheduler(self.engine)
         self.params = ParamDoubleBuffer(params, version=params_version)
@@ -189,6 +207,10 @@ class ActorServer:
     def start(self) -> "ActorServer":
         if self._thread is not None:
             raise RuntimeError("ActorServer already started")
+        if self.shd.enabled:
+            raise RuntimeError("a sharded ActorServer steps in the foreground only "
+                               "(drain/serve_step): a background loop admits requests "
+                               "at a step of each rank's own")
         self._thread = threading.Thread(
             target=self._loop, name="actor-serve", daemon=True)
         self._thread.start()

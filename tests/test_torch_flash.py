@@ -75,8 +75,11 @@ def test_wrapper_refuses_bad_inputs():
         tops.flash_attention_nhsd(q, k, v, "chunked", 0)
     with pytest.raises(ValueError, match="attention must be"):
         tops.flash_attention_nhsd(q, k, v, "local")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        tops.flash_attention_nhsd(q.to("meta"), k.to("meta"), v.to("meta"))
+    # the meta device (the dry run) takes the stand-in: shapes, no values
+    o = tops.flash_attention_nhsd(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert o.device.type == "meta" and o.shape == q.shape and o.dtype == q.dtype
+    with pytest.raises(ValueError, match="attention must be"):
+        tops.flash_attention_nhsd(q.to("meta"), k.to("meta"), v.to("meta"), "local")
 
 
 def test_flash_check_rule_bites():
