@@ -10,7 +10,9 @@ failure and prints no result):
   2. build    — every CUDA kernel from src/repro_torch/kernels/csrc, and the
                 count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in
                 the SASS (cuobjdump) of each of the three Hopper flash kernels
-                (the forward, dQ and dK/dV), none of which may be 0;
+                (the forward, dQ and dK/dV), and of HMMA (mma.sync) and LDGSTS
+                (cp.async) in the backward pair of f32 and hd 16, none of
+                which may be 0;
   3. parity   — each kernel against its plain PyTorch version on the card,
                 at the main path's shapes (capacity 50,000, K=128, B=64),
                 at the Nature-DQN replay size (1,000,000, K=128, B=512),
@@ -86,11 +88,12 @@ failure and prints no result):
                 causal.
 
  11. flash bwd — the backward pair that _bwd_kernel_for picks (the Hopper dQ
-                and dK/dV kernels for bf16 at hd 64/96/128, the f32-FMA pair
-                for f32 and hd 16) against the plain backward (in f32 on the
-                same q, k, v, dO and the forward kernel's O and LSE), on all
-                of phase 7's cases (the serve and train shapes, (32, 4096,
-                128), hd 96 at S = 1000, sliding and chunked at hd 128) under
+                and dK/dV kernels for bf16 at hd 64/96/128, the mma.sync
+                pair for f32 and hd 16) against the plain backward (in f32 on
+                the same q, k, v, dO and the forward kernel's O and LSE), on
+                all of phase 7's cases (the serve and train shapes, (32, 4096,
+                128), hd 96 at S = 1000, sliding and chunked at hd 128) and the
+                wall-clock trainer's (32, 128, 16) in f32 and in bf16, under
                 parity.flash_bwd_check, one launch of each kernel of the pair
                 and none of the other, and a second call bit for bit the same;
                 and the FlashAttention Function's gradients against autograd
@@ -129,12 +132,15 @@ failure and prints no result):
                 from its saved inputs, and a step's peak memory, and its rise
                 above the resident state, against the same step with f32
                 moments, with remat and without;
- 14. bwd times — the Hopper dQ and dK/dV kernels and the f32-FMA pair at
-                (128, 256, 128) and (32, 4096, 128) bf16 causal beside their
-                bounds, their plain versions and one SDPA backward call that
-                computes all three gradients, with the TFLOP/s reached on the
-                work the bounds count (3 and 4 products a pair) and on the
-                products the kernels do (the hi/lo splits: 4 and 7);
+ 14. bwd times — the Hopper dQ and dK/dV kernels at (128, 256, 128) and
+                (32, 4096, 128) bf16 causal beside their bounds, their plain
+                versions and one SDPA backward call that computes all three
+                gradients, with the TFLOP/s reached on the work the bounds
+                count (3 and 4 products a pair) and on the products the
+                kernels do (the hi/lo splits: 4 and 7); the mma.sync pair
+                (#6b, #7b) the same way at (128, 256, 128) f32 causal, its
+                bound at the 3xTF32 rate (165 TFLOP/s) and at the FMA rate
+                (67) beside it, and in bf16 at (128, 256, 128);
  15. restart  — tests/test_system.py's checkpoint restart on the card:
                 CartPole x 4, DQN, capacity 1,024 K=8, batch 32, 30
                 iterations; the agent's state saved, clobbered with NaN and
@@ -412,6 +418,7 @@ HERE = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+TF32X3_OPS_PER_S = 165e12      # f32-accurate products on its tensor cores: 3xTF32, 495 / 3
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 SEED = 0
 N_TIMED = 30            # 60 until the audio phase (25) needed the time
@@ -446,6 +453,13 @@ FLASH_SM90_CASES = [
     (64, 1536, 64, "full", 0, False, True, "bfloat16"),
     (3, 1000, 64, "full", 0, False, True, "bfloat16"),
     (128, 128, 64, "full", 0, True, True, "bfloat16")]
+
+
+# phase 11's further backward cases, of the pair that f32 and hd 16 take
+# (#6b, #7b): the wall-clock trainer's (32, 128, 16) f32 (phase 20(e)) and
+# 26(c)'s route, the same shape in bf16
+FLASH_PAIR_CASES = [(32, 128, 16, "full", 0, True, True, "float32"),
+                    (32, 128, 16, "full", 0, True, True, "bfloat16")]
 
 
 def fail(msg: str) -> None:
@@ -1190,9 +1204,73 @@ def unwritten_saves(written_from=None):
         CheckpointManager.save, CheckpointManager.save_async = real, real_async
 
 
-def train_phases(torch, dev, card: str) -> list:
+def flash_bwd_case(torch, randn, case: tuple, per_kernel: dict) -> None:
+    """One of phase 11's backward cases, ``(n, s, hd, attention, window,
+    causal, is_global, dtype)``: the pair that ``_bwd_kernel_for`` picks
+    against the plain backward in f32 on the same q, k, v, dO and the
+    forward kernel's O and LSE (``parity.flash_bwd_check``), one launch of
+    each of its kernels and none of the other pair, and a second call bit
+    for bit the same.  ``randn(n, s, hd, dtype)`` makes the inputs; each
+    kernel's worst error (dQ's own, dK/dV's over dK and dV) and its count of
+    cases go into ``per_kernel[name]``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, parity
+
+    bwd_names = (fa.DQ_SM90_NAME, fa.DKV_SM90_NAME, fa.DQ_NAME, fa.DKV_NAME)
+    n, s, hd, attn, win, causal, glob, dt = case
+    dt = getattr(torch, dt)
+    q, k, v, do = (randn(n, s, hd, dt) for _ in range(4))
+    o, lse = fa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
+    chosen = fa._bwd_kernel_for(dt, hd)
+    before = dict(ops.launch_counts)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
+    launched = {name: ops.launch_counts[name] - before.get(name, 0) for name in bwd_names}
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                       do.float(), attn, win, causal, glob)
+    torch.cuda.synchronize()
+    rep = parity.flash_bwd_check(*got, *ref)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    case = f"({n}, {s}, {hd}) {attn} window {win} causal={causal} global={glob} {dt}"
+    check(all(t.dtype == dt for t in got) and rep.ok,
+          f"flash backward {chosen} at {case}: {rep}")
+    check(launched == {name: int(name in chosen) for name in bwd_names},
+          f"flash backward at {case} launched {launched}, expected one each of {chosen}")
+    check(same, f"flash backward {chosen} at {case}: a second call gave other gradients")
+    for kern, grads in ((chosen[0], ("dq",)), (chosen[1], ("dk", "dv"))):
+        e = per_kernel.setdefault(kern, {"max_abs_err": 0.0, "bf16_max_ulps_beyond_atol": 0.0,
+                                         "f32_max_abs_err": 0.0, "bf16_max_abs_err": 0.0,
+                                         "cases": 0})
+        for g in grads:
+            worst, ulps = rep.per[g]
+            e["max_abs_err"] = max(e["max_abs_err"], worst)
+            key = "f32_max_abs_err" if dt == torch.float32 else "bf16_max_abs_err"
+            e[key] = max(e[key], worst)
+            e["bf16_max_ulps_beyond_atol"] = max(e["bf16_max_ulps_beyond_atol"], ulps)
+        e["cases"] += 1
+
+
+def pair_parity(torch, dev) -> dict:
+    """Phase 11's cases that go to #6b and #7b (f32, and hd 16), through
+    ``flash_bwd_case`` → per kernel its worst errors and its cases."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def randn(n, s, hd, dtype):
+        return (torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(dtype)
+
+    per_kernel = {}
+    for case in FLASH_CASES + FLASH_PAIR_CASES:
+        if fa._bwd_kernel_for(getattr(torch, case[-1]), case[2])[0] == fa.DQ_NAME:
+            flash_bwd_case(torch, randn, case, per_kernel)
+    return per_kernel
+
+
+def train_phases(torch, dev, card: str, settle=None) -> list:
     """Phases 11-14 → the dQ and dK/dV kernels' entries of the kernels line
-    and the training path's launch counts."""
+    and the training path's launch counts.  ``settle``, where given, is
+    called before phase 14's times: it waits for what ran beside 11-13."""
     import dataclasses
     import gc
     import shutil
@@ -1206,7 +1284,7 @@ def train_phases(torch, dev, card: str) -> list:
     from repro_torch.configs import get_config
     from repro_torch.core import sumtree
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, parity
+    from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.models import backbone
 
@@ -1223,39 +1301,10 @@ def train_phases(torch, dev, card: str) -> list:
     # kernel's O and LSE; the plain backward in f32 on the same inputs.  Each
     # case goes to the pair _bwd_kernel_for picks, and a second call must give
     # the same gradients bit for bit
-    bwd_cases = FLASH_CASES + FLASH_SM90_CASES
-    bwd_names = (fa.DQ_SM90_NAME, fa.DKV_SM90_NAME, fa.DQ_NAME, fa.DKV_NAME)
-    # each kernel's worst case: dQ's own, dK/dV's over dK and dV
-    per_kernel = {name: {"max_abs_err": 0.0, "bf16_max_ulps_beyond_atol": 0.0, "cases": 0}
-                  for name in bwd_names}
-    for n, s, hd, attn, win, causal, glob, dt in bwd_cases:
-        dt = getattr(torch, dt)
-        q, k, v, do = (randn(n, s, hd, dt) for _ in range(4))
-        o, lse = fa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
-        chosen = fa._bwd_kernel_for(dt, hd)
-        before = dict(ops.launch_counts)
-        got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
-        launched = {name: ops.launch_counts[name] - before.get(name, 0) for name in bwd_names}
-        again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
-        ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
-                                           do.float(), attn, win, causal, glob)
-        torch.cuda.synchronize()
-        rep = parity.flash_bwd_check(*got, *ref)
-        same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
-        case = (f"({n}, {s}, {hd}) {attn} window {win} causal={causal} global={glob} {dt}")
-        check(all(t.dtype == dt for t in got) and rep.ok,
-              f"flash backward {chosen} at {case}: {rep}")
-        check(launched == {name: int(name in chosen) for name in bwd_names},
-              f"flash backward at {case} launched {launched}, expected one each of {chosen}")
-        check(same, f"flash backward {chosen} at {case}: a second call gave other gradients")
-        for kern, grads in ((chosen[0], ("dq",)), (chosen[1], ("dk", "dv"))):
-            e = per_kernel[kern]
-            for g in grads:
-                worst, ulps = rep.per[g]
-                e["max_abs_err"] = max(e["max_abs_err"], worst)
-                e["bf16_max_ulps_beyond_atol"] = max(e["bf16_max_ulps_beyond_atol"], ulps)
-            e["cases"] += 1
-        del q, k, v, do, o, lse, got, again, ref
+    bwd_cases = FLASH_CASES + FLASH_SM90_CASES + FLASH_PAIR_CASES
+    per_kernel = {}
+    for case in bwd_cases:
+        flash_bwd_case(torch, randn, case, per_kernel)
     torch.cuda.empty_cache()
     fn_err = 0.0
     for attn, win, causal, glob in (("full", 0, True, True), ("sliding", 64, True, False),
@@ -1270,13 +1319,17 @@ def train_phases(torch, dev, card: str) -> list:
                   f"FlashAttention gradients vs autograd through the plain forward ({attn})")
             fn_err = max(fn_err, float((a - b).abs().max()))
     sm90e, f32e = per_kernel[fa.DKV_SM90_NAME], per_kernel[fa.DKV_NAME]
+    sm90q, f32q = per_kernel[fa.DQ_SM90_NAME], per_kernel[fa.DQ_NAME]
     print(f"[flash bwd parity] {len(bwd_cases)} cases: dQ, dK, dV agree with the plain backward, "
           f"a second call bit for bit: the Hopper pair {sm90e['cases']} cases (bf16 max |err| dQ "
-          f"{per_kernel[fa.DQ_SM90_NAME]['max_abs_err']:.3g}, dK/dV {sm90e['max_abs_err']:.3g}, "
-          f"at most {max(sm90e['bf16_max_ulps_beyond_atol'], per_kernel[fa.DQ_SM90_NAME]['bf16_max_ulps_beyond_atol']):.3f} "
-          f"bf16 ulp beyond atol 2e-5; 1 allowed); the f32 pair {f32e['cases']} cases (f32 max "
-          f"|err| dQ {per_kernel[fa.DQ_NAME]['max_abs_err']:.3g}, dK/dV {f32e['max_abs_err']:.3g}, "
-          f"atol 2e-5 + rtol 1e-3); FlashAttention's gradients vs autograd through the plain "
+          f"{sm90q['max_abs_err']:.3g}, dK/dV {sm90e['max_abs_err']:.3g}, at most "
+          f"{max(sm90e['bf16_max_ulps_beyond_atol'], sm90q['bf16_max_ulps_beyond_atol']):.3f} "
+          f"bf16 ulp beyond atol 2e-5; 1 allowed); the tensor-core pair of f32 and hd 16 "
+          f"{f32e['cases']} cases (f32 max |err| dQ {f32q['f32_max_abs_err']:.3g}, dK/dV "
+          f"{f32e['f32_max_abs_err']:.3g}, atol 2e-5 + rtol 1e-3; bf16 at hd 16 max |err| dQ "
+          f"{f32q['bf16_max_abs_err']:.3g}, dK/dV {f32e['bf16_max_abs_err']:.3g}, at most "
+          f"{max(f32e['bf16_max_ulps_beyond_atol'], f32q['bf16_max_ulps_beyond_atol']):.3f} "
+          f"bf16 ulp beyond atol 2e-5); FlashAttention's gradients vs autograd through the plain "
           f"forward, 3 masks at (3, 200, 64) f32: max |err| {fn_err:.3g}", flush=True)
 
     clock("12 (grad gate)")
@@ -1520,10 +1573,18 @@ def train_phases(torch, dev, card: str) -> list:
     moments = bf16_moments_phase(torch, dev, card, cfg, train_peak)
     print(f"[bf16 moments rate] {json.dumps(moments)}", flush=True)
 
+    if settle:
+        t0 = time.perf_counter()
+        settle()
+        print(f"[beside 11-13] waited {time.perf_counter() - t0:.1f} s for 17's and 18's ranks",
+              flush=True)
     clock("14 (backward times)")
     # 14. the backward kernels' times beside their bounds, their plain
-    # versions and one SDPA backward call; the f32-FMA pair is the Hopper
-    # pair's earlier version, timed on the same bf16 inputs
+    # versions and one SDPA backward call: the Hopper pair in bf16 at
+    # (128, 256, 128) and (32, 4096, 128); the tensor-core pair that f32 and
+    # hd 16 take (#6b, #7b) in f32 at (128, 256, 128), its own type, with the
+    # bound at the 3xTF32 rate and at the FMA rate beside it, and in bf16 at
+    # the same shape
     times = {}
     for n, s in ((128, 256), (32, 4096)):
         q, k, v, do = (randn(n, s, 128, torch.bfloat16) for _ in range(4))
@@ -1544,8 +1605,6 @@ def train_phases(torch, dev, card: str) -> list:
                               dq_bound, 3, 4),
             fa.DKV_SM90_NAME: (lambda: fa.flash_attention_dkv_sm90_cuda(*args), dkv_plain,
                                dkv_bound, 4, 7),
-            fa.DQ_NAME: (lambda: fa.flash_attention_dq_cuda(*args), dq_plain, dq_bound, 3, 3),
-            fa.DKV_NAME: (lambda: fa.flash_attention_dkv_cuda(*args), dkv_plain, dkv_bound, 4, 4),
         }
         for name, (kern, plain_ms, (b_ms, b_by), work, done) in calls.items():
             ms = device_ms(torch, kern)
@@ -1565,18 +1624,32 @@ def train_phases(torch, dev, card: str) -> list:
                   f"{backend} backward (all three gradients) {lib_ms * 1e3:.1f} us | {card}",
                   flush=True)
         new = times[fa.DQ_SM90_NAME][s]["ms"] + times[fa.DKV_SM90_NAME][s]["ms"]
-        old = times[fa.DQ_NAME][s]["ms"] + times[fa.DKV_NAME][s]["ms"]
-        print(f"[times] backward pair ({n}, {s}, 128) bf16 causal: Hopper {new * 1e3:.1f} us, f32 "
-              f"pair {old * 1e3:.1f} us ({old / new:.2f}x), one SDPA backward "
-              f"{lib_ms * 1e3:.1f} us ({new / lib_ms:.2f}x of it) | {card}", flush=True)
+        print(f"[times] Hopper backward pair ({n}, {s}, 128) bf16 causal: {new * 1e3:.1f} us, "
+              f"one SDPA backward {lib_ms * 1e3:.1f} us ({new / lib_ms:.2f}x of it) | {card}",
+              flush=True)
         del q, k, v, do, o, lse, delta, lib, args
         torch.cuda.empty_cache()
+    pair = {"f32": f32_pair_times(torch, dev, 128, 256, 128),
+            "bf16": f32_pair_times(torch, dev, 128, 256, 128, torch.bfloat16)}
+    for label, by_name in pair.items():
+        for name, t in by_name.items():
+            fma = (f", at the FMA rate {t['bound_fma_ms'] * 1e3:.2f} us by {t['bound_fma_by']}"
+                   if "bound_fma_ms" in t else "")
+            print(f"[times] {name} {t['shape']}: device {t['ms'] * 1e3:.1f} us (plain "
+                  f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} us by "
+                  f"{t['bound_by']}{fma}, call {t['call_ms'] * 1e3:.1f} us; "
+                  f"{t['tflops']:.1f} TFLOP/s of the work); {t['library']} "
+                  f"{t['library_ms'] * 1e3:.1f} us | {card}", flush=True)
+        both = sum(t["ms"] for t in by_name.values())
+        lib_ms = next(iter(by_name.values()))["library_ms"]
+        print(f"[times] tensor-core pair of f32 and hd 16, {t['shape']}: {both * 1e3:.1f} us, "
+              f"one SDPA backward {lib_ms * 1e3:.1f} us ({both / lib_ms:.2f}x of it) | {card}",
+              flush=True)
     entries = []
-    for name, line, path, earlier in (
-            (fa.DQ_SM90_NAME, 237, "train", fa.DQ_NAME),
-            (fa.DKV_SM90_NAME, 255, "train", fa.DKV_NAME),
-            (fa.DQ_NAME, 237, "none (f32 and hd 16 only)", None),
-            (fa.DKV_NAME, 255, "none (f32 and hd 16 only)", None)):
+    for name, line, path in (
+            (fa.DQ_SM90_NAME, 237, "train"), (fa.DKV_SM90_NAME, 255, "train"),
+            (fa.DQ_NAME, 237, "the wall-clock trainer (f32 at hd 16), 26(c) (hd 16)"),
+            (fa.DKV_NAME, 255, "the wall-clock trainer (f32 at hd 16), 26(c) (hd 16)")):
         e = per_kernel[name]
         entry = {
             "name": name, "route": "cuda",
@@ -1584,14 +1657,14 @@ def train_phases(torch, dev, card: str) -> list:
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
             "launches": train_counts.get(name, 0), "path": path,
             "launches_per_train_step": train_counts.get(name, 0) / steps,
-            "max_abs_err": e["max_abs_err"], "parity_cases": e["cases"], **times[name][256],
-            "shape": "(128, 256, 128) bf16 causal", "at_32x4096": times[name][4096]}
-        if earlier is None:
-            entry["max_abs_err_dtype"] = "f32"
+            "max_abs_err": e["max_abs_err"], "parity_cases": e["cases"],
+            "bf16_max_ulps_beyond_atol": e["bf16_max_ulps_beyond_atol"]}
+        if name in times:
+            entry.update(times[name][256], shape="(128, 256, 128) bf16 causal",
+                         at_32x4096=times[name][4096])
         else:
-            entry["bf16_max_ulps_beyond_atol"] = e["bf16_max_ulps_beyond_atol"]
-            entry["earlier"] = {"name": earlier, "ms": times[earlier][256]["ms"],
-                                "at_32x4096_ms": times[earlier][4096]["ms"]}
+            entry.update(pair["f32"][name], f32_max_abs_err=e["f32_max_abs_err"],
+                         bf16_max_abs_err=e["bf16_max_abs_err"], at_bf16=pair["bf16"][name])
         entries.append(entry)
     return entries, train_counts
 
@@ -2135,15 +2208,22 @@ def _actor_critic_rank(rank: int, card: str, iterations: int) -> dict:
     return actor_critic_run(torch, torch.device("cuda", 0), card, AC_AGENTS[rank], iterations)
 
 
-def actor_critic_phase(torch, dev, card: str, iterations: int = PENDULUM_ITERS) -> dict:
-    """Phase 17: DDPG, TD3 and SAC on Pendulum, each in a process of its own
-    on this card, the three at once (their loops are host-bound: one after
-    the other they took 80-122 s); then the sampling chain on Pendulum's
-    five leaves in this process."""
+def actor_critic_ranks(card: str, iterations: int = PENDULUM_ITERS) -> list:
+    """17's three agents, each in a process of its own on this card, the
+    three at once (their loops are host-bound: one after the other they
+    took 80-122 s) → each rank's result.  They touch nothing of this
+    process but the card, so ``main`` runs them beside phases 11-13."""
     from repro_torch.launch import mesh as meshlib
 
-    runs = meshlib.spawn(_actor_critic_rank, len(AC_AGENTS), card, iterations,
+    return meshlib.spawn(_actor_critic_rank, len(AC_AGENTS), card, iterations,
                          backend="gloo", device="cuda:0", timeout_s=600)
+
+
+def actor_critic_phase(torch, dev, card: str, runs=None) -> dict:
+    """Phase 17: DDPG, TD3 and SAC on Pendulum (``runs``: what
+    ``actor_critic_ranks`` returned, or None to run them here); then the
+    sampling chain on Pendulum's five leaves in this process."""
+    runs = runs or actor_critic_ranks(card)
     out = dict(zip(AC_AGENTS, runs))
     gen = torch.Generator(device=dev).manual_seed(SEED + 17)
     chain = sampling_chain(torch, dev, gen, 50_000, 64,
@@ -2392,136 +2472,153 @@ def _elastic_world(rank: int, ckpt_in: str, ckpt_out) -> dict:
     return out
 
 
-def sharded_phase(torch, dev, card: str) -> dict:
-    """Phase 18: the sharded runtime with its shards as ranks of
-    torch.distributed on the one card (launch/mesh.py::spawn); every
-    kernel is built before the first rank starts."""
+def sharded_world4() -> list:
+    """18(c)'s four ranks → their results."""
+    from repro_torch.launch import mesh as meshlib
+
+    return meshlib.spawn(_sharded_world4, 4, backend="gloo", device="cuda:0", timeout_s=900)
+
+
+def sharded_ranks(c_run=None) -> dict:
+    """18's worlds on the card (launch/mesh.py::spawn) → each one's ranks'
+    results: (b) world 2 over gloo, then (d) from its checkpoint; beside
+    them (a), and (c) unless ``c_run``, a future of ``sharded_world4``'s
+    ranks, is given.  They touch nothing of this process but the card, so
+    ``main`` runs them beside phases 11-13."""
     import shutil
     import tempfile
 
     from repro_torch.launch import mesh as meshlib
 
-    torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
-    res = {}
     ckpt2 = tempfile.mkdtemp(prefix="chip_smoke_world2_")
     ckpt1 = tempfile.mkdtemp(prefix="chip_smoke_world1_")
     try:
-        # (b) world 2 over gloo, both ranks on the one card
-        b = meshlib.spawn(_sharded_world2, 2, ckpt2, backend="gloo", device="cuda:0",
-                          timeout_s=900)
-        t = b[0]["transport"]
-        check(t["all_reduce"] == [3.0] * 4 and t["broadcast"] == [1.0] * 4
-              and t["device"].startswith("cuda"),
-              f"18(b) gloo on CUDA tensors: all_reduce {t['all_reduce']}, broadcast "
-              f"{t['broadcast']}")
-        print(f"[sharded b] transport: gloo all_reduce and broadcast on CUDA tensors "
-              f"({t['device']}), staged through host memory by gloo itself; no pinned "
-              f"host buffers of ours | {card}", flush=True)
-        for r in b:
-            check(not r["2x1"]["metrics"] and not r["2x1"]["state"] and r["2x1"]["learn_steps"] > 0,
-                  f"18(b) pod_data_mesh(2, 1) is not data_mesh(2) bit for bit: {r['2x1']}")
-        for rank, r in enumerate(b):
-            calls = r["learner_calls"]
-            check(r["launches"].get("sumtree_sample", 0) == r["launches"].get("gather", 0)
-                  == calls > 0 and not r["launches"].get("sample_gather")
-                  and not r["launches"].get("sumtree_update"),
-                  f"18(b) rank {rank}: launches {r['launches']} for {calls} learner calls")
-            check(r["finite"] and r["invariant"], f"18(b) rank {rank}: a non-finite loss or a "
-                  "broken tree")
-            check(not r["not_replicated"], f"18(b) rank {rank}: {r['not_replicated'][:4]} "
-                  "differ from rank 0's")
-            for p in r["parity"]:
-                check(p["ok"] and p["rows"], f"18(b) rank {rank}: #1/#2 against their plain "
-                      f"versions on the shard's tree, {p['draws']} draws: {p['report']}, rows "
-                      f"{p['rows']}")
-        ret = b[0]["return_"]
-        check(ret > 30.0, f"18(b) return {ret} does not beat 30")
-        secs = b[0]["seconds"]
-        prof = b[0]["profile"]
-        print(f"[sharded b] world 2 over gloo on cuda:0, 2 shards x 4 envs, capacity 10,000 "
-              f"a shard K=128, batch 32 a shard: {SHARDED_ITERS} iterations in {secs:.2f} s "
-              f"({SHARDED_ITERS / secs:.2f} iterations/s, {secs / SHARDED_ITERS * 1e6:,.0f} us "
-              f"each), return {ret:.1f}, learner calls {b[0]['learner_calls']} a shard, "
-              f"launches {[r['launches'] for r in b]}; parameters, target, Adam state and "
-              f"step byte-identical on both ranks; #1/#2 against their plain versions on each "
-              f"shard's tree ({[[p['flips'] for p in r['parity']] for r in b]} flips, within "
-              f"the rule); pod_data_mesh(2, 1) = data_mesh(2) bit for bit over 40 iterations; "
-              f"no no-sync gate: gloo stages each collective through the host | {card}",
-              flush=True)
-        print(profile_line("sharded world 2, rank 0", prof), flush=True)
-        res["b"] = b
-        # (c) world 4 over gloo as 2×2 pod×data
-        c = meshlib.spawn(_sharded_world4, 4, backend="gloo", device="cuda:0", timeout_s=900)
-        for name in ("sharded", "async"):
-            for rank, r in enumerate(c):
-                chunks = r[name]["chunks"]
-                learning = [ch for ch in chunks if ch["learns"] > 0]
-                check(learning and all(math.isfinite(ch["loss"]) for ch in chunks),
-                      f"18(c) {name} rank {rank}: {chunks}")
-                check(all(ch["err_norm"] > 0 for ch in learning),
-                      f"18(c) {name} rank {rank}: compress_error_norm 0 after learning began")
-                norms = [ch["ef_norm"] for ch in learning]
-                check(all(x != y for x, y in zip(norms, norms[1:])),
-                      f"18(c) {name} rank {rank}: the EF buffer's norm did not change "
-                      f"between chunks: {norms}")
-                check(not r[name]["not_replicated"],
-                      f"18(c) {name} rank {rank}: {r[name]['not_replicated'][:4]} differ")
-            rank0 = c[0][name]
-            print(f"[sharded c] world 4 over gloo, 2x2 pod x data, {name}: int8-EF across "
-                  f"pods, bf16 inside, {POD_ITERS} iterations in {rank0['seconds']:.2f} s; "
-                  f"finite losses; rank 0's compress_error_norm "
-                  f"{[round(ch['err_norm'], 6) for ch in rank0['chunks']]} and EF norm "
-                  f"{[round(ch['ef_norm'], 6) for ch in rank0['chunks']]}, a chunk each; "
-                  f"replicated state byte-identical on the 4 ranks | {card}", flush=True)
-        ages = [r["async"]["ages"][-1] for r in c]
-        check(len(set(ages)) > 1 and all(a < 3 for a in ages),
-              f"18(c) async: the shards' ages {ages} are not staggered under 3")
-        print(f"[sharded c] async at publish interval 3, max staleness 1: the shards' ages "
-              f"at the end {ages} | {card}", flush=True)
-        res["c"] = c
-        # (d) elastic: world 2's learner state at world 1, world 1's at world 2;
-        # beside it (a), world 1 over NCCL (neither is timed, and (a) needs
-        # nothing of the others: one spawn's wait saved)
-        with ThreadPoolExecutor(1) as pool:
+        with ThreadPoolExecutor(2) as pool:
+            c_run = c_run or pool.submit(sharded_world4)
             a_run = pool.submit(meshlib.spawn, _sharded_world1, 1, backend="nccl",
                                 device="cuda:0", timeout_s=600)
+            b = meshlib.spawn(_sharded_world2, 2, ckpt2, backend="gloo", device="cuda:0",
+                              timeout_s=900)
+            # (d) elastic: world 2's learner state at world 1, world 1's at world 2
             d1 = meshlib.spawn(_elastic_world, 1, ckpt2, ckpt1, backend="nccl",
                                device="cuda:0", timeout_s=600)
             d2 = meshlib.spawn(_elastic_world, 2, ckpt1, None, backend="gloo",
                                device="cuda:0", timeout_s=600)
-            a = a_run.result()[0]
-        for where, rs, want in (("world 2 -> 1", d1, SHARDED_ITERS + 20),
-                                ("world 1 -> 2", d2, SHARDED_ITERS + 21)):
-            for rank, r in enumerate(rs):
-                check(r["step"] == want and not r["differing"] and math.isfinite(r["loss"]),
-                      f"18(d) {where} rank {rank}: step {r['step']} (want {want}), not bit for "
-                      f"bit {r['differing'][:4]}, loss {r['loss']}")
-        print(f"[sharded d] elastic: world 2's learner state restored at world 1 (NCCL) and "
-              f"world 1's at world 2 (gloo), {d1[0]['tensors']} tensors (parameters, target, "
-              f"Adam count and moments, step) bit for bit on every rank; after the replay "
-              f"refilled, one more step's loss {d1[0]['loss']:.6g} / {d2[0]['loss']:.6g} | {card}",
-              flush=True)
-        res["d"] = {"world1": d1, "world2": d2}
-        for name in ("data_mesh(1)", "pod_data_mesh(1, 1)"):
-            r = a[name]
-            check(not r["metrics"] and not r["state"] and r["learn_steps"] > 0,
-                  f"18(a) ShardedExecutor({name}) is not FusedExecutor bit for bit: metrics "
-                  f"{r['metrics']}, state {r['state'][:4]}, learner calls {r['learn_steps']}")
-        check(a["sync"] is None
-              and a["learn_steps_after"] > a["pod_data_mesh(1, 1)"]["learn_steps"],
-              f"18(a) a sharded step over NCCL synchronized with the host: {a['sync']}")
-        print(f"[sharded a] world 1 over {a['backend']}: ShardedExecutor on data_mesh(1) and on "
-              f"pod_data_mesh(1, 1) against FusedExecutor, 40 iterations from seed 7 (4 envs, "
-              f"capacity 1,024 K=8, batch 32): {a['data_mesh(1)']['n_metrics']} metrics and "
-              f"{a['data_mesh(1)']['n_state']} state tensors bit for bit; three more steps with "
-              f"learning under set_sync_debug_mode('error'): no host sync | {card}", flush=True)
-        res["a"] = a
+            return {"a": a_run.result()[0], "b": b, "c": c_run.result(), "d1": d1, "d2": d2}
     finally:
         shutil.rmtree(ckpt2, ignore_errors=True)
         shutil.rmtree(ckpt1, ignore_errors=True)
+
+
+def sharded_phase(torch, dev, card: str, ranks=None) -> dict:
+    """Phase 18: the sharded runtime with its shards as ranks of
+    torch.distributed on the one card (``ranks``: what ``sharded_ranks``
+    returned, or None to run them here); every kernel is built before the
+    first rank starts."""
+    t_phase = time.perf_counter()
+    res = {}
+    r = ranks or sharded_ranks()
+    a, b, c, d1, d2 = (r[k] for k in ("a", "b", "c", "d1", "d2"))
+    t = b[0]["transport"]
+    check(t["all_reduce"] == [3.0] * 4 and t["broadcast"] == [1.0] * 4
+          and t["device"].startswith("cuda"),
+          f"18(b) gloo on CUDA tensors: all_reduce {t['all_reduce']}, broadcast "
+          f"{t['broadcast']}")
+    print(f"[sharded b] transport: gloo all_reduce and broadcast on CUDA tensors "
+          f"({t['device']}), staged through host memory by gloo itself; no pinned "
+          f"host buffers of ours | {card}", flush=True)
+    for r in b:
+        check(not r["2x1"]["metrics"] and not r["2x1"]["state"] and r["2x1"]["learn_steps"] > 0,
+              f"18(b) pod_data_mesh(2, 1) is not data_mesh(2) bit for bit: {r['2x1']}")
+    for rank, r in enumerate(b):
+        calls = r["learner_calls"]
+        check(r["launches"].get("sumtree_sample", 0) == r["launches"].get("gather", 0)
+              == calls > 0 and not r["launches"].get("sample_gather")
+              and not r["launches"].get("sumtree_update"),
+              f"18(b) rank {rank}: launches {r['launches']} for {calls} learner calls")
+        check(r["finite"] and r["invariant"], f"18(b) rank {rank}: a non-finite loss or a "
+              "broken tree")
+        check(not r["not_replicated"], f"18(b) rank {rank}: {r['not_replicated'][:4]} "
+              "differ from rank 0's")
+        for p in r["parity"]:
+            check(p["ok"] and p["rows"], f"18(b) rank {rank}: #1/#2 against their plain "
+                  f"versions on the shard's tree, {p['draws']} draws: {p['report']}, rows "
+                  f"{p['rows']}")
+    ret = b[0]["return_"]
+    check(ret > 30.0, f"18(b) return {ret} does not beat 30")
+    secs = b[0]["seconds"]
+    prof = b[0]["profile"]
+    print(f"[sharded b] world 2 over gloo on cuda:0, 2 shards x 4 envs, capacity 10,000 "
+          f"a shard K=128, batch 32 a shard: {SHARDED_ITERS} iterations in {secs:.2f} s "
+          f"beside phases 11-13 and 17's, 18(a)'s and (c)'s ranks ({SHARDED_ITERS / secs:.2f} "
+          f"iterations/s, {secs / SHARDED_ITERS * 1e6:,.0f} us "
+          f"each), return {ret:.1f}, learner calls {b[0]['learner_calls']} a shard, "
+          f"launches {[r['launches'] for r in b]}; parameters, target, Adam state and "
+          f"step byte-identical on both ranks; #1/#2 against their plain versions on each "
+          f"shard's tree ({[[p['flips'] for p in r['parity']] for r in b]} flips, within "
+          f"the rule); pod_data_mesh(2, 1) = data_mesh(2) bit for bit over 40 iterations; "
+          f"no no-sync gate: gloo stages each collective through the host | {card}",
+          flush=True)
+    print(profile_line("sharded world 2, rank 0", prof), flush=True)
+    res["b"] = b
+    # (c) world 4 over gloo as 2×2 pod×data
+    for name in ("sharded", "async"):
+        for rank, r in enumerate(c):
+            chunks = r[name]["chunks"]
+            learning = [ch for ch in chunks if ch["learns"] > 0]
+            check(learning and all(math.isfinite(ch["loss"]) for ch in chunks),
+                  f"18(c) {name} rank {rank}: {chunks}")
+            check(all(ch["err_norm"] > 0 for ch in learning),
+                  f"18(c) {name} rank {rank}: compress_error_norm 0 after learning began")
+            norms = [ch["ef_norm"] for ch in learning]
+            check(all(x != y for x, y in zip(norms, norms[1:])),
+                  f"18(c) {name} rank {rank}: the EF buffer's norm did not change "
+                  f"between chunks: {norms}")
+            check(not r[name]["not_replicated"],
+                  f"18(c) {name} rank {rank}: {r[name]['not_replicated'][:4]} differ")
+        rank0 = c[0][name]
+        print(f"[sharded c] world 4 over gloo, 2x2 pod x data, {name}: int8-EF across "
+              f"pods, bf16 inside, {POD_ITERS} iterations in {rank0['seconds']:.2f} s beside "
+              f"phases 11-13 and 18(a), (b) and (d); "
+              f"finite losses; rank 0's compress_error_norm "
+              f"{[round(ch['err_norm'], 6) for ch in rank0['chunks']]} and EF norm "
+              f"{[round(ch['ef_norm'], 6) for ch in rank0['chunks']]}, a chunk each; "
+              f"replicated state byte-identical on the 4 ranks | {card}", flush=True)
+    ages = [r["async"]["ages"][-1] for r in c]
+    check(len(set(ages)) > 1 and all(a < 3 for a in ages),
+          f"18(c) async: the shards' ages {ages} are not staggered under 3")
+    print(f"[sharded c] async at publish interval 3, max staleness 1: the shards' ages "
+          f"at the end {ages} | {card}", flush=True)
+    res["c"] = c
+    # (d) elastic
+    for where, rs, want in (("world 2 -> 1", d1, SHARDED_ITERS + 20),
+                            ("world 1 -> 2", d2, SHARDED_ITERS + 21)):
+        for rank, r in enumerate(rs):
+            check(r["step"] == want and not r["differing"] and math.isfinite(r["loss"]),
+                  f"18(d) {where} rank {rank}: step {r['step']} (want {want}), not bit for "
+                  f"bit {r['differing'][:4]}, loss {r['loss']}")
+    print(f"[sharded d] elastic: world 2's learner state restored at world 1 (NCCL) and "
+          f"world 1's at world 2 (gloo), {d1[0]['tensors']} tensors (parameters, target, "
+          f"Adam count and moments, step) bit for bit on every rank; after the replay "
+          f"refilled, one more step's loss {d1[0]['loss']:.6g} / {d2[0]['loss']:.6g} | {card}",
+          flush=True)
+    res["d"] = {"world1": d1, "world2": d2}
+    for name in ("data_mesh(1)", "pod_data_mesh(1, 1)"):
+        r = a[name]
+        check(not r["metrics"] and not r["state"] and r["learn_steps"] > 0,
+              f"18(a) ShardedExecutor({name}) is not FusedExecutor bit for bit: metrics "
+              f"{r['metrics']}, state {r['state'][:4]}, learner calls {r['learn_steps']}")
+    check(a["sync"] is None
+          and a["learn_steps_after"] > a["pod_data_mesh(1, 1)"]["learn_steps"],
+          f"18(a) a sharded step over NCCL synchronized with the host: {a['sync']}")
+    print(f"[sharded a] world 1 over {a['backend']}: ShardedExecutor on data_mesh(1) and on "
+          f"pod_data_mesh(1, 1) against FusedExecutor, 40 iterations from seed 7 (4 envs, "
+          f"capacity 1,024 K=8, batch 32): {a['data_mesh(1)']['n_metrics']} metrics and "
+          f"{a['data_mesh(1)']['n_state']} state tensors bit for bit; three more steps with "
+          f"learning under set_sync_debug_mode('error'): no host sync | {card}", flush=True)
+    res["a"] = a
     res["seconds"] = time.perf_counter() - t_phase
-    print(f"[sharded] phase 18 in {res['seconds']:.1f} s", flush=True)
+    print(f"[sharded] phase 18 in {res['seconds']:.1f} s after its ranks", flush=True)
     print(f"[sharded rate] {json.dumps({'iterations': SHARDED_ITERS, 'seconds': secs, 'iterations_per_s': SHARDED_ITERS / secs, 'wall_us_per_iteration': secs / SHARDED_ITERS * 1e6, 'return': ret, 'returns_by_chunk': b[0]['returns'], 'launches': [r['launches'] for r in b], 'profile': prof})}", flush=True)
     return res
 
@@ -2550,78 +2647,19 @@ def service_launches(kv: dict) -> dict:
             for name in ("sumtree_sample", "gather", "sample_gather", "sumtree_update")}
 
 
-def service_phase(torch, dev, card: str) -> dict:
-    """Phase 19: the replay service (src/repro_torch/service) through
-    launch/multiprocess.py::launch_service, server, actors and learner
-    each a process on this card and meeting over localhost TCP; then
-    ServiceExecutor against FusedExecutor and an ActorServer fed by the
-    service's params channel, in process."""
+def service_gangs() -> tuple:
+    """19(a) and (b), one gang after the other → ((results, seconds) of
+    each).  They touch nothing of this process but the card, so ``main``
+    runs them beside phases 15-16, 22 and 19(c)."""
     import shutil
     import tempfile
 
-    import numpy as np
-
-    from repro_torch.agents.base import state_tensors
-    from repro_torch.agents.dqn import DQNConfig, make_dqn
-    from repro_torch.configs import get_config
-    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
-    from repro_torch.envs.classic import make_vec
-    from repro_torch.kernels import ops
     from repro_torch.launch import multiprocess as mp
-    from repro_torch.models import backbone
-    from repro_torch.quickstart import transition_example
-    from repro_torch.runtime.executors import FusedExecutor
-    from repro_torch.runtime.loop import LoopConfig
-    from repro_torch.serve import ActorServeConfig, ActorServer
-    from repro_torch.service import ReplayService, ReplayServiceConfig, ServiceExecutor
-    from repro_torch.service.client import as_numpy
 
-    torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
-    res = {}
-    # (a) the 1-shard gang at the main path's width: #1 and #2 once a sample
     t0 = time.perf_counter()
     a = mp.launch_service(learn_steps=SERVICE_LEARN_STEPS, capacity_per_shard=20_000,
                           timeout_s=420.0, **SERVICE_GANG)
     secs = time.perf_counter() - t0
-    server, learner = a["server"], a["learner"]
-    debt, eb = spi_band(server)
-    launches = service_launches(server)
-    calls = int(server["SAMPLE_CALLS"])
-    check(server["DEVICE"].startswith("cuda") and server["TREE_BACKEND"] == "cuda"
-          and learner["DEVICE"].startswith("cuda")
-          and all(a[f"actor-{i}"]["DEVICE"].startswith("cuda") for i in range(2)),
-          f"19(a) a role did not run on the card: {server['DEVICE']}, {learner['DEVICE']}")
-    check(abs(debt) <= eb, f"19(a) the rate limiter left its band: debt {debt}, error buffer {eb} "
-          f"(realized spi {server['REALIZED_SPI']}, tolerance {server['SPI_TOLERANCE']})")
-    check(int(learner["LEARN_STEPS"]) == calls == SERVICE_LEARN_STEPS,
-          f"19(a) {learner['LEARN_STEPS']} learn steps, {calls} samples")
-    check(launches["sumtree_sample"] == launches["gather"] == calls
-          and not launches["sample_gather"] and not launches["sumtree_update"],
-          f"19(a) server launches {launches} for {calls} samples: want one descent and one "
-          "gather a sample, no fused or update kernel")
-    ret = float(learner["EVAL_RETURN"])
-    check(ret > 30.0, f"19(a) the gang's eval return {ret} does not beat 30")
-    wall_ms = float(learner["WALL_PER_LEARN_MS"])
-    split = {k: float(learner[f"{k.upper()}_MS_PER_LEARN"]) for k in ("sample", "learn", "update")}
-    print(f"[service a] 1 server + 2 actors (8 envs, chunks of 8) + 1 learner, each a process on "
-          f"{server['DEVICE']}, over localhost TCP: DQN (4, 256, 256, 2), replay 20,000 x K=128, "
-          f"batch 64, spi 8, warmup 400: {calls} learn steps, eval return {ret:.1f}, realized spi "
-          f"{float(server['REALIZED_SPI']):.4f} (tolerance {float(server['SPI_TOLERANCE']):.4f}), "
-          f"{server['INSERTS']} inserts in {server['APPENDS']} appends; wall {wall_ms:.2f} ms a "
-          f"learn step (the sample round trip {split['sample']:.2f}, the learn call to its TD "
-          f"on the host {split['learn']:.2f}, the write-back {split['update']:.2f}; "
-          f"{float(learner['LEARN_WALL_S']):.2f} s of learning, the gang "
-          f"{secs:.1f} s with its start); server launches {launches}; "
-          f"{int(server['SAMPLE_HOST_COPIES']) / calls:.0f} device-to-host copies a sample (five "
-          f"leaves and the weights) | {card}", flush=True)
-    res["a"] = {"seconds": secs, "wall_ms_per_learn": wall_ms, "ms_per_learn": split, "learn_s":
-                float(learner["LEARN_WALL_S"]), "return": ret, "launches": launches,
-                "samples": calls, "realized_spi": float(server["REALIZED_SPI"]),
-                "spi_tolerance": float(server["SPI_TOLERANCE"]),
-                "inserts": int(server["INSERTS"]), "appends": int(server["APPENDS"]),
-                "host_copies_per_sample": int(server["SAMPLE_HOST_COPIES"]) / calls}
-    # (b) 2 shards, each sampled by #3, and the learner restart drill
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_service_")
     try:
         t0 = time.perf_counter()
@@ -2633,33 +2671,35 @@ def service_phase(torch, dev, card: str) -> dict:
         secs_b = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    server, first, learner = b["server"], b["learner-0"], b["learner"]
-    debt, eb = spi_band(server)
-    launches_b = service_launches(server)
-    calls = int(server["SAMPLE_CALLS"])
-    half = SERVICE_RESTART_STEPS // 2
-    check(first.get("EXITED_EARLY") == "1" and int(first["LEARN_STEPS"]) == half
-          and int(learner["RESUMED_FROM"]) == half
-          and int(learner["LEARN_STEPS"]) == SERVICE_RESTART_STEPS == calls,
-          f"19(b) the learner restart: first {first}, resumed {learner.get('RESUMED_FROM')}, "
-          f"{learner.get('LEARN_STEPS')} learn steps, {calls} samples")
-    check(abs(debt) <= eb, f"19(b) the rate limiter left its band: debt {debt}, error buffer {eb}")
-    check(launches_b["sample_gather"] == 2 * calls and not launches_b["sumtree_sample"]
-          and not launches_b["gather"] and not launches_b["sumtree_update"],
-          f"19(b) server launches {launches_b} for {calls} samples of 2 shards: want two fused "
-          "launches a sample and no other kernel")
-    counts = [int(c) for c in server["PER_SHARD_COUNT"].split(",")]
-    check(len(counts) == 2 and min(counts) > 0, f"19(b) shard counts {counts}")
-    print(f"[service b] 2 shards (10,000 each, round robin), fused sample+gather, learner "
-          f"restarted at {half}: resumed from {learner['RESUMED_FROM']}, {calls} learn steps in "
-          f"all, eval return {float(learner['EVAL_RETURN']):.1f}, realized spi "
-          f"{float(server['REALIZED_SPI']):.4f} (tolerance {float(server['SPI_TOLERANCE']):.4f}), "
-          f"shard counts {counts}; server launches {launches_b}; wall "
-          f"{float(learner['WALL_PER_LEARN_MS']):.2f} ms a learn step after the restart; the gang "
-          f"{secs_b:.1f} s | {card}", flush=True)
-    res["b"] = {"seconds": secs_b, "launches": launches_b, "samples": calls,
-                "wall_ms_per_learn": float(learner["WALL_PER_LEARN_MS"]),
-                "return": float(learner["EVAL_RETURN"]), "counts": counts}
+    return (a, secs), (b, secs_b)
+
+
+def service_phase(torch, dev, card: str, gangs=None) -> dict:
+    """Phase 19: the replay service (src/repro_torch/service) through
+    launch/multiprocess.py::launch_service, server, actors and learner
+    each a process on this card and meeting over localhost TCP
+    (``gangs``: a future of what ``service_gangs`` returns, or None to run
+    them here); first, in process, ServiceExecutor against FusedExecutor
+    and an ActorServer fed by the service's params channel."""
+    import numpy as np
+
+    from repro_torch.agents.base import state_tensors
+    from repro_torch.agents.dqn import DQNConfig, make_dqn
+    from repro_torch.configs import get_config
+    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.kernels import ops
+    from repro_torch.models import backbone
+    from repro_torch.quickstart import transition_example
+    from repro_torch.runtime.executors import FusedExecutor
+    from repro_torch.runtime.loop import LoopConfig
+    from repro_torch.serve import ActorServeConfig, ActorServer
+    from repro_torch.service import ReplayService, ReplayServiceConfig, ServiceExecutor
+    from repro_torch.service.client import as_numpy
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    res = {}
     # (c) in process: ServiceExecutor ≡ FusedExecutor bit for bit on the card
     env_fn = lambda n: make_vec("cartpole", n)  # noqa: E731
     spec_env, _, _ = env_fn(1)
@@ -2729,8 +2769,77 @@ def service_phase(torch, dev, card: str) -> dict:
           f"param_source: version 1 put mid-run, swapped at step {st['swap_log']}, "
           f"{st['completed']} requests completed, the live model's "
           f"{len(live.state_dict())} tensors equal to the published | {card}", flush=True)
+    # (a) and (b): the gangs, waited for here where they ran beside this process
+    (a, secs), (b, secs_b) = gangs.result() if gangs else service_gangs()
+    # (a) the 1-shard gang at the main path's width: #1 and #2 once a sample
+    server, learner = a["server"], a["learner"]
+    debt, eb = spi_band(server)
+    launches = service_launches(server)
+    calls = int(server["SAMPLE_CALLS"])
+    check(server["DEVICE"].startswith("cuda") and server["TREE_BACKEND"] == "cuda"
+          and learner["DEVICE"].startswith("cuda")
+          and all(a[f"actor-{i}"]["DEVICE"].startswith("cuda") for i in range(2)),
+          f"19(a) a role did not run on the card: {server['DEVICE']}, {learner['DEVICE']}")
+    check(abs(debt) <= eb, f"19(a) the rate limiter left its band: debt {debt}, error buffer {eb} "
+          f"(realized spi {server['REALIZED_SPI']}, tolerance {server['SPI_TOLERANCE']})")
+    check(int(learner["LEARN_STEPS"]) == calls == SERVICE_LEARN_STEPS,
+          f"19(a) {learner['LEARN_STEPS']} learn steps, {calls} samples")
+    check(launches["sumtree_sample"] == launches["gather"] == calls
+          and not launches["sample_gather"] and not launches["sumtree_update"],
+          f"19(a) server launches {launches} for {calls} samples: want one descent and one "
+          "gather a sample, no fused or update kernel")
+    ret = float(learner["EVAL_RETURN"])
+    check(ret > 30.0, f"19(a) the gang's eval return {ret} does not beat 30")
+    wall_ms = float(learner["WALL_PER_LEARN_MS"])
+    split = {k: float(learner[f"{k.upper()}_MS_PER_LEARN"]) for k in ("sample", "learn", "update")}
+    print(f"[service a] 1 server + 2 actors (8 envs, chunks of 8) + 1 learner, each a process on "
+          f"{server['DEVICE']}, over localhost TCP: DQN (4, 256, 256, 2), replay 20,000 x K=128, "
+          f"batch 64, spi 8, warmup 400: {calls} learn steps, eval return {ret:.1f}, realized spi "
+          f"{float(server['REALIZED_SPI']):.4f} (tolerance {float(server['SPI_TOLERANCE']):.4f}), "
+          f"{server['INSERTS']} inserts in {server['APPENDS']} appends; wall {wall_ms:.2f} ms a "
+          f"learn step (the sample round trip {split['sample']:.2f}, the learn call to its TD "
+          f"on the host {split['learn']:.2f}, the write-back {split['update']:.2f}; "
+          f"{float(learner['LEARN_WALL_S']):.2f} s of learning, the gang "
+          f"{secs:.1f} s with its start, beside 15-16, 22 and 19(c)); server launches "
+          f"{launches}; "
+          f"{int(server['SAMPLE_HOST_COPIES']) / calls:.0f} device-to-host copies a sample (five "
+          f"leaves and the weights) | {card}", flush=True)
+    res["a"] = {"seconds": secs, "wall_ms_per_learn": wall_ms, "ms_per_learn": split, "learn_s":
+                float(learner["LEARN_WALL_S"]), "return": ret, "launches": launches,
+                "samples": calls, "realized_spi": float(server["REALIZED_SPI"]),
+                "spi_tolerance": float(server["SPI_TOLERANCE"]),
+                "inserts": int(server["INSERTS"]), "appends": int(server["APPENDS"]),
+                "host_copies_per_sample": int(server["SAMPLE_HOST_COPIES"]) / calls}
+    # (b) 2 shards, each sampled by #3, and the learner restart drill
+    server, first, learner = b["server"], b["learner-0"], b["learner"]
+    debt, eb = spi_band(server)
+    launches_b = service_launches(server)
+    calls = int(server["SAMPLE_CALLS"])
+    half = SERVICE_RESTART_STEPS // 2
+    check(first.get("EXITED_EARLY") == "1" and int(first["LEARN_STEPS"]) == half
+          and int(learner["RESUMED_FROM"]) == half
+          and int(learner["LEARN_STEPS"]) == SERVICE_RESTART_STEPS == calls,
+          f"19(b) the learner restart: first {first}, resumed {learner.get('RESUMED_FROM')}, "
+          f"{learner.get('LEARN_STEPS')} learn steps, {calls} samples")
+    check(abs(debt) <= eb, f"19(b) the rate limiter left its band: debt {debt}, error buffer {eb}")
+    check(launches_b["sample_gather"] == 2 * calls and not launches_b["sumtree_sample"]
+          and not launches_b["gather"] and not launches_b["sumtree_update"],
+          f"19(b) server launches {launches_b} for {calls} samples of 2 shards: want two fused "
+          "launches a sample and no other kernel")
+    counts = [int(c) for c in server["PER_SHARD_COUNT"].split(",")]
+    check(len(counts) == 2 and min(counts) > 0, f"19(b) shard counts {counts}")
+    print(f"[service b] 2 shards (10,000 each, round robin), fused sample+gather, learner "
+          f"restarted at {half}: resumed from {learner['RESUMED_FROM']}, {calls} learn steps in "
+          f"all, eval return {float(learner['EVAL_RETURN']):.1f}, realized spi "
+          f"{float(server['REALIZED_SPI']):.4f} (tolerance {float(server['SPI_TOLERANCE']):.4f}), "
+          f"shard counts {counts}; server launches {launches_b}; wall "
+          f"{float(learner['WALL_PER_LEARN_MS']):.2f} ms a learn step after the restart; the gang "
+          f"{secs_b:.1f} s, beside 15-16, 22 and 19(c) | {card}", flush=True)
+    res["b"] = {"seconds": secs_b, "launches": launches_b, "samples": calls,
+                "wall_ms_per_learn": float(learner["WALL_PER_LEARN_MS"]),
+                "return": float(learner["EVAL_RETURN"]), "counts": counts}
     res["seconds"] = time.perf_counter() - t_phase
-    print(f"[service] phase 19 in {res['seconds']:.1f} s", flush=True)
+    print(f"[service] phase 19 in {res['seconds']:.1f} s, the gangs' wait included", flush=True)
     print(f"[service rate] {json.dumps({k: res[k] for k in ('a', 'b', 'c')})}", flush=True)
     return res
 
@@ -2795,45 +2904,72 @@ def dse_learner_throughput(torch, dev, lanes: int) -> float:
     return dse.measure_throughput(fn, 10 * b)
 
 
+def f32_pair_times(torch, dev, n: int, s: int, hd: int, dtype=None) -> dict:
+    """#6b and #7b (the dQ and dK/dV kernels that ``_bwd_kernel_for`` gives
+    f32 and hd 16) at (n, s, hd) causal in ``dtype`` (f32 by default):
+    device and call time, plain version, one SDPA backward (dQ, dK and dV
+    together) on the same inputs, and the bound, by kernel name.  The
+    bound's operations (3 and 4 products of 2·hd flops a causal pair) go at
+    the tensor cores' rate for f32-accurate products (3xTF32) in f32, with
+    the FMA rate's bound beside it, and at the bf16 rate in bf16."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dtype = dtype or torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    q, k, v, do = ((torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(dtype)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_cuda(q, k, v)
+    delta = fa.flash_delta(o, do)
+    es = q.element_size()
+    pairs = n * s * (s + 1) / 2                  # causal (query, key) pairs
+    reads = 4 * n * s * hd * es + 2 * n * s * 4  # q, k, v, dO; lse, delta
+    f32 = dtype == torch.float32
+    backend, lib = sdpa_backward(torch, q[None], k[None], v[None], do[None])
+    lib_ms = device_ms(torch, lib)
+    args = (q, k, v, do, lse, delta)
+    shape = f"({n}, {s}, {hd}) {'f32' if f32 else 'bf16'} causal"
+    out = {}
+    for name, kern, plain, work, nout in (
+            (fa.DQ_NAME, fa.flash_attention_dq_cuda, fa.flash_attention_dq_plain, 3, 1),
+            (fa.DKV_NAME, fa.flash_attention_dkv_cuda, fa.flash_attention_dkv_plain, 4, 2)):
+        nbytes, ops_ = reads + nout * n * s * hd * es, work * 2 * hd * pairs
+        b_ms, b_by = bound(nbytes, ops_, TF32X3_OPS_PER_S if f32 else BF16_OPS_PER_S)
+        ms = device_ms(torch, lambda: kern(*args))
+        t = {"shape": shape, "ms": ms, "plain_ms": device_ms(torch, lambda: plain(*args)),
+             "library_ms": lib_ms,
+             "library": f"one SDPA {backend} backward call (dQ, dK and dV together)",
+             "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+             "call_ms": call_ms(torch, lambda: kern(*args)),
+             "tflops": ops_ / (ms * 1e-3) / 1e12}
+        if f32:
+            t["bound_fma_ms"], t["bound_fma_by"] = bound(nbytes, ops_, F32_OPS_PER_S)
+        check(all(math.isfinite(t[x]) for x in ("ms", "plain_ms", "library_ms")),
+              f"timing of {name} at {shape} is not finite")
+        out[name] = t
+    return out
+
+
 def f32_flash_times(torch, dev, n: int, s: int, hd: int) -> dict:
     """#5b, #6b and #7b (the f32 kernels) at (n, s, hd) f32 causal, the
     wall-clock trainer's shape: device time, plain version, the library
     (SDPA forward; one SDPA backward for dQ, dK and dV together) and the
-    bound, by kernel name."""
+    bound, by kernel name (#6b and #7b: ``f32_pair_times``)."""
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
-    q, k, v, do = ((torch.randn((n, s, hd), generator=gen, device=dev) * 0.3)
-                   for _ in range(4))
-    o, lse = fa.flash_attention_cuda(q, k, v)
-    delta = fa.flash_delta(o, do)
+    q, k, v = ((torch.randn((n, s, hd), generator=gen, device=dev) * 0.3) for _ in range(3))
     pairs = n * s * (s + 1) / 2                  # causal (query, key) pairs
-    reads = 4 * n * s * hd * 4 + 2 * n * s * 4   # q, k, v, dO; lse, delta
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    backend, lib_bwd = sdpa_backward(torch, q[None], k[None], v[None], do[None])
-    lib_bwd_ms = device_ms(torch, lib_bwd)
-    args = (q, k, v, do, lse, delta)
-    calls = {
-        fa.NAME: (lambda: fa.flash_attention_cuda(q, k, v),
-                  lambda: fa.flash_attention_plain(q, k, v),
-                  device_ms(torch, lambda: sdpa(q[None], k[None], v[None], is_causal=True)),
-                  bound(3 * n * s * hd * 4 + n * s * hd * 4 + n * s * 4, 4 * hd * pairs)),
-        fa.DQ_NAME: (lambda: fa.flash_attention_dq_cuda(*args),
-                     lambda: fa.flash_attention_dq_plain(*args), lib_bwd_ms,
-                     bound(reads + n * s * hd * 4, 3 * 2 * hd * pairs)),
-        fa.DKV_NAME: (lambda: fa.flash_attention_dkv_cuda(*args),
-                      lambda: fa.flash_attention_dkv_plain(*args), lib_bwd_ms,
-                      bound(reads + 2 * n * s * hd * 4, 4 * 2 * hd * pairs)),
-    }
-    out = {}
-    for name, (kern, plain, lib_ms, (b_ms, b_by)) in calls.items():
-        out[name] = {"ms": device_ms(torch, kern), "plain_ms": device_ms(torch, plain),
-                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "shape": f"({n}, {s}, {hd}) f32 causal",
-                     "library": "SDPA" if name == fa.NAME else
-                     f"one SDPA {backend} backward call (dQ, dK and dV together)"}
-        check(all(math.isfinite(out[name][x]) for x in ("ms", "plain_ms", "library_ms")),
-              f"timing of {name} at ({n}, {s}, {hd}) is not finite")
+    b_ms, b_by = bound(3 * n * s * hd * 4 + n * s * hd * 4 + n * s * 4, 4 * hd * pairs)
+    out = {fa.NAME: {"ms": device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v)),
+                     "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v)),
+                     "library_ms": device_ms(torch, lambda: sdpa(q[None], k[None], v[None],
+                                                                 is_causal=True)),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "shape": f"({n}, {s}, {hd}) f32 causal", "library": "SDPA"}}
+    check(all(math.isfinite(out[fa.NAME][x]) for x in ("ms", "plain_ms", "library_ms")),
+          f"timing of {fa.NAME} at ({n}, {s}, {hd}) is not finite")
+    out.update(f32_pair_times(torch, dev, n, s, hd))
     return out
 
 
@@ -2993,10 +3129,12 @@ def dse_phase(torch, dev, card: str) -> dict:
     # x 4 heads, 128 tokens, hd 16) in f32
     times = f32_flash_times(torch, dev, 8 * 4, 128, 16)
     for name, t in times.items():
+        fma = (f"; at the FMA rate {t['bound_fma_ms'] * 1e3:.4f} us by {t['bound_fma_by']}"
+               if "bound_fma_ms" in t else "")
         print(f"[dse e] {name} at {t['shape']}, the wall-clock trainer's shape: device "
               f"{t['ms'] * 1e3:.2f} us (plain {t['plain_ms'] * 1e3:.1f} us, {t['library']} "
               f"{t['library_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.4f} us by "
-              f"{t['bound_by']}) | {card}", flush=True)
+              f"{t['bound_by']}{fma}) | {card}", flush=True)
     res["e"] = {"flash_launches": flash, "times": times,
                 "checksum": float(kvs[0]["PARAMS_CHECKSUM"])}
     # (c) --mode bench, 2 ranks over gloo on the card, alone: plain and the host publish
@@ -4773,18 +4911,28 @@ def _sharding_one_by_one(torch, dev, card: str) -> dict:
             "step_s": step_s, "loss": float(m_u["loss"]), "grad_norm": float(m_u["grad_norm"])}
 
 
-def sharding_phase(torch, dev, card: str, parts: str = "abcde") -> dict:
+def sharding_ranks(device: str) -> list:
+    """26(b)-(c)'s two gloo ranks on the card (and 27(b)'s serving on
+    them) → their results.  They touch nothing of this process but the
+    card, so ``main`` runs them beside phases 15-16, 22 and 19."""
+    from repro_torch.launch import mesh as meshlib
+
+    return meshlib.spawn(_sharding_ranks, 2, device, backend="gloo", device=device,
+                         timeout_s=900)
+
+
+def sharding_phase(torch, dev, card: str, parts: str = "abcde", ranks=None) -> dict:
     """Phase 26: ``launch/sharded.py`` — (a) a 1×1 mesh bit for bit against
     the unsharded step; (b) a 1×2 mesh of two gloo ranks sharing the card;
     (c) a 2×1 mesh at SMOKE width; (d) ``launch/train.py --mesh 16x16``
     against phase 13's ``--mesh host`` run; (e) every config's state bytes
     per device at 16×16 and 2×16×16.  ``parts`` picks some of them (a
-    driver that runs the phase alone)."""
+    script that runs the phase alone); ``ranks`` is a future of what
+    ``sharding_ranks`` returns, or None to run them here."""
     import gc
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import mesh as meshlib
 
     t_phase = time.perf_counter()
     res = {}
@@ -4797,8 +4945,7 @@ def sharding_phase(torch, dev, card: str, parts: str = "abcde") -> dict:
         took["a"] = time.perf_counter() - t_phase
     if "b" in parts or "c" in parts:
         t0 = time.perf_counter()
-        ranks = meshlib.spawn(_sharding_ranks, 2, str(dev), backend="gloo", device=str(dev),
-                              timeout_s=900)
+        ranks = ranks.result() if ranks else sharding_ranks(str(dev))
         res["serve27"] = [r.pop("serve27") for r in ranks]
         res.update(_sharding_check_bc(ranks, card, want_flash))
         took["b, c"] = time.perf_counter() - t0
@@ -5435,6 +5582,18 @@ def main() -> None:
         serial = sorted(set(code for code in ("C7512", "C7513", "C7518") if code in log))
         print(f"[ptxas] {name}: {'; '.join(usage)}; wgmma serialized: "
               f"{', '.join(serial) or 'no'}", flush=True)
+    # the backward pair of f32 and hd 16: warp-level tensor-core products
+    # (HMMA) and asynchronous copies (LDGSTS)
+    for name in ("flash_attention_dq", "flash_attention_dkv"):
+        lib = _build._lib_path(name)
+        sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300)
+        hmma, ldgsts = sass.stdout.count("HMMA"), sass.stdout.count("LDGSTS")
+        usage = [line.strip() for line in _build.build_log(name).splitlines() if "spill" in line]
+        print(f"[sass] {lib.name}: {hmma} HMMA and {ldgsts} LDGSTS instructions (cuobjdump "
+              f"-sass); [ptxas] {'; '.join(usage)}", flush=True)
+        check(sass.returncode == 0 and hmma > 0 and ldgsts > 0,
+              f"no mma.sync or no cp.async in {lib.name}'s SASS (cuobjdump rc {sass.returncode})")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {"sumtree_sample": 0.0, "gather": 0.0, "sample_gather": 0.0,
@@ -5572,7 +5731,10 @@ def main() -> None:
 
     clock("4 (main path)")
     # 4. main path: the paper's system through the user entry points
-    main_iters = 1400
+    # the return passes 30 in the fifth chunk of 64 (the returns a chunk are
+    # in the rate line: 33.0, then 130.6 and up); 1400 until the script's
+    # time limit needed the time
+    main_iters = 768
     ex, state, hist, secs, main_counts, _ = run_arm(torch, main_iters, fused=False, lazy=True)
     replay = ex.replay
     final = float(hist["mean_episode_return"][-1])
@@ -5762,27 +5924,59 @@ def main() -> None:
 
     clock("7 (flash)")
     kernels += flash_phases(torch, dev, card)
-    clock("11 (flash backward)")
-    bwd_entries, train_counts = train_phases(torch, dev, card)
+    # Phases 17, 18, 19 and 26 run most of their work in processes of their
+    # own that need nothing of this one but the card.  Those processes run
+    # beside in-process phases that check results and time nothing on the
+    # card, and are waited for before the next phase that times: 17's and
+    # 18's ranks beside 11-13 (at most 7 at once, with this process 8, the
+    # host's cores), 26(b)-(c)'s and 19's gangs beside 15-16, 22 and 19(c)
+    # (26(b)'s two ranks take ~60 GB of the card at once, 13 as much: the two
+    # never overlap)
+    def c_after_17():
+        ac_runs.result()
+        return sharded_world4()
+
+    with ThreadPoolExecutor(3) as pool:
+        ac_runs = pool.submit(actor_critic_ranks, card)
+        sharded_runs = pool.submit(sharded_ranks, pool.submit(c_after_17))
+        clock("11 (flash backward), 17's and 18's ranks beside 11-13")
+        bwd_entries, train_counts = train_phases(torch, dev, card, settle=sharded_runs.result)
     for entry in kernels:       # the replay kernels and the forward on the training path
         entry["train_launches"] = train_counts.get(entry["name"], 0)
     kernels += bwd_entries
 
-    # 15-17. the restart, the async loop and the actor-critics; each path's
-    # launches counted from 0
-    clock("15-16 (restart, async)")
-    restart = restart_phase(torch, dev, card)
-    async_rate = async_phase(torch, dev, card)
+    # 17. the actor-critics' checks, then the sampling chain (timed) here
     clock("17 (actor-critics)")
-    actor_critic = actor_critic_phase(torch, dev, card)
+    actor_critic = actor_critic_phase(torch, dev, card, ac_runs.result())
     # 18. the sharded runtime, its ranks on this card; each rank's launches
     # counted from 0 over the SHARDED_ITERS iterations of 18(b)
     clock("18 (sharded)")
-    sharded = sharded_phase(torch, dev, card)
-    # 19. the replay service: its roles as processes on this card, the server's
-    # launches counted from its start; then in process
-    clock("19 (service)")
-    service = service_phase(torch, dev, card)
+    sharded = sharded_phase(torch, dev, card, sharded_runs.result())
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[beside 15-22] this process holds {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB "
+          f"of the card as 26(b)-(c)'s ranks start", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        shard_ranks = pool.submit(sharding_ranks, str(dev))
+        gangs = pool.submit(service_gangs)
+        # 15-16. the restart and the async loop; each path's launches counted
+        # from 0
+        clock("15-16 (restart, async), 26(b)-(c)'s ranks and 19's gangs beside 15-16, "
+              "22 and 19(c)")
+        restart = restart_phase(torch, dev, card)
+        async_rate = async_phase(torch, dev, card)
+        # 22. the ratio-scheduled token-DQN trainer, its launches counted from 0
+        clock("22 (token-DQN trainer)")
+        trainer = token_trainer_phase(torch, dev, card)
+        # 19. the replay service: its roles as processes on this card, the
+        # server's launches counted from its start; first in process
+        clock("19 (service)")
+        service = service_phase(torch, dev, card, gangs)
+        t0 = time.perf_counter()
+        shard_ranks.result()
+        print(f"[beside 15-22] waited {time.perf_counter() - t0:.1f} s for 26(b)-(c)'s ranks",
+              flush=True)
     # 20. the DSE and the wall-clock gang: the plan-built executor's launches
     # counted from 0; each gang rank's from its start
     clock("20 (dse)")
@@ -5795,9 +5989,6 @@ def main() -> None:
     dryrun = (*dryrun27_start(dryrun_dir), dryrun_dir)
     clock("21 (big dense serving)")
     big = big_dense_phase(torch, dev, card)
-    # 22. the ratio-scheduled token-DQN trainer, its launches counted from 0
-    clock("22 (token-DQN trainer)")
-    trainer = token_trainer_phase(torch, dev, card)
     # 23. Mixtral-8x7B and Llama-4 Maverick served at full width, Phi-3-vision
     # with its patch prefix; the forward's launches counted from 0 over each
     # one's served requests and over Phi-3-vision's prefill
@@ -5863,7 +6054,7 @@ def main() -> None:
         if name in audio["bwd_times"]:
             entry["at_whisper_shapes"] = audio["bwd_times"][name]
     clock("26 (sharding)")
-    shard_res = sharding_phase(torch, dev, card)
+    shard_res = sharding_phase(torch, dev, card, ranks=shard_ranks)
     for entry in kernels:
         name = entry["name"]
         entry["sharding_launches"] = {

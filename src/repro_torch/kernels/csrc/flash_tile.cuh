@@ -1,4 +1,4 @@
-// Tile loads and stores shared by the flash-attention kernels: rows of an
+// Tile loads and stores of the f32 flash-attention forward: rows of an
 // (S, HD) matrix in f32 or bf16 into f32 shared memory, 16 bytes a thread
 // (rows are HD * sizeof(T) bytes, a multiple of 16 for every HD taken, and
 // the wrappers check alignment), and f32 results back in the tensor's dtype.

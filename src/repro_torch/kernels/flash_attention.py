@@ -3,8 +3,10 @@ wgmma and TMA, for bf16 at hd 64/96/128; ``csrc/flash_attention_fwd.cu``,
 f32 FMA, for f32 and hd 16) and two backward pairs of dQ and dK/dV
 (``csrc/flash_attention_dq_sm90.cu`` and ``csrc/flash_attention_dkv_sm90.cu``,
 wgmma and TMA, for bf16 at hd 64/96/128; ``csrc/flash_attention_dq.cu`` and
-``csrc/flash_attention_dkv.cu``, f32 FMA, for f32 and hd 16) — with their
-plain versions and the ``torch.autograd.Function`` that ties them together.
+``csrc/flash_attention_dkv.cu``, warp-level ``mma.sync`` on the tensor cores
+with ``cp.async`` double buffering — 3xTF32 for f32, bf16 for bf16 — for
+f32 and hd 16) — with their plain versions and the
+``torch.autograd.Function`` that ties them together.
 ``_fwd_kernel_for`` and ``_bwd_kernel_for`` pick the kernels from the dtype
 and the head width alone.
 
@@ -241,8 +243,9 @@ def _fwd_kernel_for(dtype: torch.dtype, hd: int) -> str:
 
 def _bwd_kernel_for(dtype: torch.dtype, hd: int) -> Tuple[str, str]:
     """The (dQ, dK/dV) kernels for inputs of ``dtype`` at head width ``hd``:
-    the Hopper pair for bf16 at hd 64, 96 or 128, the f32-FMA pair for the
-    rest (f32, and hd 16)."""
+    the Hopper pair (wgmma, bf16 only) for bf16 at hd 64, 96 or 128, the
+    ``mma.sync`` tensor-core pair (3xTF32 in f32) for the rest (f32, and
+    hd 16)."""
     if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS:
         return DQ_SM90_NAME, DKV_SM90_NAME
     return DQ_NAME, DKV_NAME

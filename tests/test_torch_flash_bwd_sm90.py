@@ -150,7 +150,7 @@ def test_bf16_p_and_ds_alone_break_the_rule():
 @pytest.mark.parametrize("hd", TF.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_kernel_for(dtype, hd):
-    """bf16 at hd 64/96/128 → the Hopper pair; f32, and hd 16 → the f32-FMA pair."""
+    """bf16 at hd 64/96/128 → the Hopper pair; f32, and hd 16 → the mma.sync pair."""
     want = ((TF.DQ_SM90_NAME, TF.DKV_SM90_NAME) if dtype == torch.bfloat16 and hd in (64, 96, 128)
             else (TF.DQ_NAME, TF.DKV_NAME))
     assert TF._bwd_kernel_for(dtype, hd) == want

@@ -41,7 +41,11 @@ f32 on the same q, k, v, O, LSE and dO (O and LSE from the forward
 kernel), held by parity.flash_bwd_check (f32 at atol 2e-5 + rtol 1e-3,
 bf16 within one bf16 ulp beyond 2e-5), with its launch count; the Hopper
 pair also at the Hopper forward's cases, bit for bit the same on a second
-call, and with NaN rows after each tensor that it must not read;
+call, and with NaN rows after each tensor that it must not read; the
+mma.sync pair of f32 and hd 16 also at the wall-clock trainer's (32, 128,
+16) in both dtypes, Sk != S both ways and ragged tiles at every hd, bit
+for bit on a second call, with NaN rows after each tensor, and writing
+zeros for dK and dV at S = 0;
 and the autograd Function's f32 gradients against autograd through the
 plain forward, at that same f32 bar.
 """
@@ -499,11 +503,12 @@ def _assert_bwd_launches(before, chosen):
         assert tops.launch_counts[name] == before.get(name, 0) + (name in chosen), name
 
 
-def _bwd_inputs(dev, n, s, sk, hd, attn, win, causal, glob, rows=None):
-    """bf16 q, dO (n, s, hd) and k, v (n, sk, hd) ~N(0, 0.3²), with the
-    Hopper forward's O and LSE; ``rows(n, r)`` makes each tensor's storage."""
+def _bwd_inputs(dev, n, s, sk, hd, attn, win, causal, glob, rows=None, dtype=torch.bfloat16):
+    """q, dO (n, s, hd) and k, v (n, sk, hd) ~N(0, 0.3²) in ``dtype``, with
+    the forward kernel's O and LSE; ``rows(n, r)`` makes each tensor's
+    storage."""
     g = torch.Generator(device=dev).manual_seed(n * s + sk + hd + 2)
-    rows = rows or (lambda n_, r: torch.empty((n_, r, hd), dtype=torch.bfloat16, device=dev))
+    rows = rows or (lambda n_, r: torch.empty((n_, r, hd), dtype=dtype, device=dev))
 
     def rnd(r):
         x = rows(n, r)
@@ -552,6 +557,76 @@ def test_cuda_flash_bwd_sm90_reads_nothing_past_its_tensors(cuda_dev, s, sk, hd)
     assert all(bool(torch.isfinite(t).all()) for t in got)
     report = parity.flash_bwd_check(*got, *ref)
     assert report.ok, report
+
+
+# the mma.sync pair that f32 and hd 16 take (#6b, #7b): (n, s, sk, hd,
+# attention, window, causal, is_global, dtype) — the wall-clock trainer's
+# shape in both dtypes, Sk != S both ways, ragged tiles, every hd
+PAIR_CASES = [
+    (32, 128, 128, 16, "full", 0, True, True, torch.float32),
+    (32, 128, 128, 16, "full", 0, True, True, torch.bfloat16),
+    (2, 256, 100, 128, "full", 0, False, True, torch.float32),
+    (2, 100, 300, 64, "full", 0, True, True, torch.float32),
+    (2, 300, 1000, 96, "sliding", 64, True, False, torch.float32),
+    (3, 200, 200, 16, "chunked", 48, True, False, torch.bfloat16),
+    (4, 256, 256, 128, "full", 0, True, True, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,sk,hd,attn,win,causal,glob,dtype", PAIR_CASES)
+def test_cuda_flash_bwd_pair_matches_plain(cuda_dev, n, s, sk, hd, attn, win, causal, glob,
+                                           dtype):
+    """The mma.sync pair, routed by flash_attention_bwd_cuda, against the
+    plain backward in f32 on the forward kernel's O and LSE; one launch of
+    each and none of the Hopper pair; a second call bit for bit the same."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda_dev, n, s, sk, hd, attn, win, causal, glob,
+                                      dtype=dtype)
+    before = dict(tops.launch_counts)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
+    _assert_bwd_launches(before, (tfa.DQ_NAME, tfa.DKV_NAME))
+    again = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, attn, win, causal, glob)
+    ref = tfa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                        do.float(), attn, win, causal, glob)
+    torch.cuda.synchronize()
+    assert all(t.dtype == dtype for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    report = parity.flash_bwd_check(*got, *ref)
+    assert report.ok, report
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,sk,hd,dtype", [(200, 200, 128, torch.float32),
+                                           (130, 1000, 16, torch.float32),
+                                           (100, 60, 16, torch.bfloat16)])
+def test_cuda_flash_bwd_pair_reads_nothing_past_its_tensors(cuda_dev, s, sk, hd, dtype):
+    """q, k, v and dO each followed in memory by NaN rows: the asynchronous
+    copies zero-fill the tile rows past S or Sk and never read those rows."""
+    def guarded(n, r):
+        buf = torch.full((n * r + 128, hd), float("nan"), dtype=dtype, device=cuda_dev)
+        return buf[: n * r].view(n, r, hd)
+
+    q, k, v, o, lse, do = _bwd_inputs(cuda_dev, 3, s, sk, hd, "full", 0, True, True, guarded,
+                                      dtype=dtype)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    ref = tfa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                        do.float())
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    report = parity.flash_bwd_check(*got, *ref)
+    assert report.ok, report
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_dkv_pair_writes_zeros_without_queries(cuda_dev, dtype):
+    """S = 0: the dK/dV kernel still writes every row of dK and dV, as 0."""
+    k = torch.randn((2, 100, 16), device=cuda_dev).to(dtype)
+    q = torch.empty((2, 0, 16), dtype=dtype, device=cuda_dev)
+    rows = torch.empty((2, 0), device=cuda_dev)
+    dk, dv = tfa.flash_attention_dkv_cuda(q, k, k, q, rows, rows)
+    torch.cuda.synchronize()
+    assert not bool(dk.any()) and not bool(dv.any())
 
 
 @pytest.mark.cuda

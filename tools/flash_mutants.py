@@ -7,8 +7,9 @@ For each mutant below, copies ``src/repro_torch`` and
 ``tests/test_torch_kernels_cuda.py`` into ``build/mutants/<name>/``,
 applies one edit to one kernel source there (the f32 forward, the Hopper
 forward, the Hopper building blocks of ``sm90.cuh`` that all three Hopper
-kernels share, the shared masks of ``flash_mask.cuh``, the f32 dQ or dK/dV
-kernel, or the Hopper dQ or dK/dV kernel), builds the kernels from the
+kernels share, the shared masks of ``flash_mask.cuh``, the mma.sync
+products of ``flash_mma.cuh``, the mma.sync dQ or dK/dV kernel, or the
+Hopper dQ or dK/dV kernel), builds the kernels from the
 copy and runs the flash cases of the CUDA test file, forward and backward
 (``parity.flash_check`` and ``parity.flash_bwd_check``, the rules
 ``chip_smoke.py`` applies).  A mutant must fail at least one case; the
@@ -53,20 +54,37 @@ MUTANTS = {
     "sm90-2d-map": ("sm90.cuh",
                     "dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)heads};",
                     "dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows * heads, (cuuint64_t)heads};"),
+    # the mma.sync pair's shared products: 3xTF32 without small*big', and
+    # bf16's P and dS without their lo halves
+    "tf32-no-small-big": ("flash_mma.cuh", "        mma_tf32(d, a.small, b.big);\n", ""),
+    "bf16-no-lo": ("flash_mma.cuh", "        mma_bf16(d, a.lo.x, b.x);\n", ""),
+    # ... a [k][n] B fragment read from the wrong row of its pair
+    "tf32-kn-row": ("flash_mma.cuh", "split_tf32(s[2 * t * ld + g], b.big[0], b.small[0]);",
+                    "split_tf32(s[(2 * t + 1) * ld + g], b.big[0], b.small[0]);"),
     # dQ: ds without its - delta
-    "dq-no-delta": ("flash_attention_dq.cu", "p * (dp[i][j] - row_delta[i])", "p * dp[i][j]"),
+    "dq-no-delta": ("flash_attention_dq.cu", "s[4 * j + e] = p * (dp[4 * j + e] - dlt[h]);",
+                    "s[4 * j + e] = p * dp[4 * j + e];"),
+    # ... the LSE of the fragment's other row
+    "dq-lse-row": ("flash_attention_dq.cu", "scale_log2, -lse2[h]))", "scale_log2, -lse2[h ^ 1]))"),
+    # ... the next key tile copied into the stage being read
+    "dq-stage": ("flash_attention_dq.cu", "load_kv(kn, (it + 1) & 1);", "load_kv(kn, it & 1);"),
+    # ... one warp's partial dQ left out of the row block's sum
+    "dq-reduction": ("flash_attention_dq.cu", "for (int o = 1; o < Sh::SPLIT; ++o) {",
+                     "for (int o = 2; o < Sh::SPLIT; ++o) {"),
     # dK/dV: the causal diagonal dropped (k <= q turned into k < q) there only
     "dkv-causal-strict": (
         "flash_attention_dkv.cu",
-        "const bool ok = kp < Sk && flash::allowed(attention, window, causal, glob, qp, kp);",
-        "const bool ok = kp < Sk && flash::allowed(attention, window, causal, glob, qp, kp)"
+        "&& flash::allowed(attention, window, causal, glob, qp, kp);",
+        "&& flash::allowed(attention, window, causal, glob, qp, kp)"
         " && !(causal && kp == qp);"),
-    # dK/dV: dK without its scale
-    "dkv-no-dk-scale": ("flash_attention_dkv.cu", "flash::store(&dk[at], acc_k[i][jj] * scale);",
-                        "flash::store(&dk[at], acc_k[i][jj]);"),
-    # dK/dV: the ragged last query tile's rows past S read and let through
-    "dkv-ragged-query": ("flash_attention_dkv.cu", "const int q_live = min(S - q_start, BQ);",
-                         "const int q_live = BQ;"),
+    # ... dK without its scale
+    "dkv-no-dk-scale": ("flash_attention_dkv.cu", "const float sc = dk_warp ? scale : 1.f;",
+                        "const float sc = 1.f;"),
+    # ... the LSE of the neighbouring query column
+    "dkv-lse-column": ("flash_attention_dkv.cu", "-cL[ql] * LOG2E", "-cL[ql ^ 1] * LOG2E"),
+    # ... the causal diagonal query tile skipped
+    "dkv-causal-diagonal": ("flash_attention_dkv.cu", "next_tile(causal ? k_start / BQ : 0);",
+                            "next_tile(causal ? k_start / BQ + 1 : 0);"),
     # the Hopper dQ: dS_lo dropped (dS in bf16 alone)
     "dq-sm90-no-ds-lo": ("flash_attention_dq_sm90.cu",
                          "wgmma_rs<HDP>(acc, &ds_lo[4 * kk], dk);", ""),
