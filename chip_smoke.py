@@ -428,7 +428,9 @@ TRAIN_STEPS = 2         # phase 13's steps before the restart's one
 TRAIN_SEQ = 128         # phase 13's segment length (256 until the audio phase (25))
 # (n, s, hd, attention, window, causal, is_global, dtype) of the flash
 # kernels' parity phases (7 and 11): the five mask cases of
-# tests/test_flash_attention.py, hd 16/96/128, a ragged S = 200, bf16
+# tests/test_flash_attention.py, hd 16/96/128, a ragged S = 200, bf16; for
+# #5b also 26(c)'s route (32, 128, 16) bf16, a ragged bf16 at hd 16 and the
+# training shape (128, 256, 128) in f32
 FLASH_CASES = [
     (4, 256, 64, "full", 0, True, True, "float32"), (4, 256, 64, "full", 0, False, True, "float32"),
     (4, 256, 64, "sliding", 64, True, False, "float32"),
@@ -438,7 +440,14 @@ FLASH_CASES = [
     (2, 200, 64, "chunked", 48, False, False, "float32"),
     (4, 200, 64, "sliding", 64, True, False, "bfloat16"),
     (32, 128, 128, "full", 0, True, True, "bfloat16"),
-    (32, 512, 128, "full", 0, True, True, "bfloat16")]
+    (32, 512, 128, "full", 0, True, True, "bfloat16"),
+    (32, 128, 16, "full", 0, True, True, "bfloat16"),
+    (3, 200, 16, "full", 0, True, True, "bfloat16"),
+    (128, 256, 128, "full", 0, True, True, "float32")]
+# phase 7's cases of #5b with Sk != S: (n, s, sk, hd, attention, window,
+# causal, is_global, dtype)
+FLASH_FWD_SK_CASES = [(2, 256, 100, 128, "full", 0, False, True, "float32"),
+                      (2, 100, 300, 64, "full", 0, True, True, "float32")]
 # phase 7's further bf16 cases, of the Hopper forward: the serve and train
 # shapes at full size, hd 96 at a ragged S, sliding and chunked at hd 128;
 # non-causal at Whisper's encoder width (16 heads x 4 rows, 1,536 frames: the
@@ -868,45 +877,32 @@ def flash_phases(torch, dev, card: str) -> list:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, parity
+    from repro_torch.kernels import ops
     from repro_torch.models import backbone
     from repro_torch.serve import ActorServeConfig, ActorServer, BucketSpec
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf16 = torch.bfloat16
 
-    def qkv(n, s, hd, dtype):
-        return [(torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(dtype)
-                for _ in range(3)]
+    def qkv(n, s, hd, dtype, sk=None):
+        return [(torch.randn((n, r, hd), generator=gen, device=dev) * 0.3).to(dtype)
+                for r in (s, sk or s, sk or s)]
 
     # 7. the forward kernels against their plain version, run in f32 on the
-    # same inputs; each case goes to the kernel _fwd_kernel_for picks
-    cases = FLASH_CASES + FLASH_SM90_CASES
-    err = {name: {"max_abs_err": 0.0, "bf16_max_ulps_beyond_atol": 0.0, "lse_max_rel": 0.0,
-                  "cases": 0} for name in (fa.NAME, fa.SM90_NAME)}
-    for n, s, hd, attn, win, causal, glob, dt in cases:
-        dt = getattr(torch, dt)
-        q, k, v = qkv(n, s, hd, dt)
-        name = fa._fwd_kernel_for(dt, hd)
-        before = ops.launch_counts[name]
-        o, lse = fa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
-        o_ref, lse_ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), attn, win,
-                                                  causal, glob)
-        torch.cuda.synchronize()
-        rep = parity.flash_check(o, lse, o_ref, lse_ref)
-        check(o.dtype == dt and rep.ok and ops.launch_counts[name] == before + 1,
-              f"{name} at ({n}, {s}, {hd}) {attn} window {win} causal={causal} "
-              f"global={glob} {dt}: {rep}")
-        e = err[name]
-        e["max_abs_err"] = max(e["max_abs_err"], rep.max_abs_err)
-        e["bf16_max_ulps_beyond_atol"] = max(e["bf16_max_ulps_beyond_atol"], rep.max_ulps)
-        e["lse_max_rel"] = max(e["lse_max_rel"], rep.lse_max_rel)
-        e["cases"] += 1
-        del q, k, v, o, lse, o_ref, lse_ref
+    # same inputs; each case goes to the kernel _fwd_kernel_for picks, and
+    # #5b's are repeated bit for bit by a second call
+    cases = [(n, s, s, *rest) for n, s, *rest in FLASH_CASES + FLASH_SM90_CASES]
+    cases += FLASH_FWD_SK_CASES
+    err = {}
+    for case in cases:
+        flash_fwd_case(torch, qkv, case, err)
     f32e, sm90e = err[fa.NAME], err[fa.SM90_NAME]
     print(f"[flash parity] {len(cases)} cases agree with the plain version: {fa.NAME} "
-          f"{f32e['cases']} cases (f32 max |err| {f32e['max_abs_err']:.3g}, atol 2e-6 + rtol "
-          f"1e-4); {fa.SM90_NAME} {sm90e['cases']} cases (bf16 max |err| "
+          f"{f32e['cases']} cases, each bit for bit on a second call (f32 max |err| "
+          f"{f32e['f32_max_abs_err']:.3g}, atol 2e-6 + rtol 1e-4; bf16 max |err| "
+          f"{f32e['bf16_max_abs_err']:.3g}, at most {f32e['bf16_max_ulps_beyond_atol']:.3f} "
+          f"ulp beyond atol 2e-6); {fa.SM90_NAME} "
+          f"{sm90e['cases']} cases (bf16 max |err| "
           f"{sm90e['max_abs_err']:.3g}, at most {sm90e['bf16_max_ulps_beyond_atol']:.3f} bf16 "
           f"ulp beyond atol 2e-6; 1 allowed); LSE max rel "
           f"{max(f32e['lse_max_rel'], sm90e['lse_max_rel']):.3g}", flush=True)
@@ -1120,13 +1116,12 @@ def flash_phases(torch, dev, card: str) -> list:
               f"(plain {t['plain_ms'] * 1e3:.1f} us, SDPA {t['library_ms'] * 1e3:.1f} us, bound "
               f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, call {t['call_ms'] * 1e3:.1f} us) "
               f"| {card}", flush=True)
-    f32t = fwd_times(4, 256, 64, torch.float32, F32_OPS_PER_S, fa.flash_attention_cuda)
-    print(f"[times] {fa.NAME} (4, 256, 64) f32 causal: device {f32t['ms'] * 1e3:.1f} us (plain "
-          f"{f32t['plain_ms'] * 1e3:.1f} us, SDPA {f32t['library_ms'] * 1e3:.1f} us, bound "
-          f"{f32t['bound_ms'] * 1e3:.2f} us by {f32t['bound_by']}, call "
-          f"{f32t['call_ms'] * 1e3:.1f} us) | {card}", flush=True)
+    f32t = {(n, s, hd, dt): fwd_kernel_times(torch, dev, n, s, hd, dt)
+            for n, s, hd, dt in ((4, 256, 64, torch.float32), (128, 256, 128, torch.float32),
+                                 (32, 128, 16, bf16))}
+    for t in f32t.values():
+        print(f"[times] {fa.NAME} {fwd_times_line(t)} | {card}", flush=True)
     torch.cuda.empty_cache()
-    e32 = {k: v for k, v in err[fa.NAME].items() if k != "bf16_max_ulps_beyond_atol"}
     return [{"name": fa.SM90_NAME, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{fa.SM90_NAME}.cu",
              "replaces": "src/repro/kernels/flash_attention.py:123", "launches": flash_launches,
@@ -1136,8 +1131,70 @@ def flash_phases(torch, dev, card: str) -> list:
             {"name": fa.NAME, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{fa.NAME}.cu",
              "replaces": "src/repro/kernels/flash_attention.py:123",
-             "launches": counts.get(fa.NAME, 0), "path": "none (f32 and hd 16 only)", **e32,
-             **f32t, "shape": "(4, 256, 64) f32 causal"}]
+             "launches": counts.get(fa.NAME, 0),
+             "path": "20(e) f32 at hd 16 (the wall-clock trainer); 26(c) bf16 at hd 16 (the "
+                     "SMOKE width on a 2x1 mesh)", **err[fa.NAME],
+             **f32t[(4, 256, 64, torch.float32)],
+             "at_128x256x128": f32t[(128, 256, 128, torch.float32)],
+             "at_32x128x16_bf16": f32t[(32, 128, 16, bf16)]}]
+
+
+def flash_fwd_case(torch, qkv, case: tuple, per_kernel: dict) -> None:
+    """One of phase 7's cases, ``(n, s, sk, hd, attention, window, causal,
+    is_global, dtype)``: the forward that ``_fwd_kernel_for`` picks against
+    its plain version in f32 on the same inputs (``parity.flash_check``),
+    one launch, and for #5b a second call bit for bit the same.
+    ``qkv(n, s, hd, dtype, sk)`` makes the inputs; the kernel's worst
+    errors and its count of cases go into ``per_kernel[name]``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, parity
+
+    n, s, sk, hd, attn, win, causal, glob, dt = case
+    dt = getattr(torch, dt)
+    q, k, v = qkv(n, s, hd, dt, sk)
+    name = fa._fwd_kernel_for(dt, hd)
+    before = ops.launch_counts[name]
+    o, lse = fa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
+    launched = ops.launch_counts[name] - before
+    o_ref, lse_ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), attn, win,
+                                              causal, glob)
+    torch.cuda.synchronize()
+    rep = parity.flash_check(o, lse, o_ref, lse_ref)
+    case = (f"{name} at ({n}, {s}, {hd}) Sk {sk} {attn} window {win} causal={causal} "
+            f"global={glob} {dt}")
+    check(o.dtype == dt and rep.ok and launched == 1, f"{case}: {rep}, {launched} launches")
+    if name == fa.NAME:
+        o2, lse2 = fa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"{case}: a second call gave another O or LSE")
+    e = per_kernel.setdefault(name, {"max_abs_err": 0.0, "bf16_max_ulps_beyond_atol": 0.0,
+                                     "f32_max_abs_err": 0.0, "bf16_max_abs_err": 0.0,
+                                     "lse_max_rel": 0.0, "cases": 0})
+    e["max_abs_err"] = max(e["max_abs_err"], rep.max_abs_err)
+    key = "f32_max_abs_err" if dt == torch.float32 else "bf16_max_abs_err"
+    e[key] = max(e[key], rep.max_abs_err)
+    e["bf16_max_ulps_beyond_atol"] = max(e["bf16_max_ulps_beyond_atol"], rep.max_ulps)
+    e["lse_max_rel"] = max(e["lse_max_rel"], rep.lse_max_rel)
+    e["cases"] += 1
+
+
+def fwd_parity(torch, dev) -> dict:
+    """Phase 7's cases that go to #5b (f32, and hd 16), through
+    ``flash_fwd_case`` → its worst errors and its cases."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def qkv(n, s, hd, dtype, sk):
+        return [(torch.randn((n, r, hd), generator=gen, device=dev) * 0.3).to(dtype)
+                for r in (s, sk, sk)]
+
+    per_kernel = {}
+    for case in [(n, s, s, *rest) for n, s, *rest in FLASH_CASES] + FLASH_FWD_SK_CASES:
+        if fa._fwd_kernel_for(getattr(torch, case[-1]), case[3]) == fa.NAME:
+            flash_fwd_case(torch, qkv, case, per_kernel)
+    return per_kernel
 
 
 # -- phases 11-14: the flash backward and the token-DQN training path ----------
@@ -2949,28 +3006,56 @@ def f32_pair_times(torch, dev, n: int, s: int, hd: int, dtype=None) -> dict:
     return out
 
 
+def fwd_kernel_times(torch, dev, n: int, s: int, hd: int, dtype=None) -> dict:
+    """#5b (the forward that ``_fwd_kernel_for`` gives f32 and hd 16) at
+    (n, s, hd) causal in ``dtype`` (f32 by default): device and call time,
+    plain version, SDPA's forward on the same inputs, and the bound.  The
+    bound's operations (2 products of 2·hd flops a causal pair) go at the
+    tensor cores' rate for f32-accurate products (3xTF32) in f32, with the
+    FMA rate's bound beside it, and at the bf16 rate in bf16."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dtype = dtype or torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    q, k, v = ((torch.randn((n, s, hd), generator=gen, device=dev) * 0.3).to(dtype)
+               for _ in range(3))
+    pairs = n * s * (s + 1) / 2                  # causal (query, key) pairs
+    nbytes, ops_ = 4 * n * s * hd * q.element_size() + n * s * 4, 4 * hd * pairs
+    f32 = dtype == torch.float32
+    b_ms, b_by = bound(nbytes, ops_, TF32X3_OPS_PER_S if f32 else BF16_OPS_PER_S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kern = lambda: fa.flash_attention_cuda(q, k, v)  # noqa: E731
+    ms = device_ms(torch, kern)
+    t = {"shape": f"({n}, {s}, {hd}) {'f32' if f32 else 'bf16'} causal", "ms": ms,
+         "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v)),
+         "library_ms": device_ms(torch, lambda: sdpa(q[None], k[None], v[None], is_causal=True)),
+         "library": "SDPA", "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+         "call_ms": call_ms(torch, kern), "tflops": ops_ / (ms * 1e-3) / 1e12}
+    if f32:
+        t["bound_fma_ms"], t["bound_fma_by"] = bound(nbytes, ops_, F32_OPS_PER_S)
+    check(all(math.isfinite(t[x]) for x in ("ms", "plain_ms", "library_ms")),
+          f"timing of {fa.NAME} at {t['shape']} is not finite")
+    return t
+
+
+def fwd_times_line(t: dict) -> str:
+    """One of ``fwd_kernel_times``'s records as a line of text."""
+    fma = (f", {t['bound_fma_ms'] * 1e3:.3f} us at the FMA rate by {t['bound_fma_by']}"
+           if "bound_fma_ms" in t else "")
+    return (f"{t['shape']}: device {t['ms'] * 1e3:.2f} us, call {t['call_ms'] * 1e3:.2f} us "
+            f"(plain {t['plain_ms'] * 1e3:.1f} us, SDPA {t['library_ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']}{fma})")
+
+
 def f32_flash_times(torch, dev, n: int, s: int, hd: int) -> dict:
     """#5b, #6b and #7b (the f32 kernels) at (n, s, hd) f32 causal, the
     wall-clock trainer's shape: device time, plain version, the library
     (SDPA forward; one SDPA backward for dQ, dK and dV together) and the
-    bound, by kernel name (#6b and #7b: ``f32_pair_times``)."""
+    bound, by kernel name (``fwd_kernel_times``, ``f32_pair_times``)."""
     from repro_torch.kernels import flash_attention as fa
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
-    q, k, v = ((torch.randn((n, s, hd), generator=gen, device=dev) * 0.3) for _ in range(3))
-    pairs = n * s * (s + 1) / 2                  # causal (query, key) pairs
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    b_ms, b_by = bound(3 * n * s * hd * 4 + n * s * hd * 4 + n * s * 4, 4 * hd * pairs)
-    out = {fa.NAME: {"ms": device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v)),
-                     "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v)),
-                     "library_ms": device_ms(torch, lambda: sdpa(q[None], k[None], v[None],
-                                                                 is_causal=True)),
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "shape": f"({n}, {s}, {hd}) f32 causal", "library": "SDPA"}}
-    check(all(math.isfinite(out[fa.NAME][x]) for x in ("ms", "plain_ms", "library_ms")),
-          f"timing of {fa.NAME} at ({n}, {s}, {hd}) is not finite")
-    out.update(f32_pair_times(torch, dev, n, s, hd))
-    return out
+    return {fa.NAME: fwd_kernel_times(torch, dev, n, s, hd),
+            **f32_pair_times(torch, dev, n, s, hd)}
 
 
 def dse_phase(torch, dev, card: str) -> dict:

@@ -2,7 +2,8 @@
 // (flash_attention_fwd.cu) and the two backward kernels
 // (flash_attention_dq.cu, flash_attention_dkv.cu), so that the three
 // cannot mask differently.  They are _block_reachable and _block_mask of
-// the TPU kernels (src/repro/kernels/flash_attention.py).
+// the TPU kernels (src/repro/kernels/flash_attention.py), and ``inside``,
+// the forward's test for a tile that needs no per-entry mask.
 #pragma once
 
 namespace flash {
@@ -23,6 +24,22 @@ __device__ __forceinline__ bool reachable(int attention, int window, bool causal
     if (attention == CHUNKED)
         r = r && (glob || ((k_start / window) <= (q_last / window)
                            && (k_last / window) >= (q_start / window)));
+    return r;
+}
+
+// Does every query of [q_start, q_start+bq) see every key of
+// [k_start, k_start+bk)?  Then the tile needs no per-entry test.
+__device__ __forceinline__ bool inside(int attention, int window, bool causal,
+                                       bool glob, int q_start, int bq,
+                                       int k_start, int bk) {
+    const int q_last = q_start + bq - 1, k_last = k_start + bk - 1;
+    bool r = true;
+    if (causal) r = r && (k_last <= q_start);
+    if (attention == SLIDING) r = r && (glob || k_start > q_last - window);
+    if (attention == CHUNKED)
+        r = r && (glob || (k_start / window == k_last / window
+                           && q_start / window == q_last / window
+                           && k_start / window == q_start / window));
     return r;
 }
 

@@ -1,5 +1,6 @@
 // Warp-level tensor-core products and asynchronous tile copies shared by the
-// two backward kernels of f32 and hd 16 (flash_attention_dq.cu,
+// three flash-attention kernels of f32 and hd 16: the forward
+// (flash_attention_fwd.cu) and the backward pair (flash_attention_dq.cu,
 // flash_attention_dkv.cu).
 //
 // Products are mma.sync on 16 x 8 accumulator tiles with f32 accumulators:
@@ -14,7 +15,8 @@
 // is small*big' + big*small' + big*big' (small*small' is below f32's last
 // bit).  bf16 operands read from memory are exact; an operand computed in
 // f32 registers (P, dS) is split hi = bf16(x), lo = bf16(x - hi) and takes
-// two products, as the Hopper pair does.
+// two products, as the Hopper pair does; the forward's P, held to a rule
+// ten times tighter, in three (from_c3) and takes three.
 //
 // An A operand made from accumulator tiles (P, dS for the products that
 // contract over their columns) keeps its values where they are: for TF32,
@@ -187,6 +189,9 @@ template <> struct Mma<float> {
         mma_tf32(d, a.big, b.small);
         mma_tf32(d, a.big, b.big);
     }
+    // from_c kept to f32's accuracy (the forward's P): 3xTF32 already is
+    using P3 = P;
+    __device__ __forceinline__ static P3 from_c3(const float* c) { return from_c(c); }
 };
 
 // bf16 inputs: 16-deep bf16 steps; P and dS split hi + lo
@@ -239,6 +244,28 @@ template <> struct Mma<__nv_bfloat16> {
     }
     __device__ __forceinline__ static void mma(float* d, const P& a, const B& b) {
         mma_bf16(d, a.lo.x, b.x);
+        mma_bf16(d, a.hi.x, b.x);
+    }
+    // from_c kept to ~24 bits (the forward's P, whose rule is ten times
+    // tighter): hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
+    // three products
+    struct P3 { A hi, mid, lo; };
+    __device__ __forceinline__ static void split3(float x0, float x1, uint32_t& hi,
+                                                  uint32_t& mid, uint32_t& lo) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(h);
+        split(x0 - hf.x, x1 - hf.y, mid, lo);
+        hi = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    __device__ __forceinline__ static P3 from_c3(const float* c) {
+        P3 a;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            split3(c[2 * i], c[2 * i + 1], a.hi.x[i], a.mid.x[i], a.lo.x[i]);
+        return a;
+    }
+    __device__ __forceinline__ static void mma(float* d, const P3& a, const B& b) {
+        mma(d, P{a.mid, a.lo}, b);      // lo, then mid
         mma_bf16(d, a.hi.x, b.x);
     }
 };

@@ -1,11 +1,12 @@
 """Flash-attention kernels — two forwards (``csrc/flash_attention_fwd_sm90.cu``,
-wgmma and TMA, for bf16 at hd 64/96/128; ``csrc/flash_attention_fwd.cu``,
-f32 FMA, for f32 and hd 16) and two backward pairs of dQ and dK/dV
+wgmma and TMA, for bf16 at hd 64/96/128; ``csrc/flash_attention_fwd.cu``
+for f32 and hd 16) and two backward pairs of dQ and dK/dV
 (``csrc/flash_attention_dq_sm90.cu`` and ``csrc/flash_attention_dkv_sm90.cu``,
 wgmma and TMA, for bf16 at hd 64/96/128; ``csrc/flash_attention_dq.cu`` and
-``csrc/flash_attention_dkv.cu``, warp-level ``mma.sync`` on the tensor cores
-with ``cp.async`` double buffering — 3xTF32 for f32, bf16 for bf16 — for
-f32 and hd 16) — with their plain versions and the
+``csrc/flash_attention_dkv.cu`` for f32 and hd 16).  The three kernels of
+f32 and hd 16 run warp-level ``mma.sync`` on the tensor cores with
+``cp.async`` double buffering — 3xTF32 for f32, bf16 for bf16 — and share
+``csrc/flash_mma.cuh``.  With them, their plain versions and the
 ``torch.autograd.Function`` that ties them together.
 ``_fwd_kernel_for`` and ``_bwd_kernel_for`` pick the kernels from the dtype
 and the head width alone.
@@ -236,8 +237,9 @@ def _check_cuda(*ts: torch.Tensor) -> None:
 
 def _fwd_kernel_for(dtype: torch.dtype, hd: int) -> str:
     """The forward kernel for inputs of ``dtype`` at head width ``hd``: the
-    Hopper kernel for bf16 at hd 64, 96 or 128, the f32-FMA kernel for the
-    rest (f32, and hd 16)."""
+    Hopper kernel (wgmma, bf16 only) for bf16 at hd 64, 96 or 128, the
+    ``mma.sync`` tensor-core kernel (3xTF32 in f32) for the rest (f32, and
+    hd 16)."""
     return SM90_NAME if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS else NAME
 
 

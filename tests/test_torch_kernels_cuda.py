@@ -27,7 +27,10 @@ leaves bit for bit and each interior level at rtol 1e-5 plus 1e-6 of its
 own magnitude.  Flash attention (forward): the five mask cases of
 tests/test_flash_attention.py at (4, 256, 64) f32, hd 16, 96 and 128, a
 ragged S = 200, and the Granite-8B prefill shapes (32, 128/512, 128) in
-bf16; the Hopper forward (bf16) at every mask and hd 64/96/128, ragged S
+bf16; the mma.sync forward of f32 and hd 16 also at (128, 256, 128) f32,
+(32, 128, 16) and a ragged (3, 200, 16) in bf16 and Sk != S both ways,
+with its launch count, bit for bit on a second call, and with NaN rows
+after each tensor that it must not read; the Hopper forward (bf16) at every mask and hd 64/96/128, ragged S
 200 and 1,000, Sk != S, (32, 4096, 128) and the training shape (128,
 256, 128), with its launch count, and with NaN rows after each tensor
 that it must not read; all held by
@@ -394,20 +397,73 @@ FLASH_CASES = [
     (32, 128, 128, "full", 0, True, True, torch.bfloat16),
     (32, 512, 128, "full", 0, True, True, torch.bfloat16),
     (4, 200, 64, "sliding", 64, True, False, torch.bfloat16),
+    (32, 128, 16, "full", 0, True, True, torch.bfloat16),
+    (3, 200, 16, "full", 0, True, True, torch.bfloat16),
+    (128, 256, 128, "full", 0, True, True, torch.float32),
 ]
+
+
+def _fwd_case(dev, n, s, sk, hd, attn, win, causal, glob, dtype):
+    """The forward that _fwd_kernel_for picks against the plain version in
+    f32 on the same inputs: one launch, and (#5b) a second call bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(n * s + hd)
+    q, k, v = ((torch.randn((n, r, hd), generator=g, device=dev) * 0.3).to(dtype)
+               for r in (s, sk, sk))
+    name = tfa._fwd_kernel_for(dtype, hd)
+    before = tops.launch_counts[name]
+    o, lse = tfa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
+    assert tops.launch_counts[name] == before + 1
+    o_ref, lse_ref = tfa.flash_attention_plain(q.float(), k.float(), v.float(), attn, win,
+                                               causal, glob)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    report = parity.flash_check(o, lse, o_ref, lse_ref)
+    assert report.ok, report
+    if name == tfa.NAME:
+        o2, lse2 = tfa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,s,hd,attn,win,causal,glob,dtype", FLASH_CASES)
 def test_cuda_flash_matches_plain(cuda_dev, n, s, hd, attn, win, causal, glob, dtype):
-    g = torch.Generator(device=cuda_dev).manual_seed(n * s + hd)
-    q, k, v = ((torch.randn((n, s, hd), generator=g, device=cuda_dev) * 0.3).to(dtype)
-               for _ in range(3))
-    o, lse = tfa.flash_attention_cuda(q, k, v, attn, win, causal, glob)
-    o_ref, lse_ref = tfa.flash_attention_plain(q.float(), k.float(), v.float(), attn, win,
-                                               causal, glob)
+    _fwd_case(cuda_dev, n, s, s, hd, attn, win, causal, glob, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,sk,hd,attn,win,causal,glob", [
+    (2, 256, 100, 128, "full", 0, False, True), (2, 100, 300, 64, "full", 0, True, True)])
+def test_cuda_flash_fwd_sk_matches_plain(cuda_dev, n, s, sk, hd, attn, win, causal, glob):
+    """#5b with Sk != S both ways, in f32."""
+    _fwd_case(cuda_dev, n, s, sk, hd, attn, win, causal, glob, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,sk,hd,dtype", [(200, 200, 128, torch.float32),
+                                           (130, 1000, 16, torch.float32),
+                                           (77, 45, 64, torch.float32),
+                                           (100, 60, 16, torch.bfloat16),
+                                           (3, 200, 16, torch.bfloat16)])
+def test_cuda_flash_fwd_reads_nothing_past_its_tensors(cuda_dev, s, sk, hd, dtype):
+    """#5b with q, k and v each followed in memory by NaN rows: the
+    asynchronous copies zero-fill the tile rows past S or Sk and never read
+    those rows (a NaN row of V read into the last tile would give
+    0 · NaN = NaN in O)."""
+    n = 3
+    g = torch.Generator(device=cuda_dev).manual_seed(s + sk + hd)
+
+    def guarded(rows):
+        buf = torch.full((n * rows + 128, hd), float("nan"), dtype=dtype, device=cuda_dev)
+        x = buf[: n * rows].view(n, rows, hd)
+        x.copy_(torch.randn((n, rows, hd), generator=g, device=cuda_dev) * 0.3)
+        return x
+
+    q, k, v = guarded(s), guarded(sk), guarded(sk)
+    assert tfa._fwd_kernel_for(dtype, hd) == tfa.NAME
+    o, lse = tfa.flash_attention_cuda(q, k, v)
+    o_ref, lse_ref = tfa.flash_attention_plain(q.float(), k.float(), v.float())
     torch.cuda.synchronize()
-    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
     report = parity.flash_check(o, lse, o_ref, lse_ref)
     assert report.ok, report
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Mutation check of the flash-attention kernels' parity tests, on a GPU.
 
-    python3 tools/flash_mutants.py
+    python3 tools/flash_mutants.py [NAME ...]
 
-For each mutant below, copies ``src/repro_torch`` and
+With names, only those mutants (and the unmutated kernels) run.  For each
+mutant below, copies ``src/repro_torch`` and
 ``tests/test_torch_kernels_cuda.py`` into ``build/mutants/<name>/``,
 applies one edit to one kernel source there (the f32 forward, the Hopper
 forward, the Hopper building blocks of ``sm90.cuh`` that all three Hopper
@@ -36,9 +37,23 @@ MUTANTS = {
     "causal-strict": ("flash_mask.cuh", "if (causal) m = kp <= qp;", "if (causal) m = kp < qp;"),
     "sliding-off-by-one": ("flash_mask.cuh", "kp > qp - window", "kp >= qp - window"),
     # the forward
-    "no-rescale": ("flash_attention_fwd.cu", "acc[i][jj] *= corr;", "acc[i][jj] *= 1.0f;"),
+    "no-rescale": ("flash_attention_fwd.cu", "acc[4 * c + 2 * h] *= corr;",
+                   "acc[4 * c + 2 * h] *= 1.0f;"),
     "no-skip-guard": ("flash_attention_fwd.cu", "if (kp >= Sk) x = -INFINITY;",
                       "if (kp >= Sk + 1) x = -INFINITY;"),
+    # ... the next key tile copied into the stage being read
+    "fwd-stage": ("flash_attention_fwd.cu", "load_kv(kl, (it + STAGES - 1) % STAGES);",
+                  "load_kv(kl, it % STAGES);"),
+    # ... one DEEP warp's (m, l, O) left out of the merge
+    "fwd-merge": ("flash_attention_fwd.cu", "for (int w = 1; w < Sh::SPLIT; ++w) {",
+                  "for (int w = 2; w < Sh::SPLIT; ++w) {"),
+    # ... causal diagonal tiles taken as wholly inside the mask
+    "fwd-whole-causal": ("flash_mask.cuh", "if (causal) r = r && (k_last <= q_start);",
+                         "if (causal) r = r && (k_start <= q_start);"),
+    # ... bf16's P without the first of its three parts
+    "fwd-p3-no-hi": ("flash_mma.cuh",
+                     "mma(d, P{a.mid, a.lo}, b);      // lo, then mid\n        mma_bf16(d, a.hi.x, b.x);",
+                     "mma(d, P{a.mid, a.lo}, b);      // lo, then mid"),
     # the Hopper forward: P_lo dropped (P in bf16 alone, as FlashAttention-2/3)
     "sm90-no-p-lo": ("flash_attention_fwd_sm90.cu",
                      "wgmma_rs<HDP>(acc, &p_lo[4 * kk], dv);", ""),
@@ -151,15 +166,21 @@ def run(name: str, src: str, old: str, new: str) -> tuple[bool, str]:
     env = dict(os.environ, PYTHONPATH=str(work / "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "--noconftest", "-p", "no:cacheprovider",
-         "-m", "cuda", "-k", "flash_matches or flash_sm90 or flash_bwd", str(TEST)],
+         "-m", "cuda", "-k", "flash_matches or flash_fwd or flash_sm90 or flash_bwd", str(TEST)],
         cwd=work, env=env, capture_output=True, text=True, timeout=900)
     summary = (proc.stdout.strip().splitlines() or ["(no output)"])[-1]
     return proc.returncode == 0 and " passed" in summary, summary
 
 
 def main() -> None:
+    names = sys.argv[1:]
+    unknown = [n for n in names if n not in MUTANTS]
+    if unknown:
+        raise SystemExit(f"unknown mutants {unknown}; known: {list(MUTANTS)}")
     bad = []
     for name, (src, old, new) in MUTANTS.items():
+        if names and name != "none" and name not in names:
+            continue
         passed, summary = run(name, src, old, new)
         edit = f"{src}: {old!r} -> {new!r}" if old else "unmutated kernels"
         print(f"[mutant] {name}: {edit}: {summary}", flush=True)
@@ -167,7 +188,8 @@ def main() -> None:
             bad.append(name)
     if bad:
         raise SystemExit(f"flash_mutants: FAIL: {bad} (a mutant passed, or the kernel failed)")
-    print(f"flash_mutants: every one of {len(MUTANTS) - 1} mutants fails the parity check")
+    print(f"flash_mutants: every one of {len(names) or len(MUTANTS) - 1} mutants fails the "
+          "parity check")
 
 
 if __name__ == "__main__":
