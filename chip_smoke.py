@@ -384,6 +384,26 @@ failure and prints no result):
                 decode_32k cells at 16x16 over a fake group of 256 ranks on
                 the meta device (started in a process of its own before
                 phase 21): each ends ok, its three terms printed.
+ 28. the port's lint — (a) tools/repro_lint_torch.py --check exits 0
+                (findings by rule, waivers by rule and ROADMAP item); (b)
+                each step program of the lint's registry that has a card
+                path (the fused and async loop steps, replay sample/update/
+                flush in the lazy, eager and fused arms, the DQN, DDPG, TD3
+                and SAC learns, the token-DQN train step at InternLM2's
+                SMOKE width in f32 with flash, the token collect, the
+                engine's prime, insert, decode step and release at
+                Granite-8B's SMOKE width, Hymba's and xLSTM's SMOKE
+                forwards) runs a few calls under
+                torch.cuda.set_sync_debug_mode("warn"); every sync's
+                innermost frame under src/repro_torch that lies in a
+                registered program's scope is an R401/R404 line of the
+                lint, flagged or waived (missed=0), the CartPole steps
+                sync 0 times, and #1-#4 and #5b-#7b launch; (c) a .item()
+                seeded into the DQN learn is recorded by the card at its
+                line and flagged R404 there by the lint; (d) each entry of
+                the lint's in-place table returns its argument's own
+                storage on the card (ShardedExecutor.run_chunk on a gloo
+                group of this one process).
 
 Between phases 4 and 5 a torch.profiler window of 20 main-path
 iterations gives the device-busy share and the ops per iteration.
@@ -5617,6 +5637,337 @@ def sharded_serve_phase(torch, dev, card: str, dryrun=None, ranks=None) -> dict:
             "departures": departures}
 
 
+# -- phase 28: the port's lint on the card ---------------------------------------
+
+LINT_CALLS = 3          # witnessed calls of each step program
+
+
+def _cartpole_executor(torch, dev, kind: str):
+    """The main path's CartPole executor (8 envs, DQN (4, 256, 256, 2), K=128,
+    batch 64, ε 0.2) with a short warmup, stepped past it, → (executor,
+    state)."""
+    from repro_torch.agents.dqn import DQNConfig, make_dqn
+    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.quickstart import transition_example
+    from repro_torch.runtime.executors import AsyncExecutor, FusedExecutor
+    from repro_torch.runtime.loop import LoopConfig
+
+    env_fn = lambda n: make_vec("cartpole", n)  # noqa: E731
+    spec, _, _ = env_fn(1)
+    replay = PrioritizedReplay(ReplayConfig(capacity=20_000, fanout=128),
+                               transition_example(spec), device=dev)
+    cfg = LoopConfig(batch_size=64, warmup=64, epsilon=0.2)
+    agent = make_dqn(spec, DQNConfig())
+    ex = (AsyncExecutor(agent, replay, env_fn, cfg, n_envs=8, publish_interval=2, device=dev)
+          if kind == "async" else FusedExecutor(agent, replay, env_fn, cfg, n_envs=8,
+                                                device=dev))
+    state, _ = ex.run(ex.init(SEED), 12)
+    check(state.learn_steps > 0, f"28: the {kind} loop has not learned after 12 iterations")
+    return ex, state
+
+
+def _stepper(step, state):
+    """A call that advances ``state`` by one ``step``."""
+    box = [state]
+
+    def call():
+        box[0], metrics = step(box[0])
+        return metrics
+    return call
+
+
+def _lint_programs(torch, dev) -> dict:
+    """Phase 28(b)'s step programs on the card → {name: (call, calls)}."""
+    import numpy as np
+
+    from repro_torch.agents import ddpg, sac, td3, token_dqn
+    from repro_torch.configs import get_config
+    from repro_torch.core.replay import PrioritizedReplay, ReplayConfig
+    from repro_torch.envs import token_mdp
+    from repro_torch.envs.classic import make_vec
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import backbone
+    from repro_torch.quickstart import transition_example
+    from repro_torch.serve.buckets import BucketSpec
+    from repro_torch.serve.engine import DecodeEngine
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import xlstm
+
+    progs = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    # one iteration a call, through the executor's run_chunk
+    fused, f_state = _cartpole_executor(torch, dev, "fused")
+    progs["loop step, fused executor (CartPole)"] = (
+        _stepper(lambda s: fused.run_chunk(s, 1), f_state), LINT_CALLS)
+    asy, a_state = _cartpole_executor(torch, dev, "async")
+    progs["loop step, async executor (CartPole)"] = (
+        _stepper(lambda s: asy.run_chunk(s, 1), a_state), LINT_CALLS)
+
+    # replay sample → priority write → flush in the three arms
+    spec_env, _, _ = make_vec("cartpole", 1)
+    example = transition_example(spec_env)
+    items = {k: torch.zeros((512,) + tuple(v.shape), dtype=v.dtype, device=dev)
+             for k, v in example.items()}
+    for arm, fused_arm, lazy in (("lazy", False, True), ("eager", False, False),
+                                 ("fused", True, True)):
+        replay = PrioritizedReplay(ReplayConfig(capacity=50_000, fanout=128,
+                                                fused_sample_gather=fused_arm),
+                                   example, device=dev)
+        rs = replay.flush(replay.append(replay.init(), items, lazy=True))
+        td = torch.rand((64,), generator=gen, device=dev)
+
+        def chain(replay=replay, box=[rs], lazy=lazy, td=td):
+            idx, got, w = replay.sample(box[0], gen, 64)
+            box[0] = replay.flush(replay.update_priorities(box[0], idx, td, lazy=lazy))
+            return got, w
+        progs[f"replay sample, update, flush ({arm} arm)"] = (chain, LINT_CALLS)
+
+    # the one-leaf gather (#2) on the last arm's storage
+    g_idx = torch.randint(0, 512, (64,), generator=gen, device=dev)
+    g_leaf = rs.storage["obs"]
+    progs["one-leaf gather"] = (lambda: ops.prioritized_gather(g_leaf, g_idx), LINT_CALLS)
+
+    # one learn call of each CartPole and Pendulum agent on a sampled batch
+    fused_batch = fused.replay.sample(fused.replay.flush(f_state.replay), gen, 64)
+    progs["DQN learn"] = (lambda: fused.agent.learn(f_state.agent, fused_batch[1],
+                                                     fused_batch[2]), LINT_CALLS)
+    p_spec, _, _ = make_vec("pendulum", 1)
+    p_ex = transition_example(p_spec)
+    p_batch = {k: torch.rand((64,) + tuple(v.shape), generator=gen, device=dev).to(v.dtype)
+               for k, v in p_ex.items()}
+    w = torch.ones((64,), device=dev)
+    for name, agent in (("DDPG", ddpg.make_ddpg(p_spec, ddpg.DDPGConfig())),
+                        ("TD3", td3.make_td3(p_spec, td3.TD3Config())),
+                        ("SAC", sac.make_sac(p_spec, sac.SACConfig()))):
+        a_st = agent.init(torch.Generator(device=dev).manual_seed(SEED))
+        progs[f"{name} learn"] = (lambda agent=agent, a_st=a_st: agent.learn(a_st, p_batch, w),
+                                  LINT_CALLS)
+
+    # the token-DQN train step at InternLM2's SMOKE width, f32, flash (#5b-#7b)
+    t_cfg = dataclasses.replace(get_config("internlm2_1_8b", smoke=True), attn_impl="flash",
+                                dtype="float32")
+    tcfg = token_dqn.TokenDQNConfig()
+    t_state = token_dqn.init_train_state(t_cfg, tcfg, torch.Generator(device=dev).manual_seed(
+        SHARD_SEED))
+    t_batch = shard_token_batch(torch, t_cfg, dev)
+    progs["token-DQN train_step (InternLM2 SMOKE, f32, flash)"] = (
+        lambda: token_dqn.train_step(t_cfg, token_dqn.NO_SHARDING, tcfg, t_state, t_batch)[1],
+        2)
+    # the token trainer's collect at the same width (16 steps of 8 actors)
+    gens = {k: torch.Generator(device=dev).manual_seed(SEED + i)
+            for i, k in enumerate(("action", "epsilon", "env"))}
+    reset, step_env, _ = token_mdp.make(token_mdp.TokenMDPSpec(vocab=t_cfg.vocab_size),
+                                        torch.Generator(device=dev).manual_seed(SEED), 8)
+    env_state, obs = reset(torch.Generator(device=dev).manual_seed(SEED + 1))
+    progs["token trainer collect (InternLM2 SMOKE, 16 steps)"] = (
+        lambda: ltrain.collect(t_cfg, t_state.params, step_env, env_state, obs, 16, gens), 1)
+
+    # the actor server's engine at Granite-8B's SMOKE width
+    s_cfg = get_config("granite_8b", smoke=True)
+    s_params = backbone.init_params(s_cfg, torch.Generator(device=dev).manual_seed(SEED + 5))
+    eng = DecodeEngine(s_cfg, slots=2, max_len=16, buckets=BucketSpec((8,)), device=dev)
+    e_state = eng.init_state()
+    prompt = np.arange(5, dtype=np.int32) + 3
+    primed = eng.prime(s_params, prompt)
+    progs["engine prime (Granite-8B SMOKE)"] = (lambda: eng.prime(s_params, prompt), LINT_CALLS)
+    progs["engine insert"] = (lambda: eng.insert(e_state, 0, primed[1], primed[0]), LINT_CALLS)
+
+    def decode(box=[e_state]):
+        actions, box[0] = eng.step(s_params, box[0])
+        return actions
+    progs["engine decode step"] = (decode, LINT_CALLS)
+    progs["engine release"] = (lambda: eng.release(e_state, 1), LINT_CALLS)
+    # the recurrent families' forward at SMOKE width (the sLSTM's scalars),
+    # xLSTM's also with the chunkwise mLSTM (64 tokens: one MLSTM_CHUNK)
+    for arch, chunked in (("hymba_1_5b", False), ("xlstm_125m", False),
+                          ("xlstm_125m", True)):
+        r_cfg = get_config(arch, smoke=True)
+        if chunked:
+            r_cfg = dataclasses.replace(r_cfg, mlstm_chunked=True)
+        r_params = backbone.init_params(r_cfg, torch.Generator(device=dev).manual_seed(SEED))
+        toks = torch.randint(0, r_cfg.vocab_size, (2, 64), generator=gen, device=dev)
+
+        def fwd(r_cfg=r_cfg, r_params=r_params, toks=toks):
+            with torch.no_grad():
+                return backbone.forward(r_cfg, r_params, toks)
+        progs[f"forward ({r_cfg.name}{', chunked mLSTM' if chunked else ''})"] = (fwd, 1)
+    # the xLSTM cells' prefill state (no caller in the port yet: driven
+    # here on the first mLSTM and the first sLSTM block)
+    blocks = {kind: block[kind] for block in reversed(r_params.blocks)
+              for kind in ("mlstm", "slstm") if kind in block}
+    x_in = torch.randn((2, 64, r_cfg.d_model), generator=gen, device=dev)
+
+    def prefill_states(r_cfg=r_cfg):
+        with torch.no_grad():
+            return (xlstm.mlstm_prefill_state(r_cfg, blocks["mlstm"],
+                                              x_in.to(blocks["mlstm"].wq.dtype)),
+                    xlstm.slstm_prefill_state(r_cfg, blocks["slstm"],
+                                              x_in.to(blocks["slstm"].w_out.dtype)))
+    progs[f"mLSTM and sLSTM prefill state ({r_cfg.name})"] = (prefill_states, 1)
+    return progs
+
+
+# registry entries phase 28(b) does not run, and where their card runs are
+LINT_NOT_WITNESSED = {
+    "launch/multiprocess.py": "a gang process of its own (phases 19, 20)",
+    "runtime/executors.py::ShardedExecutor": "the ranks of phase 18",
+    "launch/train.py::_make_param_averager": "the wall-clock gang's ranks (phase 20(e))",
+    "service/": "the replay service's gang and executor (phase 19)",
+    "models/backbone.py::_whisper_forward": "Whisper-medium at full width (phase 25)",
+    "models/layers.py::_attn_chunked_q": "the chunked-query attention, which no phase's "
+                                         "config selects",
+}
+
+
+def lint_phase(torch, dev, card: str) -> dict:
+    """Phase 28: the port's lint (a), its host-sync rule against the card's
+    sync-debug mode (b), a seeded sync both ways (c), the in-place table
+    against the card's storage (d)."""
+    import importlib.util
+
+    from repro_torch.analysis import donation, retrace
+    from repro_torch.analysis.cli import all_findings
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lint_witness as lw
+
+    t0 = time.perf_counter()
+    res = {}
+    # (a) the lint, as a user runs it, beside (b)'s set-up
+    out_dir = HERE / "build"
+    out_dir.mkdir(exist_ok=True)
+    report = out_dir / "repro_lint_torch.json"
+    proc = subprocess.Popen([sys.executable, str(HERE / "tools" / "repro_lint_torch.py"),
+                             "--check", "--report", str(report)], cwd=str(HERE),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        progs = _lint_programs(torch, dev)
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"28(a) tools/repro_lint_torch.py --check exited "
+          f"{proc.returncode}: {out[-4000:]}")
+    flagged = {}
+    for f in json.loads(report.read_text())["findings"]:
+        flagged[f["rule"]] = flagged.get(f["rule"], 0) + 1
+    items = lw.waivers_by_item()
+    res["a"] = {"flagged": flagged, "waivers_by_item": items}
+    print(f"[lint a] tools/repro_lint_torch.py --check: exit 0, "
+          f"{out.strip().splitlines()[-1]}; findings by rule {flagged}; waivers by rule and "
+          f"ROADMAP item {items} | {card}", flush=True)
+
+    # (b) every step program's syncs under the card's sync-debug mode
+    index = lw.LintIndex()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    witnessed = {}
+    for name, (call, calls) in progs.items():
+        witnessed[name] = lw.witness(index, call, calls)
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    res["b"] = {"programs": witnessed, "launches": launches}
+    for name, w in witnessed.items():
+        sites = "; ".join(f"{s['file']}:{s['line']} {s['function']} {s['kind']}"
+                          f"{' ' + s['rule'] if s['rule'] else ''}"
+                          f"{' (waived)' if s['waived'] else ''}"
+                          f"{' (outside the scope)' if s['kind'] == 'missed' and not s['scoped'] else ''}"
+                          f" x{s['count']}" for s in w["sites"]) or "none"
+        print(f"[lint b] {name}: {w['per_call']:g} host syncs a call ({w['syncs']} in "
+              f"{w['calls']} calls), missed={w['missed']}; sites: {sites}; registry entries "
+              f"reached: {sorted(w['reached'])} | {card}", flush=True)
+    missed = sum(w["missed"] for w in witnessed.values())
+    print(f"[lint b] missed={missed} over {len(witnessed)} programs; launches {launches} "
+          f"| {card}", flush=True)
+    check(missed == 0, "28(b) the card synchronized at lines of the port that the lint does "
+          "not flag: " + json.dumps(
+              {n: [s for s in w["sites"] if s["kind"] == "missed"]
+               for n, w in witnessed.items() if w["missed"]}))
+    for name in ("loop step, fused executor (CartPole)", "loop step, async executor (CartPole)"):
+        check(witnessed[name]["syncs"] == 0,
+              f"28(b) the {name} synchronized: {witnessed[name]['sites']}")
+    for kernel in ("sumtree_sample", "gather", "sample_gather", "sumtree_update",
+                   "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
+        check(launches.get(kernel, 0) > 0,
+              f"28(b) the witnessed programs never launched {kernel}: {launches}")
+    # every registry entry is reached by a witnessed program, or its card
+    # runs are elsewhere
+    reached = {ref for w in witnessed.values() for ref in w["reached"]}
+    unreached = []
+    for prog in retrace.REGISTRY:
+        why = next((r for k, r in LINT_NOT_WITNESSED.items() if prog.ref.startswith(k)), None)
+        if why and prog.ref not in reached:
+            print(f"[lint b] not witnessed here: {prog.ref} -> {', '.join(prog.port)}: {why}",
+                  flush=True)
+        elif prog.ref not in reached:
+            unreached.append(prog.ref)
+    res["b"]["reached"] = sorted(reached)
+    print(f"[lint b] {len(reached)} of {len(retrace.REGISTRY)} registry entries reached by the "
+          f"witnessed programs | {card}", flush=True)
+    check(not unreached, f"28(b) registry entries that no witnessed program reached and "
+          f"LINT_NOT_WITNESSED does not name: {unreached}")
+
+    # (c) a seeded sync: the DQN learn with .item() of its loss, caught both ways
+    src = (HERE / "src" / "repro_torch" / "agents" / "dqn.py").read_text()
+    before = "        grads, aux = grads_fn(state, batch, is_w)\n"
+    check(before in src, "28(c) agents/dqn.py's learn has moved: update the seeded sync")
+    seeded_dir = HERE / "build" / "lint_seeded"
+    seeded_dir.mkdir(parents=True, exist_ok=True)
+    seeded = seeded_dir / "dqn.py"
+    seeded.write_text(src.replace(before, before + "        aux['loss'].item()\n", 1))
+    seed_line = src[:src.index(before)].count("\n") + 2
+    spec_ = importlib.util.spec_from_file_location("lint_seeded_dqn", seeded)
+    mod = importlib.util.module_from_spec(spec_)
+    sys.modules[spec_.name] = mod       # its dataclasses look their module up
+    spec_.loader.exec_module(mod)
+    from repro_torch.envs.classic import make_vec
+
+    c_spec, _, _ = make_vec("cartpole", 1)
+    s_agent = mod.make_dqn(c_spec, mod.DQNConfig())
+    s_state = s_agent.init(torch.Generator(device=dev).manual_seed(SEED))
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    s_batch = ({"obs": torch.rand((64, 4), generator=g, device=dev),
+                "action": torch.randint(0, 2, (64,), generator=g, device=dev,
+                                        dtype=torch.int32),
+                "reward": torch.rand((64,), generator=g, device=dev),
+                "next_obs": torch.rand((64, 4), generator=g, device=dev),
+                "done": torch.zeros((64,), device=dev)}, torch.ones((64,), device=dev))
+    s_index = lw.LintIndex(overrides={str(seeded): "agents/dqn.py"})
+    sw = lw.witness(s_index, lambda: s_agent.learn(s_state, *s_batch), 1)
+    at_line = [s for s in sw["sites"] if s["file"] == "agents/dqn.py"
+               and s["line"] == seed_line]
+    lint_lines = [f.line for f in all_findings(str(seeded), "src/repro_torch/agents/dqn.py")[0]
+                  if f.rule == "R404"]
+    res["c"] = {"line": seed_line, "witness": sw["sites"], "lint_lines": lint_lines}
+    check(at_line and at_line[0]["kind"] == "finding" and at_line[0]["rule"] == "R404"
+          and not at_line[0]["waived"] and seed_line in lint_lines,
+          f"28(c) the seeded sync at agents/dqn.py:{seed_line}: witness {sw['sites']}, "
+          f"the lint's R404 lines {lint_lines}")
+    print(f"[lint c] a seeded .item() in the DQN learn (agents/dqn.py:{seed_line}): the card "
+          f"synchronized there ({at_line[0]['count']} sync) and the lint flags R404 at that "
+          f"line of the patched source | {card}", flush=True)
+
+    # (d) every in-place table entry returns its argument's own storage
+    aliases = {}
+    cases = lw.inplace_cases(dev)
+    with lw.world_one("gloo"):
+        for entry, case in cases.items():
+            aliases[f"{entry.module}::{entry.func}"] = bool(case())
+    torch.cuda.synchronize()
+    res["d"] = aliases
+    entries = {f"{e.module}::{e.func}": e.site for e in donation.IN_PLACE}
+    check(all(aliases.values()), f"28(d) in-place entries whose result does not share the "
+          f"argument's storage: {[k for k, v in aliases.items() if not v]}")
+    print(f"[lint d] {len(aliases)} in-place table entries on the card, each returning its "
+          f"argument's own storage: {json.dumps({k: entries[k] for k in aliases})}; "
+          f"no counterpart: {[n.site for n in donation.NO_COUNTERPART]} | {card}", flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[lint] phase 28 in {res['seconds']:.1f} s | {card}", flush=True)
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -6155,6 +6506,10 @@ def main() -> None:
             "27(a) unsharded server": serve27["a"]["unsharded"]["launches"].get(name, 0),
             "27(a) 1x1 server": serve27["a"]["sharded"]["launches"].get(name, 0),
             "27(b) 1x2, each rank": [r["launches"].get(name, 0) for r in serve27["b"]]}
+    clock("28 (the port's lint)")
+    lint = lint_phase(torch, dev, card)
+    for entry in kernels:
+        entry["lint_witness_launches"] = lint["b"]["launches"].get(entry["name"], 0)
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

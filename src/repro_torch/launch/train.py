@@ -227,6 +227,7 @@ def make_param_averager(world: int):
     @torch.no_grad()
     def sync(module: torch.nn.Module) -> None:
         params = list(module.parameters())
+        # repro-lint: disable=R404(the gang's parameter mean goes through the host by design, one f32 vector over gloo; ROADMAP item 37 keeps it on the device)
         host = torch.cat([p.detach().reshape(-1).to("cpu", torch.float32) for p in params])
         dist.all_reduce(host)
         host /= world

@@ -44,6 +44,7 @@ def _const(value: float, like: torch.Tensor) -> torch.Tensor:
     """A scalar for the binary ``torch.maximum``/``minimum``, whose
     gradient splits evenly at a tie, as ``jnp.maximum``'s does (the sLSTM's
     first step meets its floor n = 1 exactly); ``clamp`` would pass it all."""
+    # repro-lint: disable=R404(a host scalar copied to the device at each recurrent step; ROADMAP held work B, the recurrent decode and collect)
     return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 

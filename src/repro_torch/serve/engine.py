@@ -119,6 +119,7 @@ class DecodeEngine:
         positions >= pos and are overwritten by real decode keys before
         the causal mask can see them."""
         prompt = np.asarray(prompt, np.int32)
+        # repro-lint: disable=R404(the prompt's tokens arrive on the host; ROADMAP held work B, the decode dispatch, stages them without a wait)
         padded = torch.from_numpy(self.buckets.pad(prompt)).to(self.device, torch.int64)
         self._prime_shapes.add(tuple(padded.shape))
         logits, cache = backbone.prefill(self.cfg, params, padded, max_len=self.max_len,
@@ -137,10 +138,12 @@ class DecodeEngine:
             backbone.write_slot(state.cache[name], slot, slot_cache[name])
         L.local(state.cache["pos"])[slot] = L.local(slot_cache["pos"])[0]
         state.tokens[slot, 0] = tok
+        # repro-lint: disable=R404(the busy flag is a host bool copied to the card; ROADMAP held work B, the decode dispatch)
         state.active[slot] = True
         return state
 
     def release(self, state: DecodeState, slot: int) -> DecodeState:
+        # repro-lint: disable=R404(the busy flag is a host bool copied to the card; ROADMAP held work B, the decode dispatch)
         state.active[slot] = False
         return state
 

@@ -310,7 +310,9 @@ class ReplayService:
                     self._outstanding.pop(next(iter(self._outstanding)))
             # the rows are fresh tensors (the gathers copy), so the host
             # copies, each a sync, need not hold the lock
+            # repro-lint: disable=R404(the wire carries host arrays; ROADMAP held work C, the service learn step)
             items = {k: v.cpu().numpy() for k, v in items.items()}
+            # repro-lint: disable=R404(the wire carries host arrays; ROADMAP held work C, the service learn step)
             weights = w.cpu().numpy()
         return {"stopped": self._stopped.is_set(), "sample_id": sid,
                 "items": items, "weights": weights}
