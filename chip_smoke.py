@@ -214,13 +214,30 @@ failure and prints no result):
                 metric, the tree and the storage bit for bit, one #1 and one #2
                 launch a learner call; and an ActorServer at granite_8b SMOKE
                 (f32) whose param_source is a ReplayService on the card, swapping
-                to a version put mid-run.
+                to a version put mid-run; (d) the chaos drill
+                (launch/chaos_drill.py): the 1-shard gang at (a)'s settings,
+                300 learn steps, every append snapshotted, the server
+                hard-killed at its 30th append and a fresh one restoring the
+                snapshot onto the card and the same port: every contract of
+                check_drill (restored, each actor's acked appends equal to the
+                server's applied count for it, every actor reconnected, no
+                more duplicates dropped than the clients saw, the band, 300
+                learn steps), the restored server's launches one descent and
+                one gather for each sample it served (SAMPLE_CALLS less the
+                RESTORED_SAMPLE_CALLS the snapshot carried over).
  20. dse      — the paper's design-space exploration and the wall-clock gang
                 (runtime/dse.py, runtime/planner.py, executor_from_plan,
-                launch/multiprocess.py's gang): (a) the lane curves of
-                benchmarks/fig12_dse.py on the card (10 act+env steps of 1, 2,
-                4, 8 CartPole envs; 10 DQN learn calls at batch 32 x lanes),
-                Eq. 5 at a budget of 8 lanes and update interval 1 and 4, the
+                launch/multiprocess.py's gang): (a) planner.profile(smoke=True)
+                on the card (runtime/sweeps.py: the fused and async points at
+                publish intervals 1 and 2 in this process, the 1- and 2-shard
+                and 2x1 pod points on meshes of ranks, every point 8 envs,
+                40 iterations, median of 3; the lane curves of
+                benchmarks/fig12_dse.py: 10 act+env steps of 1, 2, 4 CartPole
+                envs, 10 DQN learn calls at batch 32 x lanes; the 8-lane
+                point added after it, so the curves keep fig12_dse's lanes
+                1, 2, 4, 8), as many descents
+                as gathers in this process; Eq. 5 at a budget of 8 lanes and
+                update interval 1 and 4, the
                 planner's plan from those curves built by executor_from_plan on
                 the card at the main path's width (DQN (4, 256, 256, 2), replay
                 20,000 x K=128, batch 64, warmup 64) and run 100 iterations:
@@ -241,7 +258,13 @@ failure and prints no result):
                 launched as the code predicts on each worker (with remat,
                 three forwards a step), none of the Hopper ones; then those
                 three kernels' times at the trainer's shape (32, 128, 16) f32
-                causal beside their plain versions, SDPA and their bounds.
+                causal beside their plain versions, SDPA and their bounds; (f),
+                right after (a): the planner's plan from (a)'s points and
+                curves (every point finite and positive at one n_envs, the plan
+                a measured point at that point's measured rate), realized by
+                sweeps.realize_plan for 40 iterations (in this process, or on
+                its mesh's ranks): one descent and one gather a learner call,
+                a finite loss, realized against predicted recorded.
  21. big dense — Qwen1.5-32B and Command-R-35B, one at a time on a card that
                 holds nothing else: (a) at full width and 4 layers, bf16 flash
                 prefill logits against naive bf16 and both against the same
@@ -2705,6 +2728,8 @@ def sharded_phase(torch, dev, card: str, ranks=None) -> dict:
 SERVICE_LEARN_STEPS = 1400     # 19(a): the reference's run length, never shortened
 SERVICE_RESTART_STEPS = 200    # 19(b): the 2-shard fused gang, restarted at 100 (400 until PR 27)
 SERVICE_EXEC_ITERS = 200       # 19(c): ServiceExecutor against FusedExecutor
+DRILL_LEARN_STEPS = 300        # 19(d): the chaos drill, the reference tool's defaults
+DRILL_RESTART_AFTER = 30
 SERVICE_GANG = dict(n_actors=2, samples_per_insert=8.0, batch_size=64, warmup=400,
                     n_envs=8, actor_chunk=8, epsilon=0.2, seed=1, device="cuda")
 
@@ -2725,12 +2750,14 @@ def service_launches(kv: dict) -> dict:
 
 
 def service_gangs() -> tuple:
-    """19(a) and (b), one gang after the other → ((results, seconds) of
-    each).  They touch nothing of this process but the card, so ``main``
-    runs them beside phases 15-16, 22 and 19(c)."""
+    """19(a), (b) and the chaos drill (d), one gang after the other →
+    ((results, seconds) of (a) and (b), the drill's report).  They touch
+    nothing of this process but the card, so ``main`` runs them beside
+    phases 15-16, 22 and 19(c)."""
     import shutil
     import tempfile
 
+    from repro_torch.launch import chaos_drill
     from repro_torch.launch import multiprocess as mp
 
     t0 = time.perf_counter()
@@ -2748,7 +2775,9 @@ def service_gangs() -> tuple:
         secs_b = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    return (a, secs), (b, secs_b)
+    drill = chaos_drill.run_drill(DRILL_LEARN_STEPS, DRILL_RESTART_AFTER, device="cuda",
+                                  timeout_s=420.0)
+    return (a, secs), (b, secs_b), drill
 
 
 def service_phase(torch, dev, card: str, gangs=None) -> dict:
@@ -2847,7 +2876,7 @@ def service_phase(torch, dev, card: str, gangs=None) -> dict:
           f"{st['completed']} requests completed, the live model's "
           f"{len(live.state_dict())} tensors equal to the published | {card}", flush=True)
     # (a) and (b): the gangs, waited for here where they ran beside this process
-    (a, secs), (b, secs_b) = gangs.result() if gangs else service_gangs()
+    (a, secs), (b, secs_b), drill = gangs.result() if gangs else service_gangs()
     # (a) the 1-shard gang at the main path's width: #1 and #2 once a sample
     server, learner = a["server"], a["learner"]
     debt, eb = spi_band(server)
@@ -2915,70 +2944,58 @@ def service_phase(torch, dev, card: str, gangs=None) -> dict:
     res["b"] = {"seconds": secs_b, "launches": launches_b, "samples": calls,
                 "wall_ms_per_learn": float(learner["WALL_PER_LEARN_MS"]),
                 "return": float(learner["EVAL_RETURN"]), "counts": counts}
+    # (d) the chaos drill: the server hard-killed at its 30th append, restored
+    workers = drill["workers"]
+    server = workers["server"]
+    launches_d = service_launches(server)
+    roles = ["server", "learner"] + [f"actor-{i}" for i in range(2)]
+    check(all(workers[r]["DEVICE"].startswith("cuda") for r in roles)
+          and server["TREE_BACKEND"] == "cuda",
+          f"19(d) a role did not run on the card: {[workers[r].get('DEVICE') for r in roles]}")
+    check(drill["ok"], f"19(d) the chaos drill broke its contracts: {drill['failures']}")
+    served_d = int(server["SAMPLE_CALLS"]) - int(server["RESTORED_SAMPLE_CALLS"])
+    check(0 < served_d == launches_d["sumtree_sample"] == launches_d["gather"]
+          and not launches_d["sample_gather"] and not launches_d["sumtree_update"],
+          f"19(d) the restored server launched {launches_d} for {served_d} samples of its own "
+          f"({server['SAMPLE_CALLS']} in all, {server['RESTORED_SAMPLE_CALLS']} restored from "
+          "the snapshot): want one descent and one gather a sample, no fused or update kernel")
+    applied = {k: int(v) for k, v in (kv.split(":") for kv in server["WRITER_APPENDS"].split(","))}
+    debt_d, eb_d = spi_band(server)
+    print(f"[service d] chaos drill (launch/chaos_drill.py): 1 server + 2 actors + 1 learner on "
+          f"{server['DEVICE']}, every append snapshotted, the server os._exit(42) at append "
+          f"{DRILL_RESTART_AFTER} and a fresh one restored step {server['RESTORED_STEP']} onto "
+          f"the card and the same port: {workers['learner']['LEARN_STEPS']} learn steps, acked "
+          f"= applied {applied}, reconnects "
+          f"{[int(workers[f'actor-{i}']['RECONNECTS']) for i in range(2)]}, duplicates dropped "
+          f"{server['DUP_APPENDS']}, band debt {debt_d:.1f} of {eb_d:.1f}, {server['SNAPSHOTS']} "
+          f"snapshots after the restore; the restored server's launches {launches_d}; every "
+          f"contract held; the drill {drill['wall_s']:.1f} s with its starts, after (a) and (b) "
+          f"beside 15-16, 22 and 19(c) | {card}", flush=True)
+    res["d"] = {"seconds": drill["wall_s"], "restored_step": int(server["RESTORED_STEP"]),
+                "launches": launches_d, "applied": applied,
+                "learn_steps": int(workers["learner"]["LEARN_STEPS"])}
     res["seconds"] = time.perf_counter() - t_phase
     print(f"[service] phase 19 in {res['seconds']:.1f} s, the gangs' wait included", flush=True)
-    print(f"[service rate] {json.dumps({k: res[k] for k in ('a', 'b', 'c')})}", flush=True)
+    print(f"[service rate] {json.dumps({k: res[k] for k in ('a', 'b', 'c', 'd')})}", flush=True)
     return res
 
 
 # -- phase 20: the DSE, the planner and the wall-clock gang on the one card ------
 
-DSE_LANES = (1, 2, 4, 8)        # 20(a): the profiled lane counts (fig12_dse's)
 DSE_ITERS = 100                 # 20(a): the plan-built executor's run (200 until PR 25)
 GANG_FUSED_ITERS = 30           # 20(b): tests/test_multiprocess.py's degenerate launch
 GANG_BENCH = ["--mode", "bench", "--n-data", "2", "--n-envs", "8", "--iters", "12",
               "--repeats", "3", "--scan-chunk", "20"]      # 20(c) (24 iters until PR 27)
 WALLCLOCK_STEPS = 3             # 20(e): each worker's train steps
+REALIZE_ITERS = 40              # 20(f): the planned config's realized run (the smoke sweeps')
 
 
-def dse_actor_throughput(torch, dev, lanes: int) -> float:
-    """benchmarks/fig12_dse.py's actor curve on the card: 10 act + env
-    steps of ``lanes`` CartPole envs with the port's DQN, ending in a
-    sync → env steps/s."""
-    from repro_torch.agents.dqn import DQNConfig, make_dqn
-    from repro_torch.envs.classic import make_vec
-    from repro_torch.runtime import dse
-
-    spec, v_reset, v_step = make_vec("cartpole", lanes)
-    agent = make_dqn(spec, DQNConfig())
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    agent_state = agent.init(gen)
-    env_state, obs = v_reset(gen)
-
-    def fn():
-        nonlocal env_state, obs
-        for _ in range(10):
-            a = agent.act(agent_state, obs, gen, 0.1)
-            env_state, obs, _, _, _ = v_step(env_state, a, gen)
-        torch.cuda.synchronize()
-
-    return dse.measure_throughput(fn, 10 * lanes)
-
-
-def dse_learner_throughput(torch, dev, lanes: int) -> float:
-    """benchmarks/fig12_dse.py's learner curve on the card: 10 learn calls
-    of the port's DQN at batch 32·lanes, ending in a sync → batch items/s."""
-    from repro_torch.agents.dqn import DQNConfig, make_dqn
-    from repro_torch.envs.classic import make_vec
-    from repro_torch.runtime import dse
-
-    spec, _, _ = make_vec("cartpole", 1)
-    agent = make_dqn(spec, DQNConfig())
-    agent_state = agent.init(torch.Generator(device=dev).manual_seed(SEED))
-    b = 32 * lanes
-    batch = {"obs": torch.zeros((b, 4), device=dev),
-             "action": torch.zeros((b,), dtype=torch.int32, device=dev),
-             "reward": torch.ones((b,), device=dev), "next_obs": torch.zeros((b, 4), device=dev),
-             "done": torch.zeros((b,), device=dev)}
-    weights = torch.ones((b,), device=dev)
-
-    def fn():
-        nonlocal agent_state
-        for _ in range(10):
-            agent_state, _, _ = agent.learn(agent_state, batch, weights)
-        torch.cuda.synchronize()
-
-    return dse.measure_throughput(fn, 10 * b)
+def point_config(p: dict) -> tuple:
+    """A fig9/fig10 point's runtime config as a plan names it: (backend,
+    n_data, n_pods, publish_interval)."""
+    if p["backend"] in ("fused", "async"):
+        return p["backend"], 0, 1, p["publish_interval"]
+    return "sharded", p["shards"], p["pods"], 0
 
 
 def f32_pair_times(torch, dev, n: int, s: int, hd: int, dtype=None) -> dict:
@@ -3079,8 +3096,10 @@ def f32_flash_times(torch, dev, n: int, s: int, hd: int) -> dict:
 
 
 def dse_phase(torch, dev, card: str) -> dict:
-    """Phase 20: Eq. 5 on the card's own lane curves, the planner's plan
-    built by executor_from_plan and run on the card; the wall-clock gang
+    """Phase 20: the planner's inputs profiled on the card
+    (``planner.profile``), Eq. 5 on its lane curves and the curve-only plan
+    built by executor_from_plan and run on the card; the plan from the
+    profiled points, realized (f); the wall-clock gang
     (launch/multiprocess.py) in its three modes, its ranks processes on
     this card over gloo; and launch/train.py --wall-clock 2."""
     import shutil
@@ -3093,30 +3112,44 @@ def dse_phase(torch, dev, card: str) -> dict:
     from repro_torch.launch import multiprocess as mp
     from repro_torch.launch import train
     from repro_torch.quickstart import transition_example
-    from repro_torch.runtime import dse, planner
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import dse, planner, sweeps
     from repro_torch.runtime.executors import FusedExecutor, executor_from_plan
     from repro_torch.runtime.loop import LoopConfig
 
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     res = {}
-    # (a) the lane curves, Eq. 5 and the plan, built and run on the card
+    # (a) the planner's inputs measured on the card by planner.profile(smoke=True):
+    # the fig9 points in this process, the fig10 points on meshes of ranks, the
+    # lane curves; Eq. 5 and the curve-only plan, built and run on the card
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    actor = dse.profile_curve(lambda x: dse_actor_throughput(torch, dev, x), list(DSE_LANES))
-    learner = dse.profile_curve(lambda x: dse_learner_throughput(torch, dev, x),
-                                list(DSE_LANES))
+    prof = planner.profile(smoke=True)
+    profile_s = time.perf_counter() - t0
+    prof_launches = dict(ops.launch_counts)
+    # the smoke profile's curves stop at 4 lanes; the 8-lane point keeps the
+    # Eq. 5 solves and the curve-only plan on fig12_dse's lanes (1, 2, 4, 8)
+    actor = {**prof["actor_curve"], **dse.profile_curve(sweeps.actor_throughput, [8])}
+    learner = {**prof["learner_curve"], **dse.profile_curve(sweeps.learner_throughput, [8])}
     solves = {ui: planner.solve_lanes(actor, learner, total=8, update_interval=ui)
               for ui in (1.0, 4.0)}
     pc = planner.plan(actor_curve=actor, learner_curve=learner, total_lanes=8,
                       update_interval=1, source="chip_smoke")
-    profile_s = time.perf_counter() - t0
     check(all(math.isfinite(v) and v > 0 for v in list(actor.values()) + list(learner.values())),
           f"20(a) lane curves not finite and positive: {actor}, {learner}")
     check(pc.backend == "fused" and pc.n_envs == solves[1.0].x_actor >= 1
           and pc.x_actor + pc.x_learner <= 8,
           f"20(a) the curve-only plan is not the Eq. 5 split: {pc}, {solves[1.0]}")
-    print(f"[dse a] lane curves on {dev} (fig12_dse's: 10 act+env steps of x CartPole envs; 10 "
-          f"learn calls at batch 32x): actor env-steps/s "
+    check(prof_launches.get("sumtree_sample", 0) == prof_launches.get("gather", 0) > 0
+          and not prof_launches.get("sample_gather") and not prof_launches.get("sumtree_update"),
+          f"20(a) the profile's in-process executors launched {prof_launches}: want as many "
+          "descents as gathers, and no fused or update kernel")
+    print(f"[dse a] planner.profile(smoke=True) on {dev} in {profile_s:.1f} s (3 fig9 points in "
+          f"this process, 3 fig10 meshes of ranks, the lane curves at 1, 2, 4; 8 lanes added "
+          f"after it); its in-process launches {prof_launches}; lane curves (fig12_dse's: 10 "
+          f"act+env steps of x CartPole envs; 10 learn calls at batch 32x): actor env-steps/s "
           f"{ {x: round(v, 1) for x, v in actor.items()} }, learner items/s "
           f"{ {x: round(v, 1) for x, v in learner.items()} }; Eq. 5 at total 8: "
           + "; ".join(f"update_interval {ui:g}: x_actor {r.x_actor}, x_learner {r.x_learner}, "
@@ -3148,8 +3181,56 @@ def dse_phase(torch, dev, card: str) -> dict:
     res["a"] = {"actor_curve": actor, "learner_curve": learner,
                 "solves": {str(ui): dataclasses.asdict(r) for ui, r in solves.items()},
                 "plan": pc.to_dict(), "realized_env_steps_per_s": realized, "seconds": secs,
-                "learner_calls": learned, "launches": counts, "profile_s": profile_s}
+                "learner_calls": learned, "launches": counts, "profile_s": profile_s,
+                "profile_launches": prof_launches}
     del ex, state, hist
+    # (f) the plan from the card's own points, realized in this call
+    fig9, fig10 = prof["fig9_points"], prof["fig10_points"]
+    check(len(fig9) == len(fig10) == 3 and all(
+        math.isfinite(p["env_steps_per_s"]) and p["env_steps_per_s"] > 0 for p in fig9 + fig10),
+          f"20(f) the profiled points are not 3 + 3 finite positive rates: {fig9}, {fig10}")
+    try:
+        sweeps.assert_uniform_n_envs(fig9 + fig10)
+        mixed = None
+    except ValueError as e:
+        mixed = str(e)
+    check(mixed is None, f"20(f) {mixed}")
+    pf = planner.plan(fig9, fig10, actor_curve=actor, learner_curve=learner, total_lanes=8,
+                      update_interval=1, source="chip_smoke")
+    chosen = [p for p in fig9 + fig10
+              if point_config(p) == (pf.backend, pf.n_data, pf.n_pods, pf.publish_interval)]
+    check(any(p["env_steps_per_s"] == pf.predicted_env_steps_per_s for p in chosen),
+          f"20(f) the plan ({pf.describe()}) is not a measured point at its measured rate: "
+          f"{chosen}")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    real = sweeps.realize_plan(pf, iters=REALIZE_ITERS)
+    realize_s = time.perf_counter() - t0
+    ln, calls_f = real["launches"], real["learner_calls"]
+    check(real["device"].startswith("cuda") and calls_f > 0
+          and ln.get("sumtree_sample", 0) == ln.get("gather", 0) == calls_f
+          and not ln.get("sample_gather") and not ln.get("sumtree_update"),
+          f"20(f) the realized plan on {real['device']} launched {ln} for {calls_f} learner "
+          "calls: want one descent and one gather a learner call")
+    check(math.isfinite(real["loss"]), f"20(f) the realized plan's loss {real['loss']}")
+    ratio = real["env_steps_per_s"] / pf.predicted_env_steps_per_s
+    print("[dse f] the card's points (env-steps/s at 8 envs, median of 3, rel_spread): "
+          + "; ".join(f"{p['backend']} shards {p['shards']} pods {p['pods']} publish "
+                      f"{p.get('publish_interval', 0)}: {p['env_steps_per_s']:.2f} "
+                      f"({p['rel_spread']:.4f})" for p in fig9 + fig10)
+          + f" | {card}", flush=True)
+    print(f"[dse f] plan from them: {pf.describe()}; realized {real['env_steps_per_s']:,.2f} "
+          f"env-steps/s in {REALIZE_ITERS} iterations after a warm-up chunk "
+          f"({'in this process' if not pf.n_data else f'{pf.n_devices} ranks over gloo'}, "
+          f"{realize_s:.1f} s with its start) against the predicted "
+          f"{pf.predicted_env_steps_per_s:,.2f}: realized/predicted {ratio:.4f}, recorded, not "
+          f"gated; {calls_f} learner calls, launches {dict(ln)}, loss {real['loss']:.5f} "
+          f"| {card}", flush=True)
+    res["f"] = {"fig9_points": fig9, "fig10_points": fig10, "plan": pf.to_dict(),
+                "predicted_env_steps_per_s": pf.predicted_env_steps_per_s,
+                "realized_env_steps_per_s": real["env_steps_per_s"], "ratio": ratio,
+                "learner_calls": calls_f, "launches": dict(ln), "seconds": realize_s}
     # (b), (d) and (e) check results, not speed: their gangs start together,
     # each process's start (~8-14 s) overlapping the others'
     args = ["--mode", "fused", "--iters", str(GANG_FUSED_ITERS), "--n-envs", "8",
@@ -3271,7 +3352,8 @@ def dse_phase(torch, dev, card: str) -> dict:
                            "learner_calls": int(kvs[0]["LEARN_CALLS"]), "seconds": secs_c}
     res["seconds"] = time.perf_counter() - t_phase
     print(f"[dse] phase 20 in {res['seconds']:.1f} s", flush=True)
-    print(f"[dse rate] {json.dumps({k: res[k] for k in ('a', 'b', 'c', 'd', 'e')})}", flush=True)
+    print(f"[dse rate] {json.dumps({k: res[k] for k in ('a', 'b', 'c', 'd', 'e', 'f')})}",
+          flush=True)
     return res
 
 
@@ -5811,10 +5893,12 @@ def _lint_programs(torch, dev) -> dict:
 
 # registry entries phase 28(b) does not run, and where their card runs are
 LINT_NOT_WITNESSED = {
-    "launch/multiprocess.py": "a gang process of its own (phases 19, 20)",
+    "launch/multiprocess.py": "a gang process of its own (phases 19, 20; the chaos drill's "
+                              "server crash and restore in 19(d))",
     "runtime/executors.py::ShardedExecutor": "the ranks of phase 18",
     "launch/train.py::_make_param_averager": "the wall-clock gang's ranks (phase 20(e))",
-    "service/": "the replay service's gang and executor (phase 19)",
+    "service/": "the replay service's gang and executor (phase 19; its crash path, the "
+                "snapshot restore onto the card, in 19(d))",
     "models/backbone.py::_whisper_forward": "Whisper-medium at full width (phase 25)",
     "models/layers.py::_attn_chunked_q": "the chunked-query attention, which no phase's "
                                          "config selects",
@@ -6448,11 +6532,14 @@ def main() -> None:
                                               for r in sharded["b"]]
         entry["service_launches"] = {"1-shard gang": service["a"]["launches"].get(entry["name"], 0),
                                      "2-shard fused gang": service["b"]["launches"].get(entry["name"], 0),
-                                     "ServiceExecutor": service["c"]["launches"].get(entry["name"], 0)}
+                                     "ServiceExecutor": service["c"]["launches"].get(entry["name"], 0),
+                                     "chaos drill, restored server": service["d"]["launches"].get(entry["name"], 0)}
         if entry["name"] == "gather":
             entry["sampling_chain"]["Pendulum 50,000/B=64, 5 leaves"] = actor_critic["chain"]
         name = entry["name"]
         entry["dse_launches"] = dse_res["a"]["launches"].get(name, 0)
+        entry["dse_profile_launches"] = dse_res["a"]["profile_launches"].get(name, 0)
+        entry["plan_realized_launches"] = dse_res["f"]["launches"].get(name, 0)
         entry["gang_launches"] = {
             "fused, 1 process": dse_res["b"]["launches"].get(name, 0),
             "bench, 2 ranks": [r.get(name, 0) for r in dse_res["c"]["plain"]["launches"]],

@@ -9,6 +9,7 @@ CPU tests).  All ten architectures are ported.
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from repro_torch.models.config import ModelConfig
 
@@ -47,3 +48,7 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
         raise ValueError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def all_configs(smoke: bool = False) -> Dict[str, ModelConfig]:
+    return {a: get_config(a, smoke) for a in ARCH_IDS}

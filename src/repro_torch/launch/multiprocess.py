@@ -703,6 +703,7 @@ def _replay_server_worker(args):
                 raise RuntimeError("--restore-server: no snapshot under "
                                    f"{args.snapshot_dir}")
             print(f"RESTORED_STEP={restored_step}", flush=True)
+            restored_calls = service.stats()["sample_calls"]
         service.attach_snapshots(
             manager, every_appends=max(1, args.snapshot_every_appends))
     fault_plan = (FaultPlan.parse(args.fault_plan)
@@ -749,6 +750,9 @@ def _replay_server_worker(args):
         print(f"LAUNCH_{name.upper()}={ops.launch_counts.get(name, 0)}")
     if restored_step is not None:
         print(f"RESTORED_STEP={restored_step}")
+        # the samples the snapshot carried over: SAMPLE_CALLS less these
+        # are the ones this server served (and launched kernels for)
+        print(f"RESTORED_SAMPLE_CALLS={restored_calls}")
     if timed_out:
         raise SystemExit("replay server: no stop received within "
                          f"--serve-timeout {args.serve_timeout:.0f}s")

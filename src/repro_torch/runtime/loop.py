@@ -387,6 +387,13 @@ def shard_seed(seed: int, shard_id: int) -> int:
     return int(np.random.SeedSequence((seed, shard_id)).generate_state(1, np.uint64)[0])
 
 
+def make_parallel_step(agent: Agent, replay, v_step: Callable, cfg: LoopConfig,
+                       n_envs: int):
+    """``parallel_step(state) → (state, metrics)``: the fused single-device
+    composition — the reference's compat wrapper over ``make_step``."""
+    return make_step(agent, replay, v_step, cfg, n_envs)
+
+
 def init_loop_state(agent: Agent, replay, v_reset: Callable, seed: int, n_envs: int,
                     double_buffer: bool = False, shard_id: int = 0,
                     ef_buffer: bool = False, overlap: bool = False) -> LoopState:

@@ -1,9 +1,9 @@
 """DSE-driven runtime configuration planner (paper §V-D, Eq. 5 — Fig. 12
 generalized from 1-D lane splits to full runtime configs) — a copy of
 ``repro.runtime.planner``, which is pure Python: the port imports nothing
-of the JAX package, so it keeps its own.  Only ``profile`` differs: it
-reuses the benchmark sweeps, which are not ported (ROADMAP item 26), and
-raises.
+of the JAX package, so it keeps its own.  Only ``profile`` differs: the
+reference's reuses its benchmark sweeps, the port's the same sweeps kept
+beside it (``runtime/sweeps.py``), on the card unless asked for the CPU.
 
 ``dse.solve`` answers one question: how to split a scalar lane budget
 between actors and learners so collection matches consumption (Eq. 5).
@@ -19,7 +19,8 @@ of actor/learner process counts (PAPERS.md):
   * profiled points come from ``BENCH_fig9.json`` (env-steps/s per
     executor backend and publish interval) and ``BENCH_fig10.json``
     (env-steps/s per shard/pod count), the json that the reference's
-    ``benchmarks/run.py --emit-json`` writes;
+    ``benchmarks/run.py --emit-json`` writes — or live via
+    :func:`profile`, which runs the same sweeps (``runtime/sweeps.py``);
   * the Eq. 5 lane split within the chosen config uses
     ``dse.solve`` on the actor/learner curves, hull-clamped
     (``dse.interp_hull``) so no allocation claims unmeasured throughput;
@@ -673,14 +674,35 @@ def load_plan(path: str) -> PlannedConfig:
 # -- live profiling ----------------------------------------------------------
 
 
-def profile(smoke: bool = False) -> dict:
-    """The reference measures the planner's inputs live by reusing its
-    benchmark sweeps (fig9, fig10 and fig12).  The benchmark folder is
-    not ported (ROADMAP item 26), so the port raises; profile lane curves
-    with ``dse.profile_curve`` on the port's own executors instead
-    (``chip_smoke.py`` phase 20 does)."""
-    del smoke
-    raise NotImplementedError(
-        "planner.profile() reuses the benchmark sweeps, which are not ported "
-        "to repro_torch (ROADMAP item 26); profile lane curves with "
-        "dse.profile_curve and plan from BENCH json with plan_from_json")
+def profile(smoke: bool = False, device: str = "cuda") -> dict:
+    """Measure the planner's inputs live on this machine through
+    ``runtime/sweeps.py``: the fig9 executor-backend points (in this
+    process), the fig10 shard/pod points (meshes of ranks, one a cell)
+    and the fig12-style actor/learner lane curves for the Eq. 5 split.
+    ``smoke`` shrinks every sweep to the reference's CI-budget sizes.  On
+    the card unless ``device="cpu"``."""
+    from repro_torch.runtime import sweeps
+
+    # one global env count per mode, across BOTH sweeps: the planner
+    # ranks fig9 and fig10 points against each other, which is only a
+    # like-for-like comparison when every point runs the same workload
+    if smoke:
+        fig9_pts = sweeps.executor_backend_points(
+            publish_intervals=(1, 2), n_envs=8, iters=40, device=device)
+        fig10_pts = sweeps.shard_pod_points(
+            shard_counts=(1, 2), pod_specs=((2, 1, False),),
+            n_envs=8, iters=40, device=device)
+        lanes = (1, 2, 4)
+    else:
+        fig9_pts = sweeps.executor_backend_points(n_envs=16, device=device)
+        fig10_pts = sweeps.shard_pod_points(n_envs=16, device=device)
+        lanes = (1, 2, 4, 8)
+    actor_curve = dse.profile_curve(lambda x: sweeps.actor_throughput(x, device), list(lanes))
+    learner_curve = dse.profile_curve(lambda x: sweeps.learner_throughput(x, device),
+                                      list(lanes))
+    return {
+        "fig9_points": fig9_pts,
+        "fig10_points": fig10_pts,
+        "actor_curve": actor_curve,
+        "learner_curve": learner_curve,
+    }

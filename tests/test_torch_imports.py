@@ -15,11 +15,14 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+# "benchmarks": the reference's sweeps, which import jax; the port keeps
+# its own (runtime/sweeps.py)
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
+        REPO / "tools" / name for name in ("chaos_drill_torch.py", "repro_lint_torch.py")]
 
 
 def _imported_roots(path):
@@ -49,7 +52,7 @@ def test_importing_every_module_loads_no_jax():
         for m in {mods!r}:
             importlib.import_module(m)
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+                     if m.split(".")[0] in {FORBIDDEN!r})
         assert not bad, bad
         print(len({mods!r}))
     """)
@@ -95,7 +98,8 @@ def test_quickstart_runs_on_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("rel", ["runtime/dse.py", "runtime/planner.py",
-                                 "launch/multiprocess.py"])
+                                 "launch/multiprocess.py", "runtime/sweeps.py",
+                                 "dse_autotune.py", "launch/chaos_drill.py"])
 def test_dse_planner_and_gang_import_no_jax(rel):
     """The modules copied from the reference's jax-free ones and the gang
     launcher import nothing of it: the AST scan, and a fresh interpreter
@@ -107,7 +111,7 @@ def test_dse_planner_and_gang_import_no_jax(rel):
     mod = "repro_torch." + rel[:-3].replace("/", ".")
     code = (f"import importlib, sys; importlib.import_module({mod!r}); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')); assert not bad, bad")
+            f"{FORBIDDEN!r}); assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           env=env, timeout=120, cwd=str(REPO))
@@ -136,3 +140,15 @@ def test_service_roles_need_cuda_unless_cpu_requested(monkeypatch):
             mp.main(["--mode", mode])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mp.launch(["--mode", "equiv"], n_procs=2)
+    from repro_torch.launch import chaos_drill
+    from repro_torch.runtime import sweeps
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        chaos_drill.run_drill(learn_steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweeps.shard_pod_points(shard_counts=(1,), pod_specs=())
+    for fn in (sweeps.actor_throughput, sweeps.learner_throughput):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweeps.executor_backend_points(publish_intervals=())

@@ -285,9 +285,42 @@ def test_save_load_round_trip_both_ways(tmp_path):
         planner.PlannedConfig.from_dict(dict(pc.to_dict(), mystery=1))
 
 
-def test_profile_raises_naming_item_26():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 26"):
-        planner.profile(smoke=True)
+@pytest.mark.parametrize("smoke", [True, False])
+def test_profile_returns_points_at_the_reference_sizes(monkeypatch, smoke):
+    """``profile`` returns what its sweeps measured, under the reference's
+    four keys, and asks them for the reference's sizes: smoke publish
+    intervals (1, 2), shards (1, 2), pods ((2, 1, False),), 40 iterations
+    and lanes (1, 2, 4); full the sweeps' defaults at 16 envs and lanes
+    (1, 2, 4, 8).  The sweeps are stubs here (tests/test_torch_sweeps.py
+    runs them); every call goes to the device asked for."""
+    from repro_torch.runtime import sweeps
+
+    calls = {}
+
+    def stub(name, out):
+        def fn(*args, **kw):
+            calls.setdefault(name, []).append((args, kw))
+            return out(*args) if callable(out) else out
+        monkeypatch.setattr(sweeps, name, fn)
+
+    fig9, fig10 = [_fig9_point(n_envs=8)], [_fig10_point(2, n_envs=8)]
+    stub("executor_backend_points", fig9)
+    stub("shard_pod_points", fig10)
+    stub("actor_throughput", lambda x, device: 100.0 * x)
+    stub("learner_throughput", lambda x, device: 40.0 * x)
+    prof = planner.profile(smoke=smoke, device="cpu")
+    lanes = [1, 2, 4] if smoke else [1, 2, 4, 8]
+    assert prof == {"fig9_points": fig9, "fig10_points": fig10,
+                    "actor_curve": {x: 100.0 * x for x in lanes},
+                    "learner_curve": {x: 40.0 * x for x in lanes}}
+    want9 = (dict(publish_intervals=(1, 2), n_envs=8, iters=40) if smoke
+             else dict(n_envs=16))
+    want10 = (dict(shard_counts=(1, 2), pod_specs=((2, 1, False),), n_envs=8, iters=40)
+              if smoke else dict(n_envs=16))
+    assert calls["executor_backend_points"] == [((), dict(want9, device="cpu"))]
+    assert calls["shard_pod_points"] == [((), dict(want10, device="cpu"))]
+    assert [a for a, _ in calls["actor_throughput"]] == [(x, "cpu") for x in lanes]
+    assert [a for a, _ in calls["learner_throughput"]] == [(x, "cpu") for x in lanes]
 
 
 # -- plan → executor ---------------------------------------------------------------
